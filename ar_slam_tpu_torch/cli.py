@@ -1,12 +1,15 @@
-"""``arslam-torch`` command line (port of the ``map`` and ``detect``
-subcommands of ar_slam_tpu/cli.py).
+"""``arslam-torch`` command line (port of the ``map``, ``localize`` and
+``detect`` subcommands of ar_slam_tpu/cli.py).
 
 - ``arslam-torch map [map.yaml ...] img... -o map.yaml``  ≙ ar_slam_cli:
   images only / re-solve a saved map / map + new images.
+- ``arslam-torch localize map.yaml img... -o localize.yaml``  ≙ ar_loc:
+  place new images against a frozen map.
 - ``arslam-torch detect img...``  detection only, one JSON line per image.
 
-Both run on the card when one is present (``--device`` overrides).  The
-reference CLI's other subcommands are not ported yet; of its flags,
+All run on the card; without one they stop with an error unless
+``--device cpu`` asks for the CPU.  The reference CLI's other
+subcommands are not ported yet; of its flags,
 --cpu-detector, --devices, --multihost, --platform, --profile,
 --iterative-schur and --progress are accepted and refused with a message.
 """
@@ -109,6 +112,26 @@ def cmd_map(args) -> int:
     return 0
 
 
+def cmd_localize(args) -> int:
+    engine = _engine(args)
+    engine.load_map(args.map)
+    images = []
+    for fn in args.inputs:
+        if _is_yaml(fn):
+            engine.load_map(fn)
+        else:
+            images.append(fn)
+    result = engine.localize(images)
+    engine.print_cameras()
+    engine.save_map(args.output)
+    for uid, status in result.get("status", {}).items():
+        print(f"{uid}: {status}")
+    print(f"localized {result.get('localized', 0)} captures, "
+          f"rmse {result.get('rmse', float('nan')):.4f} px -> {args.output}")
+    _maybe_print_metrics(args, engine)
+    return 0
+
+
 def cmd_detect(args) -> int:
     engine = _engine(args)
     for uid, dets, size, _path in engine.detect_images(args.inputs):
@@ -136,8 +159,9 @@ def main(argv=None) -> int:
                         help="YAML/JSON file with the full ArSlamConfig "
                              "tree (CLI flags override it)")
         sp.add_argument("--device", default="",
-                        help="torch device (default: cuda when present, "
-                             "else cpu)")
+                        help="torch device (default: cuda; without a card "
+                             "the command stops unless --device cpu asks "
+                             "for the CPU)")
         sp.add_argument("--metrics", action="store_true",
                         help="print the per-stage metrics summary (counts "
                              "and timings) as JSON on stderr at exit")
@@ -173,6 +197,13 @@ def main(argv=None) -> int:
     sp.add_argument("-o", "--output", default="map.yaml")
     common(sp)
     sp.set_defaults(fn=cmd_map)
+
+    sp = sub.add_parser("localize", help="localize against a map (≙ ar_loc)")
+    sp.add_argument("map", help="map.yaml to localize against")
+    sp.add_argument("inputs", nargs="+", help="images (or more yaml)")
+    sp.add_argument("-o", "--output", default="localize.yaml")
+    common(sp)
+    sp.set_defaults(fn=cmd_localize)
 
     sp = sub.add_parser("detect", help="detect markers, print JSON")
     sp.add_argument("inputs", nargs="+")

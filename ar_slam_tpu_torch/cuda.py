@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
 
 The kernels have a plain C interface and are bound with ``ctypes``: one
-``nvcc`` call compiles every source into ``build/kernels/`` at the root of
-the checkout, at first use, in seconds (a PyTorch C++ extension would take
-minutes to compile against PyTorch's headers).  The library's file name
+``nvcc`` per source, all run in parallel, then one link build them into
+``build/kernels/`` at the root of the checkout, at first use, in seconds
+(a PyTorch C++ extension would take minutes to compile against PyTorch's
+headers).  The library's file name
 carries a hash of the sources, so an edited kernel is rebuilt and a stale
 library is never loaded.
 
@@ -26,7 +27,7 @@ import torch
 import ar_slam_tpu_torch.device  # noqa: F401  (switches TF32 off)
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("box.cu", "ccl.cu", "extract.cu")
+SOURCES = ("box.cu", "ccl.cu", "ccl_strip.cu", "extract.cu")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                          "kernels")
 ARCH = "arch=compute_90a,code=sm_90a"
@@ -37,6 +38,8 @@ _SIGNATURES = {
     "arslam_box_sum": [_P, _P, _P, _I, _I, _I, _I, _P],
     "arslam_box_max_radius": [],
     "arslam_ccl": [_P, _P, _I, _I, _I, _P],
+    "arslam_ccl_strip_init": [_P, _P, _I, _I, _I, _P],
+    "arslam_ccl_strip_round": [_P, _P, _P, _I, _I, _I, _P],
     "arslam_extract": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
@@ -63,20 +66,39 @@ def library_path() -> str:
 
 
 def build() -> str:
-    """Compile the kernels unless this source state is already built."""
+    """Compile the kernels unless this source state is already built: one
+    ``nvcc`` per source, all started together, then one link."""
     global build_seconds
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-o", tmp,
-           *(os.path.join(CSRC, s) for s in SOURCES)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    objs, procs = [], []
+    for src in SOURCES:
+        obj = f"{tmp}.{os.path.splitext(src)[0]}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, "-gencode", ARCH, "-std=c++17", "-O3", "-c",
+             "-Xcompiler", "-fPIC", "-o", obj, os.path.join(CSRC, src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    errors = []
+    for src, proc in zip(SOURCES, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{src} ({proc.returncode}):\n{err}")
+    if not errors:
+        res = subprocess.run([nvcc, "-gencode", ARCH, "-shared", "-o", tmp,
+                              *objs], capture_output=True, text=True)
+        if res.returncode != 0:
+            errors.append(f"link ({res.returncode}):\n{res.stderr}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if errors:
+        raise RuntimeError("nvcc failed: " + "\n".join(errors))
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     return out

@@ -1,19 +1,25 @@
-"""K2: 8-connected component labels (port of detect/pallas_ccl.py).
+"""8-connected component labels: K2 and K3 (port of detect/pallas_ccl.py).
 
 Label = the component's minimum linear index in the true width; background
-= 2^30.  ``connected_components_batch`` launches the union-find CUDA kernel
-``csrc/ccl.cu`` on a CUDA tensor and runs ``connected_components_plain`` on
-a CPU tensor.
+= 2^30.  Each wrapper launches its CUDA kernel on a CUDA tensor and runs
+``connected_components_plain`` on a CPU tensor.
 
-The plain version iterates the reference's round (3x3 min-pool, then
-segmented min scans along rows and columns) until nothing changes, with no
-round cap, because union-find always resolves fully.  The reference stops
-after ``ccl_iters`` rounds; the two agree wherever the reference reaches its
-fixpoint (a deliberate divergence only on shapes needing more rounds).
+- ``connected_components_batch`` (K2, ``csrc/ccl.cu``) replaces
+  ``_ccl_fused_kernel`` (via ``connected_components_fused_batch``), which
+  the reference runs on planes up to ``FUSED_CCL_PIXEL_LIMIT``.  It is
+  union-find and always resolves fully, where the reference stops after
+  ``ccl_iters`` rounds (a deliberate divergence only on shapes needing more
+  rounds); its plain version iterates to the fixpoint with no cap.
+- ``connected_components_strip_batch`` (K3, ``csrc/ccl_strip.cu``) replaces
+  the strip kernels ``_row_kernel`` / ``_col_kernel`` (via
+  ``connected_components_pallas_batch``), run above that limit.  It keeps
+  the reference's round and its ``iters`` cap, so it equals the reference
+  exactly also where the cap cuts a component short.
 
-Replaces: ar_slam_tpu/detect/pallas_ccl.py ``_ccl_fused_kernel`` (via
-``connected_components_fused_batch``).  The strip kernels of the same file
-(K3, used above ``FUSED_CCL_PIXEL_LIMIT``) are not ported yet.
+The plain version runs the reference's round (3x3 min-pool, then the min
+over every full foreground run along rows, then along columns, each stage
+reading the whole previous stage) until nothing changes or ``iters``
+rounds have run.
 """
 
 from __future__ import annotations
@@ -23,7 +29,10 @@ import torch
 from ar_slam_tpu_torch import cuda
 
 BIG = 2**30
-launches = 0  # kernel launches since the last reset (CUDA path only)
+launches = 0  # K2 launches since the last reset (CUDA path only)
+strip_launches = 0  # K3 launches since the last reset (CUDA path only)
+strip_kernel_launches = 0  # the CUDA kernels those launches ran (1 + 2/round)
+strip_rounds = 0  # rounds the last K3 launch ran
 
 
 def _shift(x: torch.Tensor, delta: int, dim: int, fill) -> torch.Tensor:
@@ -41,20 +50,19 @@ def _shift(x: torch.Tensor, delta: int, dim: int, fill) -> torch.Tensor:
 
 
 def _run_min_scan(labels: torch.Tensor, dim: int) -> torch.Tensor:
-    """Min over each full foreground run along ``dim`` (both directions) by
-    log-step doubling; foreground = label < BIG."""
-    size = labels.shape[dim]
-    steps = max(size - 1, 1).bit_length()
-    fg = labels < BIG
-    for direction in (1, -1):
-        val, reach = labels, fg
-        for k in range(steps):
-            span = direction * (1 << k)
-            val = torch.where(reach, torch.minimum(val, _shift(val, span, dim,
-                                                                BIG)), val)
-            reach = reach & _shift(reach, span, dim, False)
-        labels = torch.minimum(labels, val)
-    return labels
+    """Min over each full foreground run along ``dim``; foreground = label <
+    BIG.  Each run gets its own number (a running count of run starts, which
+    restarts no run across lines since a line's first foreground pixel always
+    starts one), then one scatter-min per run and a gather back."""
+    x = labels.movedim(dim, -1)
+    fg = x < BIG
+    start = fg.clone()
+    start[..., 1:] &= ~fg[..., :-1]
+    run = torch.cumsum(start.reshape(-1), 0)
+    mins = torch.full((x.numel() + 1,), BIG, dtype=labels.dtype,
+                      device=labels.device)
+    mins.scatter_reduce_(0, run, x.reshape(-1), "amin")
+    return torch.where(fg, mins[run].reshape(x.shape), x).movedim(-1, dim)
 
 
 def _min_pool3(labels: torch.Tensor) -> torch.Tensor:
@@ -64,20 +72,25 @@ def _min_pool3(labels: torch.Tensor) -> torch.Tensor:
                                           _shift(m, -1, 2, BIG)))
 
 
-def connected_components_plain(binary: torch.Tensor) -> torch.Tensor:
-    """(N, H, W) bool -> (N, H, W) int32 labels, plain PyTorch."""
+def connected_components_plain(binary: torch.Tensor,
+                               iters: int | None = None) -> torch.Tensor:
+    """(N, H, W) bool -> (N, H, W) int32 labels, plain PyTorch: rounds
+    until nothing changes, at most ``iters`` (None: no cap)."""
     n, h, w = binary.shape
     idx = torch.arange(h * w, dtype=torch.int32,
                        device=binary.device).reshape(1, h, w)
     big = torch.tensor(BIG, dtype=torch.int32, device=binary.device)
     labels = torch.where(binary, idx, big)
-    while True:
+    rounds = 0
+    while iters is None or rounds < iters:
+        rounds += 1
         new = torch.where(binary, torch.minimum(labels, _min_pool3(labels)),
                           big)
         new = _run_min_scan(_run_min_scan(new, 2), 1)
         if torch.equal(new, labels):
-            return labels
+            break
         labels = new
+    return labels
 
 
 def connected_components_batch(binary: torch.Tensor) -> torch.Tensor:
@@ -92,4 +105,36 @@ def connected_components_batch(binary: torch.Tensor) -> torch.Tensor:
                                          n, h, w, cuda.stream()),
                "arslam_ccl")
     launches += 1
+    return labels
+
+
+def connected_components_strip_batch(binary: torch.Tensor,
+                                     iters: int = 24) -> torch.Tensor:
+    """(N, H, W) bool -> (N, H, W) int32 labels after at most ``iters``
+    rounds (K3; the reference's ``connected_components_pallas_batch``)."""
+    global strip_launches, strip_kernel_launches, strip_rounds
+    if binary.device.type == "cpu":
+        return connected_components_plain(binary, iters)
+    cuda.require(binary, "binary", torch.bool, 3)
+    n, h, w = binary.shape
+    lib = cuda.library()
+    labels = torch.empty((n, h, w), dtype=torch.int32, device=binary.device)
+    scratch = torch.empty_like(labels)
+    changed = torch.zeros(1, dtype=torch.int32, device=binary.device)
+    stream = cuda.stream()
+    cuda.check(lib.arslam_ccl_strip_init(binary.data_ptr(), labels.data_ptr(),
+                                         n, h, w, stream),
+               "arslam_ccl_strip_init")
+    strip_launches += 1
+    strip_kernel_launches += 1
+    rounds = 0
+    while rounds < iters:
+        rounds += 1
+        cuda.check(lib.arslam_ccl_strip_round(
+            labels.data_ptr(), scratch.data_ptr(), changed.data_ptr(), n, h,
+            w, stream), "arslam_ccl_strip_round")
+        strip_kernel_launches += 2
+        if not changed.item():
+            break
+    strip_rounds = rounds
     return labels

@@ -1,12 +1,13 @@
 """Batched Aruco detection: port of detect/tpu_detect.py:detect_batch.
 
-The stages are torch ops around three kernels (each with a plain PyTorch
+The stages are torch ops around four kernels (each with a plain PyTorch
 version that the CPU runs use):
 
 - adaptive threshold at every window, on box means from K1
   (``detect.box``), stacked on the batch axis;
 - 2x count-pool decimation of the binary planes;
-- connected components with K2 (``detect.ccl``);
+- connected components with K2, or K3 on planes above
+  ``FUSED_CCL_PIXEL_LIMIT`` (``detect.ccl``);
 - top-K component ranking on a min-pooled label grid;
 - extreme-point quads with K4 (``detect.extract``), ordered, expanded and
   filtered;
@@ -34,22 +35,25 @@ from ar_slam_tpu_torch.detect.dictionaries import get_dictionary
 from ar_slam_tpu_torch.device import resolve_device
 
 BIG = 2**30
-# largest padded decimated plane the reference's fused CCL kernel (K2)
-# handles; above it the reference runs its strip kernels (K3), which are
-# not ported yet (tpu_detect.py:775-786, pallas_ccl.FUSED_CCL_PIXEL_LIMIT)
+# largest padded decimated plane (padded as the reference pads it) that goes
+# to the fused CCL (K2); above it the strip-scan CCL (K3) runs, with the
+# round cap params.ccl_iters (tpu_detect.py:775-786,
+# pallas_ccl.FUSED_CCL_PIXEL_LIMIT)
 FUSED_CCL_PIXEL_LIMIT = 1_000_000
 
 
 class DetectParams(NamedTuple):
     """tpu_detect.DetectParams' fields and defaults (see there for the
-    reasoning behind each gate), less ``ccl_iters`` (union-find needs no
-    round bound) and ``ccl_backend`` (kernel or plain version follows the
-    tensor's device)."""
+    reasoning behind each gate), less ``ccl_backend`` (kernel or plain
+    version follows the tensor's device).  ``ccl_iters`` bounds the rounds
+    of the strip-scan CCL (K3); the fused CCL (K2) is union-find and
+    always resolves fully."""
 
     win: int = 23
     win_sizes: tuple = ()
     thresh_c: float = 7.0
     max_candidates: int = 32
+    ccl_iters: int = 24
     min_perimeter_rate: float = 0.03
     max_perimeter_rate: float = 4.0
     min_corner_distance_rate: float = 0.1
@@ -436,8 +440,9 @@ def detect_batch(images, *, params: DetectParams = DetectParams(),
 
     Args:
       images: (N, H, W) uint8/float grayscale, numpy or torch.
-      device: where to run (default: the card when present).  On a CUDA
-        device the three kernels run; on the CPU their plain versions.
+      device: where to run (default: the card; raises without one unless
+        "cpu" is asked for).  On a CUDA device the kernels run; on the CPU
+        their plain versions.
 
     Returns {dict_name: {"ids" (N, K') int64 (-1 invalid), "corners"
     (N, K', 4, 2) float32 pixel coords in canonical corner order, "valid"
@@ -458,13 +463,6 @@ def detect_batch(images, *, params: DetectParams = DetectParams(),
     hd, wd = -(-h // d), -(-w // d)
     hw_pad = (-(-hd // 128) * 128 if hd > 128 else -(-hd // 8) * 8) * (
         -(-wd // 128) * 128)
-    if hw_pad > FUSED_CCL_PIXEL_LIMIT:
-        raise NotImplementedError(
-            f"detection plane {hd}x{wd} (padded {hw_pad} px) exceeds the "
-            f"fused-CCL limit of {FUSED_CCL_PIXEL_LIMIT} px: the reference "
-            "switches to its strip-scan CCL kernels there (K3, "
-            "ar_slam_tpu/detect/pallas_ccl.py _row_kernel/_col_kernel), "
-            "which are not ported yet; lower DetectConfig.max_side")
 
     binary_b = torch.cat([images < box.box_mean_batch(images, win)
                           - params.thresh_c for win in windows])
@@ -478,7 +476,11 @@ def detect_batch(images, *, params: DetectParams = DetectParams(),
             dim=(2, 4))
         binary_b = (counts >= (d * d + 1) // 2).contiguous()
 
-    labels_b = ccl.connected_components_batch(binary_b)
+    if hw_pad <= FUSED_CCL_PIXEL_LIMIT:
+        labels_b = ccl.connected_components_batch(binary_b)
+    else:
+        labels_b = ccl.connected_components_strip_batch(binary_b,
+                                                        params.ccl_iters)
     roots_b, area_b = top_k_subsampled(labels_b, k, params.topk_subsample,
                                        params.max_area_frac)
     raw_q = extract.extreme_quads(labels_b, roots_b)

@@ -1,6 +1,5 @@
 # Copied from ar_slam_tpu/detect/dictionaries.py and kept equal to it (a CPU
-# test checks that), except that it reads the JAX package's dictionaries.npz
-# by file path (the data is not duplicated and the package is not imported).
+# test checks that), with its own copy of dictionaries.npz beside it.
 """Aruco dictionary bit tables (4X4_50, 5X5_100, 6X6_250) with rotations.
 
 These are the three dictionaries the reference's ``aruco_dict`` detector
@@ -23,8 +22,7 @@ import numpy as np
 
 DICT_NAMES = ("4X4_50", "5X5_100", "6X6_250")
 
-_NPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..",
-                    "ar_slam_tpu", "detect", "dictionaries.npz")
+_NPZ = os.path.join(os.path.dirname(__file__), "dictionaries.npz")
 
 
 class Dictionary:

@@ -18,13 +18,20 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
 def default_device() -> torch.device:
-    """``cuda`` when a card is present, else ``cpu``."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """``cuda``; raises where there is no card.  The CPU runs only when a
+    caller asks for it (``device="cpu"``, ``--device cpu``)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device (torch.cuda.is_available() is False); the port "
+            "runs on the card by default: pass device='cpu' (--device cpu "
+            "on the command line) to run on the CPU")
+    return torch.device("cuda")
 
 
 def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on.  Asking for CUDA where there is
-    none raises: the port never falls back to the CPU silently."""
+    """The device an entry point runs on: the card unless the caller names
+    another.  Without a card, ``None`` and any CUDA device raise: the port
+    never falls back to the CPU silently."""
     if device is None:
         return default_device()
     device = torch.device(device)

@@ -2,8 +2,9 @@
 
 ≙ the batch flow of the reference's ar_slam_cli: ingest images, detect
 markers on the device, add each capture's detections to the constraint
-graph, solve, save map.yaml.  The event log, snapshots, artifact export and
-localization of the reference engine are not ported yet.
+graph, solve, save map.yaml; and ≙ ar_loc: localize new images against a
+loaded map.  The event log, snapshots, artifact export and the incremental
+solve of the reference engine are not ported yet.
 """
 
 from __future__ import annotations
@@ -53,9 +54,9 @@ class Metrics:
 class ArSlamEngine:
     """Batch mapping engine with the batched device detector.
 
-    ``device`` (default: the card when present) runs detection and the
-    solve; ``dtype`` (default: config.solver.dtype) is the solver's
-    working precision.
+    ``device`` (default: the card; without one only ``"cpu"`` runs) runs
+    detection and the solves; ``dtype`` (default: config.solver.dtype) is
+    the solver's working precision.
     """
 
     def __init__(self, config: ArSlamConfig | None = None, device=None,
@@ -165,12 +166,39 @@ class ArSlamEngine:
 
     def add_images(self, paths: list[str]) -> list[int]:
         """Detect + add captures to the graph (unsolved pool)."""
+        with self.metrics.timer("ingest"):
+            caps = self.ingest.ingest_many(paths)
+        return self.add_decoded(caps)
+
+    def add_decoded(self, caps) -> list[int]:
+        """``add_images`` over already-ingested captures (see
+        ``detect_decoded``).  Returns the indices of the captures added."""
         added = []
-        for uid, dets, size, path in self.detect_images(paths):
-            idx = self.store.add_detections(uid, dets, size, path)
+        for uid, by_dict, size, path in self.detect_decoded(caps):
+            idx = self.store.add_detections(
+                uid, [d for dets in by_dict.values() for d in dets], size,
+                path)
             if idx is not None:
                 added.append(idx)
         return added
+
+    def localize(self, paths: list[str]) -> dict:
+        """Localize new images against the frozen current map (≙ ar_loc)."""
+        with self.metrics.timer("ingest"):
+            caps = self.ingest.ingest_many(paths)
+        return self.localize_decoded(caps)
+
+    def localize_decoded(self, caps) -> dict:
+        """``localize`` over already-ingested captures."""
+        from ar_slam_tpu_torch.solve.localize import localize_many
+
+        first = self.store.next_capture_index
+        self.add_decoded(caps)
+        with self.metrics.timer("localize"):
+            out = localize_many(self.store, first, self.config,
+                                dtype=self.dtype, device=self.device)
+        self.metrics.count("captures_localized", out.get("localized", 0))
+        return out
 
     def solve(self) -> dict:
         """Batch BFS solve (≙ ar_slam_cli)."""

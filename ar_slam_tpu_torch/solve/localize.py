@@ -1,0 +1,213 @@
+"""Map-based localization: pose-only solves against a frozen map (port of
+ar_slam_tpu/solve/localize.py).
+
+≙ ``ArSlamSolver::localizeMany`` / ``localizeOne``
+(ar_slam_util.cpp:888-979): each query capture is seeded from a block whose
+tag is shared with a map capture, then optimized alone with tag poses and
+camera intrinsics constant.  Every query is an independent 6-unknown
+problem, so all of them run at once: one Python loop of at most
+``max_iterations`` LM iterations over the (Q, ...) batch, each query with
+its own lambda, acceptance and convergence, and one host read per
+iteration to stop when every query has converged.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+from torch.func import jacfwd, vmap
+
+from ar_slam_tpu_torch.core.projection import block_residual
+from ar_slam_tpu_torch.core.seeding import seed_capture_pose
+from ar_slam_tpu_torch.device import resolve_device, resolve_dtype
+from ar_slam_tpu_torch.graph.store import MapStore
+from ar_slam_tpu_torch.solve.lm import LMConfig
+
+logger = logging.getLogger(__name__)
+
+
+def localize_batch(camera, tag_poses, q_tag_idx, q_corners, q_block_mask,
+                   q_seed_slot, *, aruco_size: float, config: LMConfig,
+                   seed_mode: str = "hybrid"):
+    """Batched pose-only LM (the reference's vmapped ``localize_kernel``).
+
+    Args:
+      camera: (3,) frozen intrinsics.
+      tag_poses: (T, 6) frozen map tag poses.
+      q_tag_idx: (Q, K) int64 tag index per query block (padded).
+      q_corners: (Q, K, 4, 2) observed corners.
+      q_block_mask: (Q, K) bool.
+      q_seed_slot: (Q,) int64, which of the K blocks seeds the pose.
+
+    Returns ((Q, 6) optimized inverse capture poses, (Q,) final costs,
+    (Q,) int64 iteration counts).
+    """
+    dtype = camera.dtype
+    q = q_tag_idx.shape[0]
+    ar = torch.arange(q, device=camera.device)
+    tps = tag_poses[q_tag_idx]  # (Q, K, 6)
+    maskf = q_block_mask.to(dtype)
+    zero = torch.zeros((), dtype=dtype, device=camera.device)
+
+    def residual_fn(pose, tp, corners, m):
+        r = block_residual(camera, pose, tp, corners, aruco_size,
+                           config.enable_distortion)  # (K, 8)
+        return torch.where(m[:, None] > 0, r, zero).reshape(-1)
+
+    def with_aux(pose, tp, corners, m):
+        r = residual_fn(pose, tp, corners, m)
+        return r, r
+
+    jac = vmap(jacfwd(with_aux, has_aux=True))
+    residuals = vmap(residual_fn)
+
+    def cost_of(pose):
+        r = residuals(pose, tps, q_corners, maskf)
+        return 0.5 * torch.sum(r * r, dim=1)
+
+    seed = q_seed_slot.to(torch.int64)
+    pose = seed_capture_pose(q_corners[ar, seed], camera, tps[ar, seed],
+                             aruco_size, mode=seed_mode)
+    lam = torch.full((q,), config.initial_lambda, dtype=dtype,
+                     device=camera.device)
+    nu = torch.full_like(lam, 2.0)
+    cost = cost_of(pose)
+    it = torch.zeros(q, dtype=torch.int64, device=camera.device)
+    # queries without blocks start converged (zero residuals never accept)
+    conv = ~q_block_mask.any(dim=1)
+    for _ in range(config.max_iterations):
+        active = ~conv
+        if not bool(active.any()):
+            break
+        j, r = jac(pose, tps, q_corners, maskf)  # (Q, K8, 6), (Q, K8)
+        h = j.transpose(1, 2) @ j
+        g = (j.transpose(1, 2) @ r[..., None])[..., 0]
+        d = torch.clamp(torch.diagonal(h, dim1=1, dim2=2), 1e-6, 1e32)
+        step = -torch.linalg.solve_ex(
+            h + lam[:, None, None] * torch.diag_embed(d),
+            g[..., None]).result[..., 0]
+        new_pose = pose + step
+        new_cost = cost_of(new_pose)
+        js = (j @ step[..., None])[..., 0]
+        model = -(g * step).sum(1) - 0.5 * torch.sum(js * js, dim=1)
+        rho = (cost - new_cost) / torch.clamp(model, min=1e-30)
+        accept = rho > config.min_relative_decrease
+        lam_acc = torch.clamp(
+            lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0),
+            config.min_lambda, config.max_lambda)
+        lam_rej = torch.clamp(lam * nu, max=config.max_lambda)
+        # the reference's three-way exit: function or parameter tolerance
+        # on an accepted step, stall-lambda on a rejected one
+        f_conv = torch.abs(cost - new_cost) <= config.function_tolerance * cost
+        step_norm = torch.sqrt(torch.sum(step * step, dim=1))
+        x_norm = torch.sqrt(torch.sum(pose * pose, dim=1))
+        p_conv = step_norm <= config.parameter_tolerance * (
+            x_norm + config.parameter_tolerance)
+        stalled = ~accept & (lam >= config.stall_lambda)
+        new_conv = (accept & (f_conv | p_conv)) | stalled
+        take = active & accept
+        pose = torch.where(take[:, None], new_pose, pose)
+        cost = torch.where(take, new_cost, cost)
+        lam = torch.where(active, torch.where(accept, lam_acc, lam_rej), lam)
+        nu = torch.where(active, torch.where(accept, torch.full_like(nu, 2.0),
+                                             nu * 2.0), nu)
+        it = it + active.to(torch.int64)
+        conv = torch.where(active, new_conv, conv)
+    return pose, cost, it
+
+
+def localize_many(store: MapStore, first_loc_cap_idx: int, config=None,
+                  dtype=None, device=None) -> dict:
+    """Localize every capture with index >= first_loc_cap_idx against the
+    frozen map built from earlier captures, on ``device`` (default: the
+    card) in ``dtype`` (default: config.solver.dtype).
+
+    Mutates the query captures' poses in the store.  Returns a summary with
+    per-capture status ("localized" / "disconnected").
+    """
+    from ar_slam_tpu_torch.config import ArSlamConfig
+    from ar_slam_tpu_torch.solve.batch import _lm_config
+
+    config = config or ArSlamConfig()
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype if dtype is not None else config.solver.dtype)
+
+    def tag_in_map(tag) -> bool:
+        return any(store.blocks[tbh].cap_idx < first_loc_cap_idx
+                   for tbh in tag.blocks)
+
+    # parity switch: the reference's localizeOne adds ALL of the query's
+    # blocks with tag poses constant, including tags absent from the map
+    # (ar_slam_util.cpp:950-972); the default uses only map-known tags
+    include_unknown = bool(getattr(config.solver, "localize_unknown_tags",
+                                   False))
+    queries = []
+    status = {}
+    for cap in store.captures[first_loc_cap_idx:]:
+        # the seed block must be map-known either way (≙ the
+        # initCapturePose source block, ar_slam_util.cpp:911-927)
+        seed_block = None
+        map_blocks = []
+        for bh in cap.blocks:
+            tag = store.arucos[store.blocks[bh].tag_idx]
+            if tag_in_map(tag):
+                map_blocks.append(bh)
+                if seed_block is None:
+                    seed_block = bh
+            elif include_unknown:
+                map_blocks.append(bh)
+        if seed_block is None:
+            logger.warning("Cannot find connected ar tags for capture %d",
+                           cap.index)
+            status[cap.uid] = "disconnected"
+            continue
+        queries.append((cap, seed_block, map_blocks))
+        status[cap.uid] = "localized"
+
+    if not queries:
+        return {"status": status, "localized": 0}
+
+    # padded blocks are masked to exact zeros, so the width is the largest
+    # query's (the reference's bucketed widths change no result)
+    q, k = len(queries), max(len(mb) for _, _, mb in queries)
+    q_tag_idx = np.zeros((q, k), dtype=np.int64)
+    q_corners = np.zeros((q, k, 4, 2), dtype=np.float64)
+    q_mask = np.zeros((q, k), dtype=bool)
+    q_seed = np.zeros(q, dtype=np.int64)
+    for qi, (cap, seed_block, map_blocks) in enumerate(queries):
+        for ki, bh in enumerate(map_blocks):
+            block = store.blocks[bh]
+            q_tag_idx[qi, ki] = block.tag_idx
+            q_corners[qi, ki] = block.corners
+            q_mask[qi, ki] = True
+            if bh == seed_block:
+                q_seed[qi] = ki
+    tag_poses = np.zeros((max(len(store.arucos), 1), 6))
+    for tag in store.arucos:
+        tag_poses[tag.index] = tag.pose
+
+    def dev(a, dt=None):
+        return torch.as_tensor(a, device=device, dtype=dt)
+
+    poses, costs, iters = localize_batch(
+        dev(store.camera.params, dtype), dev(tag_poses, dtype),
+        dev(q_tag_idx), dev(q_corners, dtype), dev(q_mask), dev(q_seed),
+        aruco_size=config.aruco_size,
+        config=_lm_config(config.solver, config.camera),
+        seed_mode=config.solver.seed_mode)
+    poses = poses.cpu().numpy()
+    costs = costs.cpu().numpy()
+    iters = iters.cpu().numpy()
+    for qi, (cap, _, _) in enumerate(queries):
+        cap.inv_pose[:] = poses[qi]
+    n_blocks = int(q_mask.sum())
+    return {
+        "status": status,
+        "localized": len(queries),
+        "cost": float(costs.sum()),
+        "rmse": float(np.sqrt(2.0 * costs.sum() / (8 * n_blocks))),
+        "iterations": {cap.uid: int(iters[qi])
+                       for qi, (cap, _, _) in enumerate(queries)},
+    }

@@ -91,11 +91,21 @@ def project(focal: float, inv_cap_pose: np.ndarray, tag_pose: np.ndarray,
     return focal * p_c[:, 0:2] / p_c[:, 2:3], p_c[:, 2]
 
 
+# a 12 MP phone photo (4032x3024, the default output of most phone
+# cameras) through a 26 mm-equivalent lens: focal 26/36 * 4032 ~ 2900 px.
+# The room's tags then have sides of ~145-230 px at 63.5 mm (~115-180 px at
+# 50 mm), above the detector's perimeter gate of 4 * 0.03 * 4032 * 0.5
+# ~ 242 px (a ~60 px side).
+PHONE_12MP = dict(width=4032, height=3024, focal=2900.0)
+
+
 def room_scene(n_frames: int = 16, width: int = 1020, height: int = 768,
                focal: float = 900.0, aruco_size: float = 0.0635,
-               seed: int = 0, noise: float = 2.0):
+               seed: int = 0, noise: float = 2.0, arc=None):
     """Render ``n_frames`` views of 24 tags (12 4X4_50, 12 5X5_100) on two
-    walls.  Returns (frames (N, H, W) uint8, truth) where truth["frames"]
+    walls (``room_scene(n, **PHONE_12MP)`` for 12 MP phone photos).
+    ``arc`` gives each frame's place on the camera arc in [0, 1] (default:
+    evenly spaced in frame order).  Returns (frames (N, H, W) uint8, truth) where truth["frames"]
     lists, per frame, (dict_name, marker_id, corners (4, 2) pixel coords,
     min side px) of every tag fully inside it, and truth holds the tag
     poses, inverse capture poses and focal."""
@@ -126,16 +136,18 @@ def room_scene(n_frames: int = 16, width: int = 1020, height: int = 768,
         get_dictionary(n).marker_size + 2) for n, _, _ in tags}
     center = np.array([width / 2.0, height / 2.0])
     yy, xx = np.mgrid[0:height, 0:width]
+    shading = 175.0 + 40.0 * (xx / width) - 25.0 * (yy / height)
+    del yy, xx
     frames, truth_frames, cap_poses = [], [], []
     for k in range(n_frames):
-        a = k / max(n_frames - 1, 1)
+        a = k / max(n_frames - 1, 1) if arc is None else float(arc[k])
         cam_pos = np.array([-0.15 + 0.55 * a, 0.04 * np.sin(5 * a),
                             0.05 * a])
         yaw = np.deg2rad(-5.0 + 40.0 * a)
         inv_pose = np.concatenate([-cam_pos, [0.0, -yaw, 0.0]])
         inv_pose[3:6] += rng.normal(scale=0.02, size=3)
         cap_poses.append(inv_pose)
-        img = (175.0 + 40.0 * (xx / width) - 25.0 * (yy / height))
+        img = shading.copy()
         seen = []
         for name, mid, pose in tags:
             crn, z = project(focal, inv_pose, pose, 0.5 * aruco_size)
@@ -154,7 +166,8 @@ def room_scene(n_frames: int = 16, width: int = 1020, height: int = 768,
             side = np.linalg.norm(crn - np.roll(crn, -1, axis=0), axis=1).min()
             seen.append((name, mid, crn, float(side)))
         img += rng.normal(scale=noise, size=img.shape)
-        frames.append(np.clip(np.round(img), 0, 255).astype(np.uint8))
+        np.round(img, out=img)
+        frames.append(np.clip(img, 0, 255, out=img).astype(np.uint8))
         truth_frames.append(seen)
     return np.stack(frames), {
         "frames": truth_frames,

@@ -1,26 +1,43 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile] [--tag-mm 50]
 
 Phases (each prints one JSON line; any failure exits non-zero):
 
 1. device  — requires CUDA; prints the card's name and power limit;
-2. build   — compiles the CUDA kernels from ar_slam_tpu_torch/csrc;
-3. kernels — each kernel against its plain PyTorch version at the main
-   path's shapes on rendered frames (box filter within a stated tolerance
-   of a float64 reference; connected components and extreme points
-   exactly), with median CUDA-event times of both;
-4. main path — 16 rendered 1020x768 frames of a 24-tag room through the
-   engine (detect_decoded in batches of 8 -> add_detections -> solve ->
-   save_map); every kernel must have launched, every rendered tag of side
-   >= 40 px must be found with its true id, no foreign id may appear, the
-   map's rmse must be < 1 px, and map.yaml must reload through the fast
-   parser with the same tags;
-5. solver  — the 500-tag / 200-capture synthetic in float32: final cost
+2. build   — compiles the CUDA kernels from ar_slam_tpu_torch/csrc (one
+   nvcc per source, in parallel);
+3. kernels — each kernel against its plain PyTorch version on rendered
+   frames at the shapes of both main paths below: K1 (box filter) within a
+   stated tolerance of a float64 reference, K2 and K3 (connected
+   components) exactly, K4 (extreme points) exactly where its coordinate
+   sums are below 2^24 and within 2 px elsewhere, K3 also on a serpentine
+   cut short by its 24-round cap; median CUDA-event times of the kernel, its
+   plain version and, for K1, the library call F.avg_pool2d;
+4. room-16 — 16 rendered 1020x768 frames of a 24-tag room through the
+   engine (add_decoded in batches of 8 -> solve -> save_map); K1, K2 and
+   K4 must launch (K3 not), every rendered tag of side >= 40 px must be
+   found with its true id, no foreign id may appear, the map's rmse must
+   be < 1 px, and map.yaml must reload through the fast parser with the
+   same tags;
+5. phone_12mp — 12 rendered 4032x3024 phone photos of the room (50 mm
+   tags, 114-182 px): frames
+   0-7 mapped (one batch of 8), the map saved, then a fresh engine loads it
+   and localizes frames 8-11, taken between the map's viewpoints
+   (engine.localize_decoded); K1, K3 and K4 must
+   launch and K2 not, every rendered tag of side >= 80 px must be found
+   with its true id and no foreign id, map and localize rmse < 1 px, every
+   query localized, each query camera within 2 cm of the rendered truth
+   after aligning the map's cameras to it (utils/ate.py), and the card's
+   float32 localization within 1e-3 (pose) and 0.01 px (rmse) of a float64
+   CPU localization of the same detections against the same map;
+6. solver  — the 500-tag / 200-capture synthetic in float32: final cost
    within 1e-3 relative of the float64 optimum 3771.57, and LM
    iterations/s from two iteration budgets.
 
-Then the kernel table as one JSON line, and last
+With --profile, one detection batch of each cell and phone_12mp's
+localization then run under torch.profiler (device time, idle share, the
+largest device items).  Then the kernel table as one JSON line, and last
 {"ok": true, "device": {...}}.  Uses no jax, PIL, cv2 or yaml.
 """
 
@@ -38,6 +55,30 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "build", "chip_smoke")
 F64_OPTIMUM_500 = 3771.57  # BASELINE.md, CPU float64 solve of the same map
 DEVICE = "cuda"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM 80 GB, NVIDIA data sheet (700 W)
+F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same source
+PHONE_SIDE_PX = 80.0  # tags below this side need not be found at 12 MP
+# phone_12mp prints 50 mm tags (sides 114-182 px in the frames); with the
+# room-16 size of 63.5 mm (--tag-mm 63.5, sides 145-231 px) one frame
+# decodes a foreign id, as the JAX detector does too (PERF.md, Findings)
+PHONE_TAG_M = 0.05
+QUERY_POSITION_M = 0.02  # query camera position bound after alignment
+# K4 slots whose coordinate sums reach 2^24: the float32 centroids of the
+# kernel (integer sums) and the plain version (float sums) may differ in the
+# last bits, which can flip an argmax between two tied neighbouring extreme
+# pixels, so their corners are held within 2 px
+K4_INEXACT_TOL_PX = 2.0
+F32_POSE_TOL, F32_RMSE_TOL_PX = 1e-3, 0.01  # card float32 vs CPU float64
+# phone_12mp camera arc: the 8 map frames evenly along it, the 4 queries
+# halfway between map frames 0-1, 2-3, 4-5 and 6-7 (photos taken inside
+# the mapped stretch of the room)
+PHONE_ARC = [i / 7 for i in range(8)] + [(i + 0.5) / 7 for i in (0, 2, 4, 6)]
+
+
+# the launch counter (read_counts key) behind each kernel row
+COUNTERS = {"box_sum (K1)": "box", "connected_components (K2)": "ccl",
+            "connected_components_strip (K3)": "ccl_strip",
+            "extreme_quads (K4)": "extract"}
 
 
 def emit(phase: str, **kw) -> None:
@@ -65,6 +106,14 @@ def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def bound(n_bytes: float, n_ops: float = 0.0) -> tuple[float, str]:
+    """Least milliseconds the card could take: the larger of the bytes over
+    the memory rate and the float32 operations over their peak rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_device():
@@ -115,23 +164,23 @@ def _serpentine(h, w, seed=1):
     return np.stack([img, noise])
 
 
-def phase_kernels(frames):
+def _k1_row(imgs, label):
+    """K1 on one batch of frames: thresholds at 3/13/23 and the refine
+    fields at 11 checked, timing at win 23.  Returns the table row."""
     import torch
+    import torch.nn.functional as F
 
-    from ar_slam_tpu_torch.detect import box, ccl, extract
-    from ar_slam_tpu_torch.detect.detect import _gradient, top_k_subsampled
+    from ar_slam_tpu_torch.detect import box
+    from ar_slam_tpu_torch.detect.detect import _gradient
 
-    dev = torch.device(DEVICE)
-    imgs = torch.from_numpy(frames[:8]).to(dev, torch.float32).contiguous()
+    dev = imgs.device
     n, h, w = imgs.shape
-    rows = []
-
-    # K1: thresholds at 3/13/23, refine fields at 11
     gy, gx = _gradient(imgs, 1), _gradient(imgs, 2)
     x = torch.arange(w, device=dev, dtype=torch.float32)
     y = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
     fields = torch.stack([gx * gx, gx * gy, gy * gy, gx * gx * x + gx * gy * y,
                           gx * gy * x + gy * gy * y], 1).reshape(n * 5, h, w)
+    del gx, gy
     k1_err = 0.0
     for win, inp in ((3, imgs), (13, imgs), (23, imgs),
                      (11, fields.contiguous())):
@@ -144,22 +193,97 @@ def phase_kernels(frames):
         tol = 1e-5 * ref.abs().max().item()
         err = (got.double() - ref).abs().max().item()
         perr = (plain.double() - ref).abs().max().item()
+        del got, ref, plain
         if not (err <= tol and perr <= tol):
-            fail(f"K1 win {win}: error {err} (plain {perr}) > {tol}")
+            fail(f"K1 {label} win {win}: error {err} (plain {perr}) > {tol}")
         if win == 23:
             k1_err = err
-        emit("kernel_check", kernel="box", win=win, shape=list(inp.shape),
-             max_abs_err=err, plain_max_abs_err=perr, tolerance=tol)
-    rows.append({
+        emit("kernel_check", kernel="box", cell=label, win=win,
+             shape=list(inp.shape), max_abs_err=err, plain_max_abs_err=perr,
+             tolerance=tol)
+    del fields
+    win, r = 23, 11
+    # one pass over the frames in and the sums out; 2 * (win - 1) adds per
+    # pixel for a separable window sum
+    bound_ms, bound_by = bound(2 * 4 * n * h * w, 2 * (win - 1) * n * h * w)
+    return {
         "name": "box_sum (K1)", "route": "cuda",
         "source": "ar_slam_tpu_torch/csrc/box.cu",
         "replaces": "ar_slam_tpu/detect/pallas_box.py:35",
         "max_abs_err": k1_err, "tolerance": "1e-5 * max|f64 sum|",
-        "ms": cuda_ms(lambda: box.box_sum_batch(imgs, 23)),
-        "plain_ms": cuda_ms(lambda: box.box_sum_plain(imgs, 23)),
-        "shape": [n, h, w], "win": 23})
+        "ms": cuda_ms(lambda: box.box_sum_batch(imgs, win)),
+        "plain_ms": cuda_ms(lambda: box.box_sum_plain(imgs, win)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": cuda_ms(lambda: F.avg_pool2d(F.pad(
+            imgs[:, None], (r, r, r, r), mode="replicate"), win,
+            stride=1)[:, 0] * float(win * win)),
+        "library_call": "F.avg_pool2d(F.pad(x, replicate)) * win^2",
+        "cell": label, "shape": [n, h, w], "win": win}
 
-    # K2: the 24 stacked decimated planes + a serpentine/noise pair
+
+def _k4_row(labels, label):
+    """K4 on the top-64 roots of one batch of label planes: exact where
+    the plain version's float32 coordinate sums are exact (< 2^24); the
+    other slots' largest corner difference is reported."""
+    import torch
+
+    from ar_slam_tpu_torch.detect import extract
+    from ar_slam_tpu_torch.detect.detect import top_k_subsampled
+
+    dev = labels.device
+    roots, _ = top_k_subsampled(labels, 64, 2, 0.25)
+    q = extract.extreme_quads(labels, roots)
+    qp = extract.extreme_quads_plain(labels, roots)
+    torch.cuda.synchronize()
+    hd, wd = labels.shape[1:]
+    lin = torch.arange(hd * wd, device=dev)
+    exact = torch.zeros(roots.shape, dtype=torch.bool, device=dev)
+    for i in range(labels.shape[0]):
+        member = labels[i].reshape(1, -1) == roots[i][:, None]
+        sx = torch.where(member, lin % wd, 0).sum(1)
+        sy = torch.where(member, lin // wd, 0).sum(1)
+        exact[i] = (sx < 2**24) & (sy < 2**24)
+        del member, sx, sy
+    if not torch.equal(q[exact], qp[exact]):
+        fail(f"K4 {label}: quads differ from the plain version")
+    inexact = (q[~exact] - qp[~exact]).abs()
+    inexact_err = float(inexact.max()) if inexact.numel() else 0.0
+    emit("kernel_check", kernel="extract", cell=label,
+         shape=list(roots.shape), exact_slots=int(exact.sum()),
+         slots=int(exact.numel()), max_abs_err_inexact_slots=inexact_err,
+         inexact_slots_differing=int((inexact.amax(dim=(1, 2)) > 0).sum())
+         if inexact.numel() else 0, inexact_tolerance_px=K4_INEXACT_TOL_PX)
+    if not inexact_err <= K4_INEXACT_TOL_PX:
+        fail(f"K4 {label}: corners of slots beyond the exact range differ by "
+             f"{inexact_err} px (bound {K4_INEXACT_TOL_PX})")
+    # the label planes read once, the quads written once
+    bound_ms, bound_by = bound(4 * labels.numel() + q.numel() * 4)
+    return {
+        "name": "extreme_quads (K4)", "route": "cuda",
+        "source": "ar_slam_tpu_torch/csrc/extract.cu",
+        "replaces": "ar_slam_tpu/detect/pallas_extract.py:41",
+        "max_abs_err": float((q[exact] - qp[exact]).abs().max()),
+        "ms": cuda_ms(lambda: extract.extreme_quads(labels, roots)),
+        "plain_ms": cuda_ms(lambda: extract.extreme_quads_plain(labels,
+                                                                roots),
+                            reps=3, warm=1),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "cell": label, "shape": list(roots.shape) + list(labels.shape[1:])}
+
+
+def phase_kernels(frames16, frames12):
+    """Each kernel against its plain version at the shapes of room-16
+    (K1, K2, K4) and phone_12mp (K1, K3, K4)."""
+    import torch
+
+    from ar_slam_tpu_torch.detect import ccl
+
+    dev = torch.device(DEVICE)
+    rows = []
+
+    # room-16: 8 frames of 1020x768
+    imgs = torch.from_numpy(frames16[:8]).to(dev, torch.float32).contiguous()
+    rows.append(_k1_row(imgs, "room-16"))
     planes = _planes(imgs)
     got = ccl.connected_components_batch(planes)
     plain = ccl.connected_components_plain(planes)
@@ -169,9 +293,12 @@ def phase_kernels(frames):
     torch.cuda.synchronize()
     if not (torch.equal(got, plain) and torch.equal(got_x, plain_x)):
         fail("K2 labels differ from the plain version")
-    emit("kernel_check", kernel="ccl", shape=list(planes.shape),
-         exact=True, components=int((got == torch.arange(
+    emit("kernel_check", kernel="ccl", cell="room-16",
+         shape=list(planes.shape), exact=True,
+         components=int((got == torch.arange(
              got[0].numel(), device=dev).reshape(got.shape[1:])).sum()))
+    # the binary planes read once (1 B/px), the labels written once
+    bound_ms, bound_by = bound(5 * planes.numel())
     rows.append({
         "name": "connected_components (K2)", "route": "cuda",
         "source": "ar_slam_tpu_torch/csrc/ccl.cu",
@@ -181,42 +308,114 @@ def phase_kernels(frames):
         "ms": cuda_ms(lambda: ccl.connected_components_batch(planes)),
         "plain_ms": cuda_ms(lambda: ccl.connected_components_plain(planes),
                             reps=3, warm=1),
-        "shape": list(planes.shape)})
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "cell": "room-16", "shape": list(planes.shape)})
+    rows.append(_k4_row(got, "room-16"))
+    del imgs, planes, got, plain, extra, got_x, plain_x
 
-    # K4: top-64 roots of those labels
-    roots, _ = top_k_subsampled(got, 64, 2, 0.25)
-    q = extract.extreme_quads(got, roots)
-    qp = extract.extreme_quads_plain(got, roots)
+    # phone_12mp: 8 frames of 4032x3024
+    imgs = torch.from_numpy(frames12[:8]).to(dev, torch.float32).contiguous()
+    rows.append(_k1_row(imgs, "phone_12mp"))
+    planes = _planes(imgs)
+    del imgs
+    iters = 24
+    got = ccl.connected_components_strip_batch(planes, iters)
+    rounds = ccl.strip_rounds
+    plain = ccl.connected_components_plain(planes, iters)
+    extra = torch.from_numpy(_serpentine(*planes.shape[1:])).to(dev)
+    got_x = ccl.connected_components_strip_batch(extra.contiguous(), iters)
+    rounds_x = ccl.strip_rounds
+    plain_x = ccl.connected_components_plain(extra, iters)
+    fixpoint = ccl.connected_components_batch(planes)  # K2, no cap
     torch.cuda.synchronize()
-    hd, wd = got.shape[1:]
-    lin = torch.arange(hd * wd, device=dev)
-    exact = torch.zeros(roots.shape, dtype=torch.bool, device=dev)
-    for i in range(got.shape[0]):
-        member = got[i].reshape(1, -1) == roots[i][:, None]
-        sx = torch.where(member, lin % wd, 0).sum(1)
-        sy = torch.where(member, lin // wd, 0).sum(1)
-        exact[i] = (sx < 2**24) & (sy < 2**24)
-    if not torch.equal(q[exact], qp[exact]):
-        fail("K4 quads differ from the plain version")
-    emit("kernel_check", kernel="extract", shape=list(roots.shape),
-         exact_slots=int(exact.sum()), slots=int(exact.numel()),
-         max_abs_err_all=float((q - qp).abs().max()))
+    snake = extra[0]
+    snake_labels = int(torch.unique(got_x[0][snake]).numel())
+    if not (torch.equal(got, plain) and torch.equal(got_x, plain_x)):
+        fail("K3 labels differ from the plain version")
+    if rounds < iters and not torch.equal(got, fixpoint):
+        fail("K3 stopped before its cap but differs from K2's fixpoint")
+    if not (rounds_x == iters and snake_labels > 1):
+        fail(f"the serpentine did not reach the round cap ({rounds_x}, "
+             f"{snake_labels} labels)")
+    emit("kernel_check", kernel="ccl_strip", cell="phone_12mp",
+         shape=list(planes.shape), exact=True, iters=iters, rounds=rounds,
+         equals_k2_fixpoint=bool(torch.equal(got, fixpoint)),
+         serpentine_rounds=rounds_x, serpentine_labels=snake_labels)
+    del fixpoint, plain, extra, got_x, plain_x
+    # the binary planes read once (1 B/px), the labels written once; this
+    # design's own traffic (two stages a round, each reading and writing
+    # the int32 planes, for the rounds this run's data took) beside it
+    bound_ms, bound_by = bound(5 * planes.numel())
     rows.append({
-        "name": "extreme_quads (K4)", "route": "cuda",
-        "source": "ar_slam_tpu_torch/csrc/extract.cu",
-        "replaces": "ar_slam_tpu/detect/pallas_extract.py:41",
-        "max_abs_err": float((q[exact] - qp[exact]).abs().max()),
-        "ms": cuda_ms(lambda: extract.extreme_quads(got, roots)),
-        "plain_ms": cuda_ms(lambda: extract.extreme_quads_plain(got, roots),
-                            reps=3, warm=1),
-        "shape": list(roots.shape)})
+        "name": "connected_components_strip (K3)", "route": "cuda",
+        "source": "ar_slam_tpu_torch/csrc/ccl_strip.cu",
+        "replaces": "ar_slam_tpu/detect/pallas_ccl.py:73",
+        "max_abs_err": 0.0, "iters": iters, "rounds": rounds,
+        "ms": cuda_ms(lambda: ccl.connected_components_strip_batch(
+            planes, iters)),
+        "plain_ms": cuda_ms(lambda: ccl.connected_components_plain(
+            planes, iters), reps=3, warm=1),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "jacobi_traffic_ms": bound(rounds * 2 * 2 * 4 * planes.numel())[0],
+        "library_ms": None, "cell": "phone_12mp",
+        "shape": list(planes.shape)})
+    rows.append(_k4_row(got, "phone_12mp"))
+    del planes, got
+    torch.cuda.empty_cache()
     return rows
 
 
+def reset_counts() -> None:
+    from ar_slam_tpu_torch.detect import box, ccl, extract
+
+    box.launches = ccl.launches = ccl.strip_launches = extract.launches = 0
+    ccl.strip_kernel_launches = 0
+
+
+def read_counts() -> dict:
+    from ar_slam_tpu_torch.detect import box, ccl, extract
+
+    return {"box": box.launches, "ccl": ccl.launches,
+            "ccl_strip": ccl.strip_launches,
+            "ccl_strip_kernels": ccl.strip_kernel_launches,
+            "extract": extract.launches}
+
+
+def check_launches(cell: str, launches: dict, used, unused) -> None:
+    if any(launches[k] <= 0 for k in used) or any(launches[k] for k in unused):
+        fail(f"{cell}: kernels {list(used)} must launch and {list(unused)} "
+             f"must not: {launches}")
+
+
+def check_tags(cell: str, found: dict, truth_frames, uids, min_side: float):
+    """Every rendered tag of side >= min_side found with its true id in
+    its frame, no id that is not rendered there.  Returns the count of
+    required sightings."""
+    missing, foreign, n_req = [], [], 0
+    for uid, seen in zip(uids, truth_frames):
+        got = found.get(uid, set())
+        present = {f"aruco_{n}_{m}" for n, m, _, _ in seen}
+        for n, m, _, side in seen:
+            if side >= min_side:
+                n_req += 1
+                if f"aruco_{n}_{m}" not in got:
+                    missing.append((uid, f"aruco_{n}_{m}"))
+        foreign += [(uid, t) for t in sorted(got - present)]
+    if missing or foreign:
+        fail(f"{cell} detection: missing {missing}, foreign {foreign}")
+    return n_req
+
+
+def _ids_in(store, first: int = 0) -> dict:
+    """The tag ids each capture from ``first`` on added to the graph."""
+    return {c.uid: {store.arucos[store.blocks[b].tag_idx].id
+                    for b in c.blocks} for c in store.captures[first:]}
+
+
 def phase_main_path(frames, truth):
+    """room-16: map 16 frames of 1020x768 in batches of 8."""
     import torch
 
-    from ar_slam_tpu_torch.detect import box, ccl, extract
     from ar_slam_tpu_torch.graph import yamlio
     from ar_slam_tpu_torch.pipeline.engine import ArSlamEngine
     from ar_slam_tpu_torch.pipeline.ingest import IngestedCapture
@@ -226,39 +425,25 @@ def phase_main_path(frames, truth):
     batches = [caps[i:i + 8] for i in range(0, len(caps), 8)]
     ArSlamEngine(device=DEVICE).detect_decoded(batches[0])  # warm-up
 
-    for mod in (box, ccl, extract):
-        mod.launches = 0
+    reset_counts()
     engine = ArSlamEngine(device=DEVICE)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    detected = [d for b in batches for d in engine.detect_decoded(b)]
+    for b in batches:
+        engine.add_decoded(b)
     t_detect = time.perf_counter() - t0
-    for uid, by_dict, size, path in detected:
-        engine.store.add_detections(
-            uid, [d for dets in by_dict.values() for d in dets], size, path)
     t0 = time.perf_counter()
     summary = engine.solve()
     t_solve = time.perf_counter() - t0
     os.makedirs(OUT_DIR, exist_ok=True)
     map_path = os.path.join(OUT_DIR, "map.yaml")
     engine.save_map(map_path)
-    launches = {"box": box.launches, "ccl": ccl.launches,
-                "extract": extract.launches}
+    launches = read_counts()
 
-    if min(launches.values()) <= 0:
-        fail(f"a kernel was not launched on the main path: {launches}")
-    missing, foreign, n_req = [], [], 0
-    for (uid, by_dict, _, _), seen in zip(detected, truth["frames"]):
-        got = {tid for dets in by_dict.values() for tid, _ in dets}
-        present = {f"aruco_{n}_{m}" for n, m, _, _ in seen}
-        for n, m, _, side in seen:
-            if side >= 40.0:
-                n_req += 1
-                if f"aruco_{n}_{m}" not in got:
-                    missing.append((uid, f"aruco_{n}_{m}"))
-        foreign += [(uid, t) for t in sorted(got - present)]
-    if missing or foreign:
-        fail(f"detection: missing {missing}, foreign {foreign}")
+    check_launches("room-16", launches, ("box", "ccl", "extract"),
+                   ("ccl_strip",))
+    n_req = check_tags("room-16", _ids_in(engine.store), truth["frames"],
+                       [c.uid for c in caps], 40.0)
     rmse = summary.get("rmse", float("nan"))
     if not (np.isfinite(rmse) and rmse < 1.0):
         fail(f"map rmse {rmse} px is not < 1")
@@ -266,12 +451,124 @@ def phase_main_path(frames, truth):
         parsed = yamlio._fast_parse(f.read())
     if sorted(parsed["tag_ids"]) != sorted(t.id for t in engine.store.arucos):
         fail("map.yaml tags differ after reload")
-    emit("main_path", frames=len(frames), launches=launches,
+    emit("main_path", cell="room-16", frames=len(frames), launches=launches,
          tags_required=n_req, tags_in_map=len(parsed["tag_ids"]),
          blocks=len(engine.store.blocks), waves=summary.get("waves"),
          rmse_px=rmse, focal=float(engine.store.camera.params[0]),
          detect_seconds=t_detect,
          detect_frames_per_s=len(frames) / t_detect, solve_seconds=t_solve)
+    return launches
+
+
+def phase_phone_12mp(frames, truth, tag_m: float):
+    """phone_12mp: map frames 0-7 (4032x3024), save, then a fresh engine
+    loads the map and localizes frames 8-11."""
+    import torch
+
+    from ar_slam_tpu_torch.config import ArSlamConfig
+    from ar_slam_tpu_torch.detect import ccl
+    from ar_slam_tpu_torch.pipeline.engine import ArSlamEngine
+    from ar_slam_tpu_torch.pipeline.ingest import IngestedCapture
+    from ar_slam_tpu_torch.solve.localize import localize_many
+    from ar_slam_tpu_torch.utils.ate import camera_positions, umeyama_alignment
+
+    caps = [IngestedCapture(f"phone{k:02d}", f"phone{k:02d}.png", frames[k])
+            for k in range(len(frames))]
+    config = ArSlamConfig(aruco_size=tag_m)
+    ArSlamEngine(config, device=DEVICE).detect_decoded(caps[8:])  # warm-up
+    reset_counts()
+    engine = ArSlamEngine(config, device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine.add_decoded(caps[:8])
+    t_detect = time.perf_counter() - t0
+    detect_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    summary = engine.solve()
+    t_solve = time.perf_counter() - t0
+    os.makedirs(OUT_DIR, exist_ok=True)
+    map_path = os.path.join(OUT_DIR, "phone_map.yaml")
+    engine.save_map(map_path)
+
+    loc = ArSlamEngine(config, device=DEVICE)
+    loc.load_map(map_path)
+    first = loc.store.next_capture_index
+    t0 = time.perf_counter()
+    result = loc.localize_decoded(caps[8:])
+    t_loc_total = time.perf_counter() - t0
+    t_loc = loc.metrics.timings["localize"][-1]
+    launches = read_counts()
+
+    found = {**_ids_in(engine.store), **_ids_in(loc.store, first)}
+    queries = loc.store.captures[first:]
+    loc_rmse = result.get("rmse", float("nan"))
+
+    # align the map's cameras to the rendered ones, then place the queries
+    true_pos = -truth["cap_poses"][:, 0:3]
+    map_pos = camera_positions(engine.store)
+    map_idx = [int(c.uid[5:]) for c in engine.store.captures]
+    s, rot, t = umeyama_alignment(map_pos, true_pos[map_idx])
+    q_pos = np.stack([-c.inv_pose[0:3] for c in queries])
+    q_err = np.linalg.norm((s * (rot @ q_pos.T)).T + t - true_pos[
+        [int(c.uid[5:]) for c in queries]], axis=1)
+    map_err = np.linalg.norm((s * (rot @ map_pos.T)).T + t
+                             - true_pos[map_idx], axis=1)
+
+    # the same detections against the same map, float64 on the CPU
+    cpu = ArSlamEngine(config, device="cpu", dtype=torch.float64)
+    cpu.load_map(map_path)
+    for cap in queries:
+        cpu.store.add_detections(
+            cap.uid, [(loc.store.arucos[loc.store.blocks[b].tag_idx].id,
+                       loc.store.blocks[b].corners) for b in cap.blocks],
+            loc.store.camera.size, cap.img_fn)
+    ref = localize_many(cpu.store, first, cpu.config, dtype=torch.float64,
+                        device="cpu")
+    d_pose = max(float(np.abs(a.inv_pose - b.inv_pose).max())
+                 for a, b in zip(queries, cpu.store.captures[first:]))
+    d_rmse = abs(loc_rmse - ref["rmse"])
+    sides = [side for fr in truth["frames"] for _, _, _, side in fr]
+    emit("main_path", cell="phone_12mp", frames=len(frames),
+         size=list(frames.shape[1:]), launches=launches,
+         ccl_strip_rounds=ccl.strip_rounds,
+         tag_side_px=[min(sides), max(sides)],
+         tags_in_map=len(engine.store.arucos),
+         blocks=len(engine.store.blocks), waves=summary.get("waves"),
+         map_rmse_px=summary.get("rmse"),
+         focal=float(engine.store.camera.params[0]),
+         localize_status=result.get("status"), localize_rmse_px=loc_rmse,
+         localize_iterations=result.get("iterations"),
+         query_position_err_m=q_err.tolist(),
+         map_position_err_m=float(map_err.max()),
+         f64_localize_rmse_px=ref.get("rmse"), f32_f64_pose_diff=d_pose,
+         f32_f64_rmse_diff_px=d_rmse,
+         detect_seconds=t_detect, detect_frames_per_s=8 / t_detect,
+         detect_peak_memory_gb=detect_peak_gb,
+         solve_seconds=t_solve, localize_seconds=t_loc,
+         localize_with_detection_seconds=t_loc_total)
+
+    check_launches("phone_12mp", launches, ("box", "ccl_strip", "extract"),
+                   ("ccl",))
+    n_req = check_tags("phone_12mp", found, truth["frames"],
+                       [c.uid for c in caps], PHONE_SIDE_PX)
+    emit("phone_12mp_tags", tags_required=n_req, min_side_px=PHONE_SIDE_PX)
+    rmse = summary.get("rmse", float("nan"))
+    if not (np.isfinite(rmse) and rmse < 1.0):
+        fail(f"phone_12mp map rmse {rmse} px is not < 1")
+    statuses = result.get("status", {})
+    if sorted(statuses) != [c.uid for c in caps[8:]] or set(
+            statuses.values()) != {"localized"}:
+        fail(f"phone_12mp: not every query localized: {statuses}")
+    if not (np.isfinite(loc_rmse) and loc_rmse < 1.0):
+        fail(f"phone_12mp localize rmse {loc_rmse} px is not < 1")
+    if not q_err.max() <= QUERY_POSITION_M:
+        fail(f"phone_12mp query positions off by {q_err.tolist()} m "
+             f"(bound {QUERY_POSITION_M})")
+    if not (d_pose <= F32_POSE_TOL and d_rmse <= F32_RMSE_TOL_PX):
+        fail(f"phone_12mp float32 localization differs from float64: pose "
+             f"{d_pose} (bound {F32_POSE_TOL}), rmse {d_rmse} px (bound "
+             f"{F32_RMSE_TOL_PX})")
     return launches
 
 
@@ -331,19 +628,95 @@ def phase_solver():
              f"{F64_OPTIMUM_500}")
 
 
+def _profiled(label: str, fn) -> None:
+    """One run of fn under torch.profiler: wall ms (host clock, synchronized),
+    device ms (summed over kernels and copies), the idle share, and the
+    largest device items."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only (kernels, copies): the host ops that launched
+    # them carry the same device time again
+    avgs = [a for a in prof.key_averages()
+            if a.device_type == DeviceType.CUDA
+            and a.self_device_time_total > 0]
+    device_ms = sum(a.self_device_time_total for a in avgs) / 1e3
+    top = sorted(avgs, key=lambda a: -a.self_device_time_total)[:10]
+    emit("profile", run=label, wall_ms=wall_ms, device_ms=device_ms,
+         device_idle_share=1.0 - device_ms / wall_ms if device_ms else None,
+         device_items=sum(a.count for a in avgs),
+         top=[{"name": a.key[:80], "ms": a.self_device_time_total / 1e3,
+               "count": a.count} for a in top])
+
+
+def phase_profile(frames16, frames12, tag_m: float) -> None:
+    """--profile: where the device time goes in one detection batch of each
+    cell and in phone_12mp's localization (run after the checked phases,
+    so every shape is warm)."""
+    from ar_slam_tpu_torch.config import ArSlamConfig
+    from ar_slam_tpu_torch.pipeline.engine import ArSlamEngine
+    from ar_slam_tpu_torch.pipeline.ingest import IngestedCapture
+
+    def caps(frames, ks, prefix):
+        return [IngestedCapture(f"{prefix}{k:02d}", "", frames[k]) for k in ks]
+
+    room = ArSlamEngine(device=DEVICE)
+    _profiled("room-16 detect 8 frames",
+              lambda: room.detect_decoded(caps(frames16, range(8), "frame")))
+    config = ArSlamConfig(aruco_size=tag_m)
+    phone = ArSlamEngine(config, device=DEVICE)
+    _profiled("phone_12mp detect 8 frames",
+              lambda: phone.detect_decoded(caps(frames12, range(8), "phone")))
+    loc = ArSlamEngine(config, device=DEVICE)
+    loc.load_map(os.path.join(OUT_DIR, "phone_map.yaml"))
+    _profiled("phone_12mp localize 4 frames (detect + pose-only LM)",
+              lambda: loc.localize_decoded(caps(frames12, range(8, 12),
+                                                "phone")))
+
+
 def main() -> int:
+    import argparse
+
     import torch
 
-    from ar_slam_tpu_torch.utils.render import room_scene
+    from ar_slam_tpu_torch.utils.render import PHONE_12MP, room_scene
 
+    p = argparse.ArgumentParser(description="smoke run of the port on a GPU")
+    p.add_argument("--profile", action="store_true",
+                   help="profile a detection batch of each cell and the "
+                        "phone_12mp localization")
+    p.add_argument("--tag-mm", type=float, default=PHONE_TAG_M * 1e3,
+                   help="printed tag side of the phone_12mp scene in mm")
+    args = p.parse_args()
+    tag_m = args.tag_mm / 1e3
     phase_device()
     phase_build()
-    frames, truth = room_scene(n_frames=16)
-    rows = phase_kernels(frames)
-    launches = phase_main_path(frames, truth)
+    t0 = time.perf_counter()
+    frames16, truth16 = room_scene(n_frames=16)
+    frames12, truth12 = room_scene(n_frames=12, arc=PHONE_ARC,
+                                   aruco_size=tag_m, **PHONE_12MP)
+    emit("render", seconds=time.perf_counter() - t0)
+    rows = phase_kernels(frames16, frames12)
+    launches = {"room-16": phase_main_path(frames16, truth16),
+                "phone_12mp": phase_phone_12mp(frames12, truth12, tag_m)}
     phase_solver()
-    for row, key in zip(rows, ("box", "ccl", "extract")):
-        row["launches"] = launches[key]
+    if args.profile:
+        phase_profile(frames16, frames12, tag_m)
+    for row in rows:
+        row["launches"] = launches[row["cell"]][COUNTERS[row["name"]]]
+    # K3's wrapper launches 1 + 2 x rounds kernels a call and reads the
+    # change flag once a round
+    for row in rows:
+        if COUNTERS[row["name"]] == "ccl_strip":
+            row["kernel_launches"] = launches[row["cell"]]["ccl_strip_kernels"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

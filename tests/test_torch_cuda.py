@@ -5,8 +5,9 @@ False (the CPU runs of the suite).  Run on a machine with an NVIDIA GPU:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Shapes are the main path's: a batch of 8 frames at 1020x768, three
-threshold windows stacked on the batch axis, count-pooled 2x.
+Shapes are the main paths': a batch of 8 frames at 1020x768 (K1, K2,
+K4), or decimated 12 MP planes (K3), three threshold windows stacked on
+the batch axis, count-pooled 2x.
 """
 
 import numpy as np
@@ -97,3 +98,42 @@ def test_extract_kernel_equals_plain(dev):
         exact[i] = (sx < 2**24) & (sy < 2**24)
     assert exact.float().mean().item() > 0.9
     assert torch.equal(got[exact], plain[exact])
+
+
+def _serpentine(h, w):
+    img = np.zeros((h, w), bool)
+    ys = list(range(2, h - 2, 6))
+    for i, y in enumerate(ys):
+        img[y, 2:w - 2] = True
+        if i + 1 < len(ys):
+            img[y:ys[i + 1] + 1, w - 3 if i % 2 == 0 else 2] = True
+    return img
+
+
+@pytest.mark.parametrize("iters", [2, 24])
+def test_ccl_strip_kernel_serpentine_at_cap(dev, iters):
+    """A serpentine needing ~h/6 rounds, cut short by the cap, next to a
+    noise plane, at a non-aligned width: equal to the plain version label
+    for label (a Gauss-Seidel round would run ahead of it)."""
+    rng = np.random.default_rng(3)
+    b = torch.from_numpy(np.stack([_serpentine(301, 517),
+                                   rng.random((301, 517)) < 0.45])).to(dev)
+    got = ccl.connected_components_strip_batch(b, iters)
+    torch.cuda.synchronize()
+    assert ccl.strip_rounds == iters
+    assert torch.equal(got, ccl.connected_components_plain(b, iters))
+    assert torch.unique(got[0][b[0]]).numel() > 1
+
+
+def test_ccl_strip_kernel_12mp_planes(dev):
+    """Decimated 12 MP planes (1512x2016): equal to the plain version and,
+    once converged below the cap, to K2's fixpoint."""
+    rng = np.random.default_rng(4)
+    base = rng.uniform(60, 220, size=(2, 1512 // 24, 2016 // 24))
+    b = torch.from_numpy(np.kron(base, np.ones((24, 24))) < 120).to(dev)
+    b |= torch.from_numpy(rng.random(b.shape) < 0.05).to(dev)
+    got = ccl.connected_components_strip_batch(b.contiguous(), 24)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ccl.connected_components_plain(b, 24))
+    if ccl.strip_rounds < 24:
+        assert torch.equal(got, ccl.connected_components_batch(b.contiguous()))

@@ -220,8 +220,21 @@ def test_detect_batch_matches_jax():
                 assert np.abs(g_c[mid] - r_c[mid]).max() <= 0.25
 
 
-def test_detect_batch_refuses_planes_beyond_k2():
-    """Above the fused-CCL plane size the reference switches to the strip
-    kernels (K3), which are not ported: the port raises, naming K3."""
-    with pytest.raises(NotImplementedError, match="K3"):
-        tdet.detect_batch(np.zeros((1, 2400, 2400), np.uint8), device="cpu")
+def test_detect_batch_refuses_planes_beyond_k2(monkeypatch):
+    """Above the fused-CCL plane size the port no longer refuses: like the
+    reference it switches to the strip-scan CCL (K3) with the round cap
+    ``ccl_iters``.  A blank 2400x2400 frame (padded decimated plane
+    1280x1280 > 1M px) takes that branch and detects nothing."""
+    calls = []
+    strip = ccl.connected_components_strip_batch
+
+    def spy(binary, iters):
+        calls.append((tuple(binary.shape), iters))
+        return strip(binary, iters)
+
+    monkeypatch.setattr(ccl, "connected_components_strip_batch", spy)
+    out = tdet.detect_batch(np.zeros((1, 2400, 2400), np.uint8),
+                            device="cpu")
+    assert calls == [((1, 1200, 1200), 24)]
+    for name in out:
+        assert not out[name]["valid"].any()

@@ -84,7 +84,8 @@ PORT_MODULES = [
     "ar_slam_tpu_torch.graph.yamlio", "ar_slam_tpu_torch.pipeline.engine",
     "ar_slam_tpu_torch.pipeline.fast_decode",
     "ar_slam_tpu_torch.pipeline.ingest", "ar_slam_tpu_torch.solve.batch",
-    "ar_slam_tpu_torch.solve.lm", "ar_slam_tpu_torch.solve.residuals",
+    "ar_slam_tpu_torch.solve.localize", "ar_slam_tpu_torch.solve.lm",
+    "ar_slam_tpu_torch.solve.residuals",
     "ar_slam_tpu_torch.solve.schur", "ar_slam_tpu_torch.utils.ate",
     "ar_slam_tpu_torch.utils.render", "ar_slam_tpu_torch.utils.synthetic",
 ]
@@ -111,7 +112,8 @@ def test_port_imports_without_jax_yaml_pil():
 
 COPIES = ["config.py", "graph/store.py", "graph/arrays.py", "graph/native.py",
           "pipeline/ingest.py", "pipeline/fast_decode.py",
-          "utils/synthetic.py", "utils/ate.py", "core/calib.py"]
+          "utils/synthetic.py", "utils/ate.py", "core/calib.py",
+          "detect/dictionaries.py"]
 
 
 def _source(pkg, rel):
@@ -144,11 +146,6 @@ from ar_slam_tpu_torch.graph.store import MapStore
 
     doc = yaml.load(text, Loader=getattr(yaml, "CSafeLoader", yaml.SafeLoader))
 """)],
-    "detect/dictionaries.py": [
-        ("""_NPZ = os.path.join(os.path.dirname(__file__), "dictionaries.npz")
-""", """_NPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..",
-                    "ar_slam_tpu", "detect", "dictionaries.npz")
-""")],
 }
 
 
@@ -156,8 +153,7 @@ from ar_slam_tpu_torch.graph.store import MapStore
 def test_host_copy_equals_original(rel):
     """Each copied host module is its original with the package renamed,
     under a header naming the original; yamlio imports PyYAML only on its
-    fallback branch, and dictionaries reads the original's
-    dictionaries.npz by path."""
+    fallback branch."""
     expected = _source("ar_slam_tpu", rel).replace("ar_slam_tpu.",
                                                    "ar_slam_tpu_torch.")
     for old, new in EDITS.get(rel, []):
@@ -167,6 +163,20 @@ def test_host_copy_equals_original(rel):
     head, body = copy.split('"""', 1)
     assert head.startswith(f"# Copied from ar_slam_tpu/{rel}")
     assert '"""' + body == expected
+
+
+def test_dictionaries_data_is_a_byte_copy():
+    """The port reads its own dictionaries.npz, byte-identical to the JAX
+    package's."""
+    from ar_slam_tpu_torch.detect import dictionaries
+
+    with open(os.path.join(REPO, "ar_slam_tpu", "detect",
+                           "dictionaries.npz"), "rb") as f:
+        original = f.read()
+    assert os.path.dirname(os.path.abspath(dictionaries._NPZ)) == os.path.join(
+        REPO, "ar_slam_tpu_torch", "detect")
+    with open(dictionaries._NPZ, "rb") as f:
+        assert f.read() == original
 
 
 def test_host_copies_behave_like_originals(tmp_path):
