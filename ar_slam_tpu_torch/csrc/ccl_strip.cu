@@ -5,32 +5,44 @@
 // (_row_kernel / _col_kernel through _scan_pass, driven by
 // connected_components_pallas_batch), which the reference runs when the
 // padded decimated plane exceeds FUSED_CCL_PIXEL_LIMIT.  There a round is an
-// XLA 3x3 min-pool, a Pallas pass of segmented min scans along every row
-// (strips of 128 rows in VMEM) and one along every column (strips of 256
-// columns); the XLA while_loop repeats rounds until nothing changes or
-// ``iters`` rounds have run.  Unlike K2 (union-find, always fully resolved)
-// this kernel keeps the round cap, so it must reproduce the reference's
-// labels bit for bit also where the cap cuts a serpentine short.  That holds
-// only if each round is Jacobi: every stage reads the whole output of the
-// stage before it.  So a round is two launches on ping-pong buffers:
+// XLA 3x3 min-pool, a Pallas pass of segmented min scans along every row and
+// one along every column; an XLA while_loop repeats rounds until nothing
+// changes or ``iters`` rounds have run.  Unlike K2 (union-find, always fully
+// resolved) this kernel keeps the round cap, so it must reproduce the
+// reference's labels bit for bit also where the cap cuts a serpentine short.
+// That holds only if each round is Jacobi: every stage reads the whole
+// output of the stage before it.  So a round is two launches:
 //
-//   strip_pool_row: one block per (row, image); stages rows y-1, y, y+1 of
-//                   the previous round's labels in shared memory, min-pools
-//                   them (foreground only), then takes the min over every
-//                   full foreground run of the row, both directions, by
-//                   log-step doubling in shared memory -> scratch;
-//   strip_col:      one thread per (column, image); walks down the column of
-//                   scratch writing the run prefix minimum in place, then up,
-//                   spreading each run's minimum (its last prefix) and
-//                   writing the new labels; a thread whose column changed
-//                   sets the device flag ``changed``.
+//   strip_row: one warp per row, 8 rows a block.  It reads rows y-1, y, y+1
+//              of the labels (coalesced, 8 steps of 32 pixels in flight per
+//              lane; the neighbours' rows come from L1/L2) into their
+//              vertical min in a shared-memory row, takes the horizontal min
+//              over each lane's segment (the 3x3 min-pool of the
+//              foreground), then replaces every foreground run by its
+//              minimum -> scratch;
+//   strip_col: one block per strip of up to 16 columns, holding the strip's
+//              full height in shared memory (loaded with cp.async, so every
+//              copy of a thread is in flight at once), one warp per column;
+//              replaces every run of each column by its minimum -> labels.
 //
-// Neighbouring threads of strip_col own neighbouring columns, so each row
-// step of the walk is one coalesced access per warp.  The host reads the
-// flag once per round and stops at no change or at ``iters`` rounds.  The
-// reference's loop is batch-global; labels only decrease and a converged
-// plane stays fixed, so stopping the whole batch on "no plane changed"
-// gives the same labels as it does.
+// Both stages do the run-min as a warp-level segmented scan (run_min_line):
+// each lane owns a contiguous segment of the line, reduces it to a summary
+// (min of its leading run, min of its trailing run, whether it is all
+// foreground), the 32 summaries are scanned forward and backward by
+// shuffles, and each lane sweeps its segment once each way with the carries
+// it received.  No __syncthreads ladder: segments have odd lengths and the
+// column tile an odd row pitch, so the lanes' walks hit 32 distinct banks.
+//
+// No host read per round.  The wrapper enqueues all ``iters`` rounds at
+// once.  ``flags`` holds one int per (round, plane), zeroed by the init
+// kernel; a stage that changes a plane's labels sets its flag, and every
+// block of round r+1 whose plane did not change in round r returns at once.
+// Labels only decrease and a converged plane stays fixed, so this per-plane
+// exit gives exactly the labels of the reference's batch-global loop.  The
+// flags stay on the card: the rounds a plane ran are 1 + its changing rounds
+// (capped at iters), read only when the caller asks.  A round changes a
+// plane iff the pool lowers a label or two neighbouring foreground pixels
+// still differ along a row or a column, which each stage sees locally.
 //
 // Labels are linear indices in the true width (y * W + x): order-preserving
 // and equal to the reference's padded-width labels after its remap, since
@@ -38,175 +50,275 @@
 // Background is 2^30 throughout, so foreground is "label < 2^30" and the
 // kernels need no separate mask.
 //
-// Bound on the H100: device memory.  A stage reads and writes one int32 per
-// pixel (the pool's three-row halo is served from L1/L2), so a round moves
-// about 2 x 2 x 4 B per pixel; the column walk's two passes over scratch
-// stay in the 50 MB L2 only for small batches.  Speed (persistent blocks,
-// warp-level scans, TMA) is later work; this version is simple and exact.
+// Bound on the H100: device memory.  Each stage reads and writes one int32
+// per pixel of a running plane, so a round of the whole batch moves 4 x 4 B
+// per pixel (0.35 ms at (24, 1512, 2016)); the stages run at about half of
+// that rate.  One plane's labels and scratch (24 MB at 1512x2016) would fit
+// the 50 MB L2; a schedule that keeps a plane's rounds there is the next
+// lever.
 //
 // Launch rules: runs on the caller's stream, allocates nothing (scratch and
-// the flag come from the caller), returns cudaGetLastError().
+// flags come from the caller), returns the first launch error.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kBig = 1 << 30;
-constexpr int kRowThreads = 256;
-constexpr int kColThreads = 128;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kInitThreads = 256;
+constexpr int kRowWarps = 8;   // rows (one warp each) per strip_row block
+constexpr int kRowBatch = 8;   // row steps of 32 pixels a lane loads at once
+constexpr int kBgMark = (int)0x80000000u;  // background centre, in strip_row
+constexpr int kColStrip = 16;  // columns per strip_col block, at most
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
 
+// a lane's share of a line of n elements: odd, so lane i's walk from i * seg
+// meets no other lane in a shared-memory bank
+__host__ __device__ inline int lane_segment(int n) {
+  return ((n + 31) / 32) | 1;
+}
+
+__host__ __device__ inline size_t row_smem_bytes(int warps, int w) {
+  return (size_t)warps * 32 * lane_segment(w) * sizeof(int);
+}
+
+// column tile: h rows of cb columns at an odd row pitch
+__host__ __device__ inline size_t col_smem_bytes(int h, int cb) {
+  return (size_t)h * (cb | 1) * sizeof(int);
+}
+
 __global__ void strip_init(const uint8_t* __restrict__ fg,
-                           int* __restrict__ lab, long long total, int hw) {
+                           int* __restrict__ lab, int* __restrict__ flags,
+                           long long total, int hw, int n_flags) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        i < total; i += (long long)gridDim.x * blockDim.x)
     lab[i] = fg[i] ? (int)(i % hw) : kBig;
+  if (blockIdx.x == 0)
+    for (int i = threadIdx.x; i < n_flags; i += blockDim.x) flags[i] = 0;
 }
 
-// Shared memory: rows (3w int) | va, vb (w int each) | ra, rb (w bytes each)
-__host__ __device__ inline size_t row_smem_bytes(int w) {
-  return (size_t)w * (5 * sizeof(int) + 2);
+// One warp replaces every foreground run of a line (elements v[i * stride],
+// i < n) by the run's minimum.  Lane l owns [l * seg, l * seg + seg).
+// Returns, in every lane, whether two neighbouring foreground elements of
+// the line differed before the scan (i.e. whether it changed anything).
+__device__ bool run_min_line(int* v, int stride, int n, int seg, int lane) {
+  const int i0 = min(lane * seg, n), i1 = min(i0 + seg, n);
+  // summary: min of the leading run, of the trailing run, all foreground?
+  int lead = kBig, trail = kBig, all = 1;
+  bool diff = false;
+  int prev = i0 > 0 ? v[(i0 - 1) * stride] : kBig;
+#pragma unroll 4
+  for (int i = i0; i < i1; ++i) {
+    const int x = v[i * stride];
+    if (x < kBig) {
+      trail = min(trail, x);
+      if (all) lead = x < lead ? x : lead;
+      diff |= prev < kBig && prev != x;
+    } else {
+      trail = kBig;
+      all = 0;
+    }
+    prev = x;
+  }
+  __syncwarp();  // every lane has read its left neighbour's last element
+  // the run reaching into this segment from the left (min of its part left
+  // of the segment) and from the right: inclusive scans of the composable
+  // maps c -> all ? min(c, m) : m, then shifted by one lane
+  int fa = all, fm = trail, ba = all, bm = lead;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int ua = __shfl_up_sync(kFull, fa, off);
+    const int um = __shfl_up_sync(kFull, fm, off);
+    const int da = __shfl_down_sync(kFull, ba, off);
+    const int dm = __shfl_down_sync(kFull, bm, off);
+    if (lane >= off) {
+      fm = fa ? min(um, fm) : fm;
+      fa = fa && ua;
+    }
+    if (lane + off < 32) {
+      bm = ba ? min(bm, dm) : bm;
+      ba = ba && da;
+    }
+  }
+  int left = __shfl_up_sync(kFull, fm, 1);
+  int right = __shfl_down_sync(kFull, bm, 1);
+  if (lane == 0) left = kBig;
+  if (lane == 31) right = kBig;
+  int run = left;  // forward: prefix minima of each run
+#pragma unroll 4
+  for (int i = i0; i < i1; ++i) {
+    const int x = v[i * stride];
+    run = x < kBig ? min(run, x) : kBig;
+    v[i * stride] = run;
+  }
+  run = right;  // backward: each run's last prefix, i.e. its minimum
+#pragma unroll 4
+  for (int i = i1 - 1; i >= i0; --i) {
+    const int x = v[i * stride];
+    run = x < kBig ? min(run, x) : kBig;
+    v[i * stride] = run;
+  }
+  return __any_sync(kFull, diff);
 }
 
-__global__ void strip_pool_row(const int* __restrict__ src,
-                               int* __restrict__ dst, int h, int w) {
+__global__ void strip_row(const int* __restrict__ lab,
+                          int* __restrict__ scratch, int* __restrict__ flags,
+                          int round, int n, int h, int w) {
   extern __shared__ int smem[];
-  int* rows = smem;
-  int* va = rows + 3 * w;
-  int* vb = va + w;
-  uint8_t* ra = reinterpret_cast<uint8_t*>(vb + w);
-  uint8_t* rb = ra + w;
-  const int y = blockIdx.x;
-  const long long plane = (long long)blockIdx.y * h * w;
-  const int* s = src + plane;
+  const int plane = blockIdx.y;
+  if (round > 0 && !flags[(round - 1) * n + plane]) return;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int y = blockIdx.x * (blockDim.x / 32) + warp;
+  if (y >= h) return;
+  const int seg = lane_segment(w);
+  int* p = smem + warp * 32 * seg;
+  const long long off = ((long long)plane * h + y) * w;
+  const int* row = lab + off;
+  const int* up = y > 0 ? row - w : row;  // a missing row repeats row y,
+  const int* dn = y + 1 < h ? row + w : row;  // which leaves the min as is
 
-  for (int i = threadIdx.x; i < 3 * w; i += blockDim.x) {
-    const int r = y - 1 + i / w;
-    rows[i] = (r >= 0 && r < h) ? s[(long long)r * w + i % w] : kBig;
-  }
-  __syncthreads();
-  // 3x3 min-pool, kept on foreground (label < 2^30) only
-  for (int x = threadIdx.x; x < w; x += blockDim.x) {
-    int v = rows[w + x];
-    if (v < kBig) {
-      for (int dy = 0; dy < 3; ++dy) {
-        const int* r = rows + dy * w;
-        v = min(v, r[x]);
-        if (x > 0) v = min(v, r[x - 1]);
-        if (x + 1 < w) v = min(v, r[x + 1]);
-      }
+  // vertical min of rows y-1..y+1, kRowBatch steps of 32 pixels in flight
+  // per lane; a background centre is marked by the sign bit.  ``lowered``:
+  // the pool lowers a label (its vertical part here, where the centre is
+  // still known; the horizontal part below, where the centre equals its
+  // vertical min or was flagged already)
+  bool lowered = false;
+  for (int x0 = lane; x0 < w; x0 += 32 * kRowBatch) {
+    int c[kRowBatch], a[kRowBatch], b[kRowBatch];
+#pragma unroll
+    for (int u = 0; u < kRowBatch; ++u) {
+      const int x = x0 + 32 * u;
+      c[u] = x < w ? row[x] : kBig;
+      a[u] = x < w ? up[x] : kBig;
+      b[u] = x < w ? dn[x] : kBig;
     }
-    va[x] = v;
-  }
-  __syncthreads();
-
-  // forward, then backward segmented min scans (log-step doubling); the
-  // backward scan of the forward prefixes is the full-run minimum
-  int* vin = va;
-  int* vout = vb;
-  uint8_t* rin = ra;
-  uint8_t* rout = rb;
-  for (int dir = 1; dir >= -1; dir -= 2) {
-    for (int x = threadIdx.x; x < w; x += blockDim.x) rin[x] = vin[x] < kBig;
-    __syncthreads();
-    for (int span = 1; span < w; span <<= 1) {
-      for (int x = threadIdx.x; x < w; x += blockDim.x) {
-        const int xs = x - dir * span;
-        const bool inside = xs >= 0 && xs < w;
-        int v = vin[x];
-        const uint8_t r = rin[x];
-        if (r && inside) v = min(v, vin[xs]);
-        vout[x] = v;
-        rout[x] = r && inside && rin[xs];
-      }
-      __syncthreads();
-      int* tv = vin;
-      vin = vout;
-      vout = tv;
-      uint8_t* tr = rin;
-      rin = rout;
-      rout = tr;
+#pragma unroll
+    for (int u = 0; u < kRowBatch; ++u) {
+      const int x = x0 + 32 * u;
+      const int v = min(c[u], min(a[u], b[u]));
+      lowered |= c[u] < kBig && v < c[u];
+      if (x < w) p[x] = c[u] < kBig ? v : (v | kBgMark);
     }
   }
-  int* d = dst + plane + (long long)y * w;
-  for (int x = threadIdx.x; x < w; x += blockDim.x) d[x] = vin[x];
+  __syncwarp();
+  // horizontal min over each lane's segment, in place (its two outside
+  // neighbours read before anyone writes): the 3x3 min-pool of the
+  // foreground
+  const int i0 = min(lane * seg, w), i1 = min(i0 + seg, w);
+  int left = i0 > 0 ? p[i0 - 1] & ~kBgMark : kBig;
+  const int right = i1 < w ? p[i1] & ~kBgMark : kBig;
+  __syncwarp();
+  for (int i = i0; i < i1; ++i) {
+    const int cur = p[i];
+    const int next = i + 1 < i1 ? p[i + 1] & ~kBgMark : right;
+    const int v = cur & ~kBgMark;
+    const int side = min(left, next);
+    lowered |= !(cur & kBgMark) && side < v;
+    p[i] = cur & kBgMark ? kBig : min(v, side);
+    left = v;
+  }
+  __syncwarp();
+  const bool diff = run_min_line(p, 1, w, seg, lane);
+  __syncwarp();
+  int* d = scratch + off;
+  for (int x = lane; x < w; x += 32) d[x] = p[x];
+  if ((__any_sync(kFull, lowered) || diff) && lane == 0)
+    flags[round * n + plane] = 1;
 }
 
-__global__ void strip_col(int* __restrict__ scratch, int* __restrict__ lab,
-                          int* __restrict__ changed, int h, int w) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= w) return;
-  const long long plane = (long long)blockIdx.y * h * w;
-  int* s = scratch + plane + x;
-  int* l = lab + plane + x;
-  int carry = kBig;
-  for (int y = 0; y < h; ++y) {  // down: run prefix minima, in place
-    const int v = s[(long long)y * w];
-    if (v < kBig) {
-      carry = min(carry, v);
-      s[(long long)y * w] = carry;
-    } else {
-      carry = kBig;
-    }
+__global__ void strip_col(const int* __restrict__ scratch,
+                          int* __restrict__ lab, int* __restrict__ flags,
+                          int round, int n, int h, int w, int cb) {
+  extern __shared__ int tile[];
+  const int plane = blockIdx.y;
+  if (round > 0 && !flags[(round - 1) * n + plane]) return;
+  const int pitch = cb | 1, shift = __ffs(cb) - 1;
+  const int x0 = blockIdx.x * cb;
+  const long long off = (long long)plane * h * w;
+  const int* s = scratch + off;
+  // the strip's columns, every row, copied asynchronously (no register
+  // round trip, so every copy of a thread is in flight at once)
+  for (int i = threadIdx.x; i < h * cb; i += blockDim.x) {
+    const int y = i >> shift, c = i & (cb - 1), x = x0 + c;
+    if (x < w)
+      __pipeline_memcpy_async(tile + y * pitch + c, s + (long long)y * w + x,
+                              sizeof(int));
+    else
+      tile[y * pitch + c] = kBig;
   }
-  bool any = false;
-  carry = kBig;
-  for (int y = h - 1; y >= 0; --y) {  // up: spread each run's last prefix
-    const int v = s[(long long)y * w];
-    if (v < kBig) {
-      carry = min(carry, v);
-      if (l[(long long)y * w] != carry) {
-        any = true;
-        l[(long long)y * w] = carry;
-      }
-    } else {
-      carry = kBig;
-    }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  const int col = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool diff = run_min_line(tile + col, pitch, h, lane_segment(h), lane);
+  int* l = lab + off;
+  if (__syncthreads_or(diff && lane == 0) && threadIdx.x == 0)
+    flags[round * n + plane] = 1;
+  for (int i = threadIdx.x; i < h * cb; i += blockDim.x) {
+    const int y = i >> shift, c = i & (cb - 1), x = x0 + c;
+    if (x < w) l[(long long)y * w + x] = tile[y * pitch + c];
   }
-  if (any) *changed = 1;
 }
 
-int check_shape(int n, int h, int w) {
-  if (n <= 0 || h <= 0 || w <= 0 || n > 65535 || (long long)h * w >= kBig ||
-      row_smem_bytes(w) > kMaxSmem)
-    return (int)cudaErrorInvalidValue;
-  return 0;
+int column_strip(int h) {
+  int cb = kColStrip;
+  while (cb > 1 && col_smem_bytes(h, cb) > kMaxSmem) cb >>= 1;
+  return cb;
+}
+
+int row_warps(int w) {
+  int warps = kRowWarps;
+  while (warps > 1 && row_smem_bytes(warps, w) > kMaxSmem) warps >>= 1;
+  return warps;
+}
+
+cudaError_t allow_smem(const void* kernel, size_t bytes) {
+  if (bytes <= kDefaultSmem) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
 }
 
 }  // namespace
 
-// fg: (n, h, w) uint8 (0/1) -> labels: (n, h, w) int32 initial labels.
-extern "C" int arslam_ccl_strip_init(const uint8_t* fg, int* labels, int n,
-                                     int h, int w, void* stream) {
-  if (int rc = check_shape(n, h, w)) return rc;
+// fg: (n, h, w) uint8 (0/1) -> labels: (n, h, w) int32 after at most
+// ``iters`` Jacobi rounds, through scratch of the same shape; flags:
+// (iters, n) int32, flags[r * n + p] = 1 iff round r changed plane p.
+// Enqueues 1 + 2 x iters kernels and reads nothing back.
+extern "C" int arslam_ccl_strip(const uint8_t* fg, int* labels, int* scratch,
+                                int* flags, int n, int h, int w, int iters,
+                                void* stream) {
+  if (n <= 0 || h <= 0 || w <= 0 || iters < 0 || n > 65535 ||
+      (long long)h * w >= kBig ||
+      row_smem_bytes(1, w) > kMaxSmem || col_smem_bytes(h, 1) > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const long long total = (long long)n * h * w;
-  long long blocks = (total + kRowThreads - 1) / kRowThreads;
-  if (blocks > 65535LL * 16) blocks = 65535LL * 16;
-  strip_init<<<(unsigned)blocks, kRowThreads, 0, s>>>(fg, labels, total,
-                                                      h * w);
-  return (int)cudaGetLastError();
-}
-
-// One Jacobi round on labels (n, h, w) int32, in place, through scratch of
-// the same shape; *changed (device int32) ends 1 if any label changed, else 0.
-extern "C" int arslam_ccl_strip_round(int* labels, int* scratch, int* changed,
-                                      int n, int h, int w, void* stream) {
-  if (int rc = check_shape(n, h, w)) return rc;
-  cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = row_smem_bytes(w);
-  if (smem > kDefaultSmem) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        strip_pool_row, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (rc != cudaSuccess) return (int)rc;
-  }
-  cudaError_t rc = cudaMemsetAsync(changed, 0, sizeof(int), s);
+  const int warps = row_warps(w), cb = column_strip(h);
+  const size_t row_smem = row_smem_bytes(warps, w);
+  const size_t col_smem = col_smem_bytes(h, cb);
+  cudaError_t rc = allow_smem((const void*)strip_row, row_smem);
+  if (rc == cudaSuccess) rc = allow_smem((const void*)strip_col, col_smem);
   if (rc != cudaSuccess) return (int)rc;
-  strip_pool_row<<<dim3(h, n), kRowThreads, smem, s>>>(labels, scratch, h, w);
-  strip_col<<<dim3((w + kColThreads - 1) / kColThreads, n), kColThreads, 0,
-              s>>>(scratch, labels, changed, h, w);
-  return (int)cudaGetLastError();
+
+  const long long total = (long long)n * h * w;
+  long long blocks = (total + kInitThreads - 1) / kInitThreads;
+  if (blocks > 65535LL * 16) blocks = 65535LL * 16;
+  strip_init<<<(unsigned)blocks, kInitThreads, 0, s>>>(fg, labels, flags,
+                                                       total, h * w,
+                                                       iters * n);
+  if ((rc = cudaGetLastError()) != cudaSuccess) return (int)rc;
+  const dim3 row_grid((h + warps - 1) / warps, n);
+  const dim3 col_grid((w + cb - 1) / cb, n);
+  for (int r = 0; r < iters; ++r) {
+    strip_row<<<row_grid, warps * 32, row_smem, s>>>(labels, scratch, flags,
+                                                     r, n, h, w);
+    if ((rc = cudaGetLastError()) != cudaSuccess) return (int)rc;
+    strip_col<<<col_grid, cb * 32, col_smem, s>>>(scratch, labels, flags, r,
+                                                  n, h, w, cb);
+    if ((rc = cudaGetLastError()) != cudaSuccess) return (int)rc;
+  }
+  return 0;
 }

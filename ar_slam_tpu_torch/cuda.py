@@ -38,9 +38,8 @@ _SIGNATURES = {
     "arslam_box_sum": [_P, _P, _P, _I, _I, _I, _I, _P],
     "arslam_box_max_radius": [],
     "arslam_ccl": [_P, _P, _I, _I, _I, _P],
-    "arslam_ccl_strip_init": [_P, _P, _I, _I, _I, _P],
-    "arslam_ccl_strip_round": [_P, _P, _P, _I, _I, _I, _P],
-    "arslam_extract": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "arslam_ccl_strip": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "arslam_extract": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _LIB = None

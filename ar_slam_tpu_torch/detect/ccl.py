@@ -14,7 +14,12 @@ Label = the component's minimum linear index in the true width; background
   the strip kernels ``_row_kernel`` / ``_col_kernel`` (via
   ``connected_components_pallas_batch``), run above that limit.  It keeps
   the reference's round and its ``iters`` cap, so it equals the reference
-  exactly also where the cap cuts a component short.
+  exactly also where the cap cuts a component short.  One call enqueues
+  all ``iters`` rounds (1 + 2 x iters kernels) and reads nothing back: each
+  plane stops on the card after its first round that changed nothing,
+  which gives the labels of the reference's batch-global exit, since a
+  converged plane stays fixed.  The rounds each plane ran stay on the card
+  until ``strip_plane_rounds`` asks for them.
 
 The plain version runs the reference's round (3x3 min-pool, then the min
 over every full foreground run along rows, then along columns, each stage
@@ -31,8 +36,10 @@ from ar_slam_tpu_torch import cuda
 BIG = 2**30
 launches = 0  # K2 launches since the last reset (CUDA path only)
 strip_launches = 0  # K3 launches since the last reset (CUDA path only)
-strip_kernel_launches = 0  # the CUDA kernels those launches ran (1 + 2/round)
-strip_rounds = 0  # rounds the last K3 launch ran
+strip_kernel_launches = 0  # the CUDA kernels they enqueued (1 + 2 x iters)
+strip_flag_reads = 0  # host reads of K3's round flags (strip_plane_rounds)
+_strip_flags = None  # (iters, N) int32 of the last K3 launch, on the card:
+# 1 where round r changed plane p
 
 
 def _shift(x: torch.Tensor, delta: int, dim: int, fill) -> torch.Tensor:
@@ -112,29 +119,37 @@ def connected_components_strip_batch(binary: torch.Tensor,
                                      iters: int = 24) -> torch.Tensor:
     """(N, H, W) bool -> (N, H, W) int32 labels after at most ``iters``
     rounds (K3; the reference's ``connected_components_pallas_batch``)."""
-    global strip_launches, strip_kernel_launches, strip_rounds
+    global strip_launches, strip_kernel_launches, _strip_flags
     if binary.device.type == "cpu":
         return connected_components_plain(binary, iters)
     cuda.require(binary, "binary", torch.bool, 3)
     n, h, w = binary.shape
-    lib = cuda.library()
     labels = torch.empty((n, h, w), dtype=torch.int32, device=binary.device)
     scratch = torch.empty_like(labels)
-    changed = torch.zeros(1, dtype=torch.int32, device=binary.device)
-    stream = cuda.stream()
-    cuda.check(lib.arslam_ccl_strip_init(binary.data_ptr(), labels.data_ptr(),
-                                         n, h, w, stream),
-               "arslam_ccl_strip_init")
+    flags = torch.empty((iters, n), dtype=torch.int32, device=binary.device)
+    cuda.check(cuda.library().arslam_ccl_strip(
+        binary.data_ptr(), labels.data_ptr(), scratch.data_ptr(),
+        flags.data_ptr(), n, h, w, iters, cuda.stream()), "arslam_ccl_strip")
     strip_launches += 1
-    strip_kernel_launches += 1
-    rounds = 0
-    while rounds < iters:
-        rounds += 1
-        cuda.check(lib.arslam_ccl_strip_round(
-            labels.data_ptr(), scratch.data_ptr(), changed.data_ptr(), n, h,
-            w, stream), "arslam_ccl_strip_round")
-        strip_kernel_launches += 2
-        if not changed.item():
-            break
-    strip_rounds = rounds
+    strip_kernel_launches += 1 + 2 * iters
+    _strip_flags = flags
     return labels
+
+
+def strip_plane_rounds() -> tuple[list[int], list[bool]]:
+    """The rounds each plane of the last K3 launch ran, and whether it
+    reached its fixpoint (a round that changed nothing) within the cap.
+    Reads the card; counted in ``strip_flag_reads``."""
+    global strip_flag_reads
+    if _strip_flags is None:
+        raise RuntimeError("no K3 launch on a CUDA tensor yet")
+    strip_flag_reads += 1
+    iters = _strip_flags.shape[0]
+    changing = _strip_flags.sum(dim=0).cpu()
+    return (torch.clamp(changing + 1, max=iters).tolist(),
+            (changing < iters).tolist())
+
+
+def strip_rounds() -> int:
+    """The most rounds any plane of the last K3 launch ran."""
+    return max(strip_plane_rounds()[0], default=0)

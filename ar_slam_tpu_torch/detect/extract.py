@@ -8,7 +8,9 @@ C, D order.  An empty slot (root 2^30) gives (0, 0) for all four points.
 
 ``extreme_quads`` launches ``csrc/extract.cu`` on a CUDA tensor and runs
 ``extreme_quads_plain`` (a PyTorch version of the reference's XLA
-``tpu_detect._extreme_quads``) on a CPU tensor.
+``tpu_detect._extreme_quads``) on a CPU tensor.  The kernel reads each
+plane once for every root's sums and box, then sweeps only the boxes; a
+root held by several slots fills each of them.
 
 Replaces: ar_slam_tpu/detect/pallas_extract.py ``_extract_kernel`` (via
 ``_call`` <- ``extreme_quads_pallas``).
@@ -22,7 +24,8 @@ from ar_slam_tpu_torch import cuda
 
 BIG = 2**30
 NEG = -3.0e38
-launches = 0  # kernel launches since the last reset (CUDA path only)
+WS_WORDS = 12  # 64-bit workspace words per slot (csrc/extract.cu kWs)
+launches = 0  # wrapper calls since the last reset (CUDA path only)
 
 
 def _extreme_one(labels_flat: torch.Tensor, roots: torch.Tensor, h: int,
@@ -93,9 +96,13 @@ def extreme_quads(labels: torch.Tensor, roots: torch.Tensor) -> torch.Tensor:
     k = roots.shape[1]
     if roots.shape[0] != n or roots.device != labels.device:
         raise ValueError("roots must be (N, K) on the labels' device")
-    out = torch.empty((n, k, 4, 2), dtype=torch.float32, device=labels.device)
+    dev = labels.device
+    out = torch.empty((n, k, 4, 2), dtype=torch.float32, device=dev)
+    # per-slot sums, box and argmax keys; the sweep tiles' prefix
+    ws = torch.empty((n, k, WS_WORDS), dtype=torch.int64, device=dev)
+    tile_start = torch.empty(n * k + 1, dtype=torch.int32, device=dev)
     cuda.check(cuda.library().arslam_extract(
-        labels.data_ptr(), roots.data_ptr(), out.data_ptr(), n, h, w, k,
-        cuda.stream()), "arslam_extract")
+        labels.data_ptr(), roots.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        tile_start.data_ptr(), n, h, w, k, cuda.stream()), "arslam_extract")
     launches += 1
     return out

@@ -12,8 +12,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
    stated tolerance of a float64 reference, K2 and K3 (connected
    components) exactly, K4 (extreme points) exactly where its coordinate
    sums are below 2^24 and within 2 px elsewhere, K3 also on a serpentine
-   cut short by its 24-round cap; median CUDA-event times of the kernel, its
-   plain version and, for K1, the library call F.avg_pool2d;
+   cut short by its 24-round cap; K3 at the 24-round cap on room-16's
+   planes, whose per-plane rounds say whether the cap binds there (and, if
+   none reaches it, K3 must equal K2); the rounds each 12 MP plane ran and
+   K3's row- and column-stage device ms per round (torch.profiler); median
+   CUDA-event times of the kernel, its plain version and, for K1, the
+   library call F.avg_pool2d;
 4. room-16 — 16 rendered 1020x768 frames of a 24-tag room through the
    engine (add_decoded in batches of 8 -> solve -> save_map); K1, K2 and
    K4 must launch (K3 not), every rendered tag of side >= 40 px must be
@@ -221,10 +225,11 @@ def _k1_row(imgs, label):
         "cell": label, "shape": [n, h, w], "win": win}
 
 
-def _k4_row(labels, label):
+def _k4_row(labels, label, jobs):
     """K4 on the top-64 roots of one batch of label planes: exact where
     the plain version's float32 coordinate sums are exact (< 2^24); the
-    other slots' largest corner difference is reported."""
+    other slots' largest corner difference is reported.  Queues the
+    profile of K4's own kernels on ``jobs``."""
     import torch
 
     from ar_slam_tpu_torch.detect import extract
@@ -258,7 +263,7 @@ def _k4_row(labels, label):
              f"{inexact_err} px (bound {K4_INEXACT_TOL_PX})")
     # the label planes read once, the quads written once
     bound_ms, bound_by = bound(4 * labels.numel() + q.numel() * 4)
-    return {
+    row = {
         "name": "extreme_quads (K4)", "route": "cuda",
         "source": "ar_slam_tpu_torch/csrc/extract.cu",
         "replaces": "ar_slam_tpu/detect/pallas_extract.py:41",
@@ -269,17 +274,23 @@ def _k4_row(labels, label):
                             reps=3, warm=1),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "cell": label, "shape": list(roots.shape) + list(labels.shape[1:])}
+    # device ms of each of K4's kernels in one call (quad_sweep: 3 launches)
+    jobs.append((row, "kernel_ms", lambda: extract.extreme_quads(
+        labels, roots), ("quad_stats", "quad_plan", "quad_sweep",
+                         "quad_finish"), 1))
+    return row
 
 
 def phase_kernels(frames16, frames12):
     """Each kernel against its plain version at the shapes of room-16
-    (K1, K2, K4) and phone_12mp (K1, K3, K4)."""
+    (K1, K2, K4) and phone_12mp (K1, K3, K4).  Returns the kernel rows and
+    the profiles to take later, (row, key, fn, kernel names, divisor)."""
     import torch
 
     from ar_slam_tpu_torch.detect import ccl
 
     dev = torch.device(DEVICE)
-    rows = []
+    rows, jobs = [], []
 
     # room-16: 8 frames of 1020x768
     imgs = torch.from_numpy(frames16[:8]).to(dev, torch.float32).contiguous()
@@ -297,6 +308,19 @@ def phase_kernels(frames16, frames12):
          shape=list(planes.shape), exact=True,
          components=int((got == torch.arange(
              got[0].numel(), device=dev).reshape(got.shape[1:])).sum()))
+    # does the reference's 24-round cap bind on these planes?  Its fused
+    # kernel propagates at least as fast as K3's Jacobi rounds, so if every
+    # plane reaches its fixpoint under K3 within the cap, the reference
+    # does too, and K2 (no cap) equals it here
+    capped = ccl.connected_components_strip_batch(planes, 24)
+    rounds, converged = ccl.strip_plane_rounds()
+    if all(converged) and not torch.equal(capped, got):
+        fail("room-16: K3 reached every fixpoint within 24 rounds but "
+             "differs from K2")
+    emit("kernel_check", kernel="ccl_cap", cell="room-16", iters=24,
+         plane_rounds=rounds, all_converged=all(converged),
+         k3_equals_k2=bool(torch.equal(capped, got)))
+    del capped
     # the binary planes read once (1 B/px), the labels written once
     bound_ms, bound_by = bound(5 * planes.numel())
     rows.append({
@@ -310,7 +334,7 @@ def phase_kernels(frames16, frames12):
                             reps=3, warm=1),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "cell": "room-16", "shape": list(planes.shape)})
-    rows.append(_k4_row(got, "room-16"))
+    rows.append(_k4_row(got, "room-16", jobs))
     del imgs, planes, got, plain, extra, got_x, plain_x
 
     # phone_12mp: 8 frames of 4032x3024
@@ -320,11 +344,12 @@ def phase_kernels(frames16, frames12):
     del imgs
     iters = 24
     got = ccl.connected_components_strip_batch(planes, iters)
-    rounds = ccl.strip_rounds
+    plane_rounds, converged = ccl.strip_plane_rounds()
+    rounds = max(plane_rounds)
     plain = ccl.connected_components_plain(planes, iters)
     extra = torch.from_numpy(_serpentine(*planes.shape[1:])).to(dev)
     got_x = ccl.connected_components_strip_batch(extra.contiguous(), iters)
-    rounds_x = ccl.strip_rounds
+    rounds_x = ccl.strip_rounds()
     plain_x = ccl.connected_components_plain(extra, iters)
     fixpoint = ccl.connected_components_batch(planes)  # K2, no cap
     torch.cuda.synchronize()
@@ -332,44 +357,62 @@ def phase_kernels(frames16, frames12):
     snake_labels = int(torch.unique(got_x[0][snake]).numel())
     if not (torch.equal(got, plain) and torch.equal(got_x, plain_x)):
         fail("K3 labels differ from the plain version")
-    if rounds < iters and not torch.equal(got, fixpoint):
-        fail("K3 stopped before its cap but differs from K2's fixpoint")
+    if all(converged) and not torch.equal(got, fixpoint):
+        fail("K3 reached every fixpoint but differs from K2's")
     if not (rounds_x == iters and snake_labels > 1):
         fail(f"the serpentine did not reach the round cap ({rounds_x}, "
              f"{snake_labels} labels)")
     emit("kernel_check", kernel="ccl_strip", cell="phone_12mp",
          shape=list(planes.shape), exact=True, iters=iters, rounds=rounds,
+         plane_rounds=plane_rounds, converged_planes=sum(converged),
          equals_k2_fixpoint=bool(torch.equal(got, fixpoint)),
          serpentine_rounds=rounds_x, serpentine_labels=snake_labels)
     del fixpoint, plain, extra, got_x, plain_x
     # the binary planes read once (1 B/px), the labels written once; this
     # design's own traffic (two stages a round, each reading and writing
-    # the int32 planes, for the rounds this run's data took) beside it
+    # the int32 plane, for the rounds each plane ran) beside it
+    plane_px = planes[0].numel()
     bound_ms, bound_by = bound(5 * planes.numel())
     rows.append({
         "name": "connected_components_strip (K3)", "route": "cuda",
         "source": "ar_slam_tpu_torch/csrc/ccl_strip.cu",
         "replaces": "ar_slam_tpu/detect/pallas_ccl.py:73",
         "max_abs_err": 0.0, "iters": iters, "rounds": rounds,
+        "plane_rounds_min_median_max": [
+            min(plane_rounds), float(np.median(plane_rounds)), rounds],
         "ms": cuda_ms(lambda: ccl.connected_components_strip_batch(
             planes, iters)),
         "plain_ms": cuda_ms(lambda: ccl.connected_components_plain(
             planes, iters), reps=3, warm=1),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "jacobi_traffic_ms": bound(rounds * 2 * 2 * 4 * planes.numel())[0],
+        "jacobi_traffic_ms": bound(
+            sum(plane_rounds) * 2 * 2 * 4 * plane_px)[0],
         "library_ms": None, "cell": "phone_12mp",
         "shape": list(planes.shape)})
-    rows.append(_k4_row(got, "phone_12mp"))
+    # device ms a round of each stage: row (pool + row run-min), column
+    jobs.append((rows[-1], "stage_ms_per_round",
+                 lambda p=planes: ccl.connected_components_strip_batch(
+                     p, iters), ("strip_row", "strip_col"), iters))
+    rows.append(_k4_row(got, "phone_12mp", jobs))
     del planes, got
     torch.cuda.empty_cache()
-    return rows
+    return rows, jobs
+
+
+def phase_kernel_profiles(jobs) -> None:
+    """The device ms of each kernel's own CUDA kernels, by torch.profiler.
+    Run last: after these profiles, a later profile in the same process
+    (--profile) showed no host-to-device copies."""
+    for row, key, fn, names, divisor in jobs:
+        row[key] = {name: ms / divisor
+                    for name, ms in _device_ms(fn, names).items()}
 
 
 def reset_counts() -> None:
     from ar_slam_tpu_torch.detect import box, ccl, extract
 
     box.launches = ccl.launches = ccl.strip_launches = extract.launches = 0
-    ccl.strip_kernel_launches = 0
+    ccl.strip_kernel_launches = ccl.strip_flag_reads = 0
 
 
 def read_counts() -> dict:
@@ -378,6 +421,7 @@ def read_counts() -> dict:
     return {"box": box.launches, "ccl": ccl.launches,
             "ccl_strip": ccl.strip_launches,
             "ccl_strip_kernels": ccl.strip_kernel_launches,
+            "ccl_strip_flag_reads": ccl.strip_flag_reads,
             "extract": extract.launches}
 
 
@@ -531,7 +575,7 @@ def phase_phone_12mp(frames, truth, tag_m: float):
     sides = [side for fr in truth["frames"] for _, _, _, side in fr]
     emit("main_path", cell="phone_12mp", frames=len(frames),
          size=list(frames.shape[1:]), launches=launches,
-         ccl_strip_rounds=ccl.strip_rounds,
+         ccl_strip_rounds=ccl.strip_rounds(),
          tag_side_px=[min(sides), max(sides)],
          tags_in_map=len(engine.store.arucos),
          blocks=len(engine.store.blocks), waves=summary.get("waves"),
@@ -549,7 +593,7 @@ def phase_phone_12mp(frames, truth, tag_m: float):
          localize_with_detection_seconds=t_loc_total)
 
     check_launches("phone_12mp", launches, ("box", "ccl_strip", "extract"),
-                   ("ccl",))
+                   ("ccl", "ccl_strip_flag_reads"))
     n_req = check_tags("phone_12mp", found, truth["frames"],
                        [c.uid for c in caps], PHONE_SIDE_PX)
     emit("phone_12mp_tags", tags_required=n_req, min_side_px=PHONE_SIDE_PX)
@@ -628,6 +672,29 @@ def phase_solver():
              f"{F64_OPTIMUM_500}")
 
 
+def _device_ms(fn, names) -> dict:
+    """Device ms, by torch.profiler, of the kernels whose names hold each
+    of ``names`` over one run of fn."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for a in prof.key_averages():
+        if a.device_type == DeviceType.CUDA:
+            for name in names:
+                if name in a.key:
+                    out[name] += a.self_device_time_total / 1e3
+    if not all(out.values()):
+        fail(f"the profile shows no device time for {names}: {out}")
+    return out
+
+
 def _profiled(label: str, fn) -> None:
     """One run of fn under torch.profiler: wall ms (host clock, synchronized),
     device ms (summed over kernels and copies), the idle share, and the
@@ -704,19 +771,24 @@ def main() -> int:
     frames12, truth12 = room_scene(n_frames=12, arc=PHONE_ARC,
                                    aruco_size=tag_m, **PHONE_12MP)
     emit("render", seconds=time.perf_counter() - t0)
-    rows = phase_kernels(frames16, frames12)
+    rows, jobs = phase_kernels(frames16, frames12)
     launches = {"room-16": phase_main_path(frames16, truth16),
                 "phone_12mp": phase_phone_12mp(frames12, truth12, tag_m)}
     phase_solver()
     if args.profile:
         phase_profile(frames16, frames12, tag_m)
+    phase_kernel_profiles(jobs)
     for row in rows:
         row["launches"] = launches[row["cell"]][COUNTERS[row["name"]]]
-    # K3's wrapper launches 1 + 2 x rounds kernels a call and reads the
-    # change flag once a round
+    # K3's wrapper enqueues 1 + 2 x iters kernels a call and reads no flag
     for row in rows:
         if COUNTERS[row["name"]] == "ccl_strip":
-            row["kernel_launches"] = launches[row["cell"]]["ccl_strip_kernels"]
+            counts = launches[row["cell"]]
+            calls = max(counts["ccl_strip"], 1)
+            row["kernel_launches"] = counts["ccl_strip_kernels"]
+            row["kernel_launches_per_call"] = counts["ccl_strip_kernels"] / calls
+            row["host_flag_reads_per_call"] = (counts["ccl_strip_flag_reads"]
+                                               / calls)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,21 +13,9 @@ import torch
 from ar_slam_tpu.detect.pallas_ccl import connected_components_pallas_batch
 from ar_slam_tpu.detect.tpu_detect import connected_components
 from ar_slam_tpu_torch.detect import ccl
+from torch_cases import mixed_batch, serpentine
 
 torch.set_num_threads(1)
-
-
-def serpentine(h, w, pitch=6):
-    """Horizontal bars joined at alternate ends: each CCL round carries the
-    minimum label about one bar further, so it needs ~h / pitch rounds."""
-    img = np.zeros((h, w), bool)
-    ys = list(range(2, h - 2, pitch))
-    for i, y in enumerate(ys):
-        img[y, 2:w - 2] = True
-        if i + 1 < len(ys):
-            x = w - 3 if i % 2 == 0 else 2
-            img[y:ys[i + 1] + 1, x] = True
-    return img
 
 
 def _nonaligned():
@@ -88,3 +76,23 @@ def test_strip_plain_at_fixpoint_equals_uncapped():
     t = torch.from_numpy(batch)
     assert torch.equal(ccl.connected_components_strip_batch(t, 1000),
                        ccl.connected_components_plain(t))
+
+
+@pytest.mark.parametrize("iters", [2, 24])
+def test_strip_per_plane_exit_equals_batch(iters):
+    """What the kernel's per-plane exit relies on: planes that stop at
+    different rounds (blobs done in 2-3, a serpentine cut off by the cap,
+    noise), each run on its own with its own exit, give the batch run's
+    labels, and those are the Pallas strip kernels' (batch-global exit)."""
+    batch = mixed_batch()
+    t = torch.from_numpy(batch)
+    whole = ccl.connected_components_plain(t, iters)
+    alone = torch.cat([ccl.connected_components_plain(t[i:i + 1], iters)
+                       for i in range(len(batch))])
+    assert torch.equal(alone, whole)
+    ref = connected_components_pallas_batch(jnp.asarray(batch), iters=iters,
+                                            interpret=True)
+    np.testing.assert_array_equal(whole.numpy(), np.asarray(ref))
+    assert torch.equal(ccl.connected_components_plain(t[:1], 3),
+                       ccl.connected_components_plain(t[:1]))
+    assert len(np.unique(whole[1].numpy()[batch[1]])) > 1

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from ar_slam_tpu_torch.detect import box, ccl, extract
+from torch_cases import extract_cases, mixed_batch, serpentine
 
 pytestmark = pytest.mark.cuda
 
@@ -100,27 +101,17 @@ def test_extract_kernel_equals_plain(dev):
     assert torch.equal(got[exact], plain[exact])
 
 
-def _serpentine(h, w):
-    img = np.zeros((h, w), bool)
-    ys = list(range(2, h - 2, 6))
-    for i, y in enumerate(ys):
-        img[y, 2:w - 2] = True
-        if i + 1 < len(ys):
-            img[y:ys[i + 1] + 1, w - 3 if i % 2 == 0 else 2] = True
-    return img
-
-
 @pytest.mark.parametrize("iters", [2, 24])
 def test_ccl_strip_kernel_serpentine_at_cap(dev, iters):
     """A serpentine needing ~h/6 rounds, cut short by the cap, next to a
     noise plane, at a non-aligned width: equal to the plain version label
     for label (a Gauss-Seidel round would run ahead of it)."""
     rng = np.random.default_rng(3)
-    b = torch.from_numpy(np.stack([_serpentine(301, 517),
+    b = torch.from_numpy(np.stack([serpentine(301, 517),
                                    rng.random((301, 517)) < 0.45])).to(dev)
     got = ccl.connected_components_strip_batch(b, iters)
     torch.cuda.synchronize()
-    assert ccl.strip_rounds == iters
+    assert ccl.strip_rounds() == iters
     assert torch.equal(got, ccl.connected_components_plain(b, iters))
     assert torch.unique(got[0][b[0]]).numel() > 1
 
@@ -135,5 +126,50 @@ def test_ccl_strip_kernel_12mp_planes(dev):
     got = ccl.connected_components_strip_batch(b.contiguous(), 24)
     torch.cuda.synchronize()
     assert torch.equal(got, ccl.connected_components_plain(b, 24))
-    if ccl.strip_rounds < 24:
+    if ccl.strip_rounds() < 24:
         assert torch.equal(got, ccl.connected_components_batch(b.contiguous()))
+
+
+@pytest.mark.parametrize("iters", [1, 2, 24])
+def test_ccl_strip_kernel_mixed_batch(dev, iters):
+    """Planes that stop at different rounds in one launch: each plane's own
+    exit on the card gives the plain version's batch labels, and the rounds
+    each plane ran are the plain version's."""
+    batch = mixed_batch()
+    b = torch.from_numpy(batch).to(dev)
+    got = ccl.connected_components_strip_batch(b, iters)
+    rounds, converged = ccl.strip_plane_rounds()
+    assert torch.equal(got, ccl.connected_components_plain(b, iters))
+    for i in range(len(batch)):
+        plane = b[i:i + 1]
+        done = [r for r in range(1, iters + 1) if torch.equal(
+            ccl.connected_components_plain(plane, r - 1),
+            ccl.connected_components_plain(plane, r))]
+        assert converged[i] == bool(done)
+        assert rounds[i] == (done[0] if done else iters)
+    assert not converged[1] and (iters < 3 or converged[0])
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (1, 77), (77, 1), (45, 33),
+                                 (301, 517), (3500, 40), (2, 8000)])
+def test_ccl_strip_kernel_shapes(dev, h, w):
+    """Widths that are not a multiple of 32, a single row and column, a
+    plane too tall for a 16-column strip in shared memory and one too wide
+    for 8 rows a block."""
+    rng = np.random.default_rng(h * 7 + w)
+    b = torch.from_numpy(np.stack([rng.random((h, w)) < 0.45,
+                                   rng.random((h, w)) < 0.1])).to(dev)
+    got = ccl.connected_components_strip_batch(b, 24)
+    assert torch.equal(got, ccl.connected_components_plain(b, 24))
+
+
+def test_extract_kernel_edge_cases(dev):
+    """Four tied farthest points, +-0.0 side distances that tie, a root in
+    two slots, an absent root, empty slots, a plane-wide bar and a ring on
+    every edge: bit for bit the plain version."""
+    labels, roots = extract_cases()
+    lab = torch.from_numpy(labels).to(dev)
+    r = torch.from_numpy(roots).to(dev)
+    got = extract.extreme_quads(lab, r)
+    assert torch.equal(got, extract.extreme_quads_plain(lab, r))
+    assert torch.equal(got[0, 1, 1], got[0, 1, 0])  # B = A on the +-0 tie

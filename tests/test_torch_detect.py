@@ -17,6 +17,7 @@ from ar_slam_tpu.detect.pallas_extract import extreme_quads_pallas
 from ar_slam_tpu_torch.detect import box, ccl, extract
 from ar_slam_tpu_torch.detect import detect as tdet
 from tests.test_detect import place_marker
+from torch_cases import extract_cases
 
 torch.set_num_threads(1)
 
@@ -110,6 +111,26 @@ def test_extract_plain_matches_pallas():
     valid = np.asarray(areas) > 0
     np.testing.assert_array_equal(got.numpy()[valid], ref[valid])
     assert (got.numpy()[~valid] == 0).all()
+
+
+def test_extract_plain_edge_cases_match_pallas():
+    """K4's edge cases (tests/torch_cases.py): four tied farthest points,
+    side distances of +0.0 and -0.0 that tie, a plane-wide bar, a ring on
+    every edge, a root in two slots and one absent: the plain version equals
+    the Pallas kernel on every slot with a root; empty slots give (0, 0)."""
+    labels, roots = extract_cases()
+    ref = np.asarray(extreme_quads_pallas(jnp.asarray(labels),
+                                          jnp.asarray(roots),
+                                          k=roots.shape[1], strip=8,
+                                          interpret=True))
+    got = extract.extreme_quads(torch.from_numpy(labels),
+                                torch.from_numpy(roots)).numpy()
+    full = roots != 2**30
+    np.testing.assert_array_equal(got[full], ref[full])
+    assert (got[~full] == 0).all()
+    assert (got[0, 5] == 0).all() and (got[1, 5] == 0).all()  # absent root
+    np.testing.assert_array_equal(got[0, 4], got[0, 1])  # the same root twice
+    np.testing.assert_array_equal(got[0, 1, 1], got[0, 1, 0])  # B = A: +-0 tie
 
 
 @pytest.mark.parametrize("subsample", [1, 2])
