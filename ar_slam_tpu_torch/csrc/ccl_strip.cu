@@ -7,11 +7,11 @@
 // padded decimated plane exceeds FUSED_CCL_PIXEL_LIMIT.  There a round is an
 // XLA 3x3 min-pool, a Pallas pass of segmented min scans along every row and
 // one along every column; an XLA while_loop repeats rounds until nothing
-// changes or ``iters`` rounds have run.  Unlike K2 (union-find, always fully
-// resolved) this kernel keeps the round cap, so it must reproduce the
-// reference's labels bit for bit also where the cap cuts a serpentine short.
-// That holds only if each round is Jacobi: every stage reads the whole
-// output of the stage before it.  So a round is two launches:
+// changes or ``iters`` rounds have run.  This kernel keeps the round cap,
+// so it must reproduce the reference's labels bit for bit also where the
+// cap cuts a serpentine short.  That holds only if each round is Jacobi
+// (unlike K2's Gauss-Seidel round): every stage reads the whole output of
+// the stage before it.  So a round is two launches:
 //
 //   strip_row: one warp per row, 8 rows a block.  It reads rows y-1, y, y+1
 //              of the labels (coalesced, 8 steps of 32 pixels in flight per
@@ -25,7 +25,8 @@
 //              copy of a thread is in flight at once), one warp per column;
 //              replaces every run of each column by its minimum -> labels.
 //
-// Both stages do the run-min as a warp-level segmented scan (run_min_line):
+// Both stages do the run-min as a warp-level segmented scan (run_min_line,
+// ccl_lines.cuh):
 // each lane owns a contiguous segment of the line, reduces it to a summary
 // (min of its leading run, min of its trailing run, whether it is all
 // foreground), the 32 summaries are scanned forward and backward by
@@ -64,23 +65,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ccl_lines.cuh"
+
 namespace {
 
-constexpr int kBig = 1 << 30;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kInitThreads = 256;
 constexpr int kRowWarps = 8;   // rows (one warp each) per strip_row block
 constexpr int kRowBatch = 8;   // row steps of 32 pixels a lane loads at once
-constexpr int kBgMark = (int)0x80000000u;  // background centre, in strip_row
 constexpr int kColStrip = 16;  // columns per strip_col block, at most
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
-
-// a lane's share of a line of n elements: odd, so lane i's walk from i * seg
-// meets no other lane in a shared-memory bank
-__host__ __device__ inline int lane_segment(int n) {
-  return ((n + 31) / 32) | 1;
-}
 
 __host__ __device__ inline size_t row_smem_bytes(int warps, int w) {
   return (size_t)warps * 32 * lane_segment(w) * sizeof(int);
@@ -99,69 +93,6 @@ __global__ void strip_init(const uint8_t* __restrict__ fg,
     lab[i] = fg[i] ? (int)(i % hw) : kBig;
   if (blockIdx.x == 0)
     for (int i = threadIdx.x; i < n_flags; i += blockDim.x) flags[i] = 0;
-}
-
-// One warp replaces every foreground run of a line (elements v[i * stride],
-// i < n) by the run's minimum.  Lane l owns [l * seg, l * seg + seg).
-// Returns, in every lane, whether two neighbouring foreground elements of
-// the line differed before the scan (i.e. whether it changed anything).
-__device__ bool run_min_line(int* v, int stride, int n, int seg, int lane) {
-  const int i0 = min(lane * seg, n), i1 = min(i0 + seg, n);
-  // summary: min of the leading run, of the trailing run, all foreground?
-  int lead = kBig, trail = kBig, all = 1;
-  bool diff = false;
-  int prev = i0 > 0 ? v[(i0 - 1) * stride] : kBig;
-#pragma unroll 4
-  for (int i = i0; i < i1; ++i) {
-    const int x = v[i * stride];
-    if (x < kBig) {
-      trail = min(trail, x);
-      if (all) lead = x < lead ? x : lead;
-      diff |= prev < kBig && prev != x;
-    } else {
-      trail = kBig;
-      all = 0;
-    }
-    prev = x;
-  }
-  __syncwarp();  // every lane has read its left neighbour's last element
-  // the run reaching into this segment from the left (min of its part left
-  // of the segment) and from the right: inclusive scans of the composable
-  // maps c -> all ? min(c, m) : m, then shifted by one lane
-  int fa = all, fm = trail, ba = all, bm = lead;
-  for (int off = 1; off < 32; off <<= 1) {
-    const int ua = __shfl_up_sync(kFull, fa, off);
-    const int um = __shfl_up_sync(kFull, fm, off);
-    const int da = __shfl_down_sync(kFull, ba, off);
-    const int dm = __shfl_down_sync(kFull, bm, off);
-    if (lane >= off) {
-      fm = fa ? min(um, fm) : fm;
-      fa = fa && ua;
-    }
-    if (lane + off < 32) {
-      bm = ba ? min(bm, dm) : bm;
-      ba = ba && da;
-    }
-  }
-  int left = __shfl_up_sync(kFull, fm, 1);
-  int right = __shfl_down_sync(kFull, bm, 1);
-  if (lane == 0) left = kBig;
-  if (lane == 31) right = kBig;
-  int run = left;  // forward: prefix minima of each run
-#pragma unroll 4
-  for (int i = i0; i < i1; ++i) {
-    const int x = v[i * stride];
-    run = x < kBig ? min(run, x) : kBig;
-    v[i * stride] = run;
-  }
-  run = right;  // backward: each run's last prefix, i.e. its minimum
-#pragma unroll 4
-  for (int i = i1 - 1; i >= i0; --i) {
-    const int x = v[i * stride];
-    run = x < kBig ? min(run, x) : kBig;
-    v[i * stride] = run;
-  }
-  return __any_sync(kFull, diff);
 }
 
 __global__ void strip_row(const int* __restrict__ lab,
@@ -207,19 +138,7 @@ __global__ void strip_row(const int* __restrict__ lab,
   // horizontal min over each lane's segment, in place (its two outside
   // neighbours read before anyone writes): the 3x3 min-pool of the
   // foreground
-  const int i0 = min(lane * seg, w), i1 = min(i0 + seg, w);
-  int left = i0 > 0 ? p[i0 - 1] & ~kBgMark : kBig;
-  const int right = i1 < w ? p[i1] & ~kBgMark : kBig;
-  __syncwarp();
-  for (int i = i0; i < i1; ++i) {
-    const int cur = p[i];
-    const int next = i + 1 < i1 ? p[i + 1] & ~kBgMark : right;
-    const int v = cur & ~kBgMark;
-    const int side = min(left, next);
-    lowered |= !(cur & kBgMark) && side < v;
-    p[i] = cur & kBgMark ? kBig : min(v, side);
-    left = v;
-  }
+  lowered |= pool_line_h(p, w, seg, lane);
   __syncwarp();
   const bool diff = run_min_line(p, 1, w, seg, lane);
   __syncwarp();

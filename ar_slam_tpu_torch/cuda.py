@@ -28,6 +28,7 @@ import ar_slam_tpu_torch.device  # noqa: F401  (switches TF32 off)
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = ("box.cu", "ccl.cu", "ccl_strip.cu", "extract.cu")
+HEADERS = ("ccl_lines.cuh",)  # included by the sources; part of the hash
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                          "kernels")
 ARCH = "arch=compute_90a,code=sm_90a"
@@ -35,9 +36,12 @@ ARCH = "arch=compute_90a,code=sm_90a"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "arslam_box_sum": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "arslam_box_sum": [_P, _P, _I, _I, _I, _I, _P],
     "arslam_box_max_radius": [],
-    "arslam_ccl": [_P, _P, _I, _I, _I, _P],
+    "arslam_threshold": [_P, _P, _P, _I, _I, _I, _P, _I, _I, _P],
+    "arslam_threshold_max_windows": [],
+    "arslam_ccl": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "arslam_ccl_resident_planes": [_I, _I, _I],
     "arslam_ccl_strip": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "arslam_extract": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
@@ -57,7 +61,7 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     digest = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as f:
             digest.update(f.read())
     return os.path.join(BUILD_DIR,

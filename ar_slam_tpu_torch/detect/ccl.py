@@ -1,30 +1,32 @@
 """8-connected component labels: K2 and K3 (port of detect/pallas_ccl.py).
 
 Label = the component's minimum linear index in the true width; background
-= 2^30.  Each wrapper launches its CUDA kernel on a CUDA tensor and runs
-``connected_components_plain`` on a CPU tensor.
+= 2^30.  Both kernels keep the reference's round and its ``iters`` cap, so
+they equal the reference label for label also where the cap cuts a
+component short.  Each wrapper launches its CUDA kernel on a CUDA tensor
+and runs its plain version on a CPU tensor.
 
 - ``connected_components_batch`` (K2, ``csrc/ccl.cu``) replaces
   ``_ccl_fused_kernel`` (via ``connected_components_fused_batch``), which
-  the reference runs on planes up to ``FUSED_CCL_PIXEL_LIMIT``.  It is
-  union-find and always resolves fully, where the reference stops after
-  ``ccl_iters`` rounds (a deliberate divergence only on shapes needing more
-  rounds); its plain version iterates to the fixpoint with no cap.
+  the reference runs on planes up to ``FUSED_CCL_PIXEL_LIMIT``.  Its round
+  is Gauss-Seidel: 64-row strips are updated in place, in order, and
+  dirty-strip and dirty-column-group flags choose which strips and 128-wide
+  column groups run (``connected_components_fused_plain`` transcribes it).
+  One launch runs the whole batch, each plane on a thread-block cluster
+  that stops on the card at its fixpoint or at the cap; the rounds each
+  plane ran stay on the card until ``fused_plane_rounds`` asks for them.
 - ``connected_components_strip_batch`` (K3, ``csrc/ccl_strip.cu``) replaces
   the strip kernels ``_row_kernel`` / ``_col_kernel`` (via
-  ``connected_components_pallas_batch``), run above that limit.  It keeps
-  the reference's round and its ``iters`` cap, so it equals the reference
-  exactly also where the cap cuts a component short.  One call enqueues
-  all ``iters`` rounds (1 + 2 x iters kernels) and reads nothing back: each
+  ``connected_components_pallas_batch``), run above that limit.  Its round
+  is Jacobi (``connected_components_plain``).  One call enqueues all
+  ``iters`` rounds (1 + 2 x iters kernels) and reads nothing back: each
   plane stops on the card after its first round that changed nothing,
   which gives the labels of the reference's batch-global exit, since a
   converged plane stays fixed.  The rounds each plane ran stay on the card
   until ``strip_plane_rounds`` asks for them.
 
-The plain version runs the reference's round (3x3 min-pool, then the min
-over every full foreground run along rows, then along columns, each stage
-reading the whole previous stage) until nothing changes or ``iters``
-rounds have run.
+A round is a 3x3 min-pool of the foreground, then the min over every full
+foreground run along rows, then along columns.
 """
 
 from __future__ import annotations
@@ -34,7 +36,10 @@ import torch
 from ar_slam_tpu_torch import cuda
 
 BIG = 2**30
+GROUP = 128  # K2's column-group width (the reference's ``cstrip``)
 launches = 0  # K2 launches since the last reset (CUDA path only)
+fused_round_reads = 0  # host reads of K2's per-plane rounds
+_fused_rounds = None  # (N,) int32 rounds each plane ran in the last K2 launch
 strip_launches = 0  # K3 launches since the last reset (CUDA path only)
 strip_kernel_launches = 0  # the CUDA kernels they enqueued (1 + 2 x iters)
 strip_flag_reads = 0  # host reads of K3's round flags (strip_plane_rounds)
@@ -100,19 +105,128 @@ def connected_components_plain(binary: torch.Tensor,
     return labels
 
 
-def connected_components_batch(binary: torch.Tensor) -> torch.Tensor:
-    """(N, H, W) bool -> (N, H, W) int32 component labels."""
-    global launches
+def fused_geometry(h: int, w: int) -> tuple[int, int, int]:
+    """The reference fused kernel's padding (pallas_ccl.py:366-377): the
+    strip height, the number of strips and of 128-wide column groups.
+    Pad rows and columns are background; the flags depend on this
+    geometry."""
+    if h > 64:
+        strip = 64
+        h_pad = -(-h // 64) * 64
+    else:
+        h_pad = -(-h // 8) * 8
+        strip = h_pad
+    return strip, h_pad // strip, -(-w // GROUP)
+
+
+def fused_plane_plain(plane: torch.Tensor, iters: int = 24
+                      ) -> tuple[torch.Tensor, int]:
+    """One (H, W) bool plane through the reference's ``_ccl_fused_kernel``
+    (pallas_ccl.py:197-352), transcribed in its sequential order: labels
+    and the rounds run.  Strips are updated in place, so a strip's first
+    row pools the final row above it when the strip above ran."""
+    h, w = plane.shape
+    strip, n_rs, n_cs = fused_geometry(h, w)
+    dev = plane.device
+    idx = torch.arange(h * w, dtype=torch.int32, device=dev).reshape(h, w)
+    big = torch.tensor(BIG, dtype=torch.int32, device=dev)
+    a = torch.full((n_rs * strip, n_cs * GROUP), BIG, dtype=torch.int32,
+                   device=dev)
+    a[:h, :w] = torch.where(plane, idx, big)
+    big_row = a.new_full((1, a.shape[1]), BIG)
+    drow, dcol = [True] * n_rs, [False] * n_cs
+    rounds, changed = 0, True
+    while rounds < iters and changed:
+        dnext, changed = [False] * n_rs, False
+
+        def mark_dirty(s):
+            nonlocal changed
+            for i in range(max(s - 1, 0), min(s + 1, n_rs - 1) + 1):
+                dnext[i] = True
+            changed = True
+
+        for s in range(n_rs):  # row stage, in place over dirty strips
+            if not drow[s]:
+                continue
+            r0 = s * strip
+            mid = a[r0:r0 + strip]
+            tile = torch.cat([a[r0 - 1:r0] if s else big_row, mid,
+                              a[r0 + strip:r0 + strip + 1]
+                              if s + 1 < n_rs else big_row])
+            m = torch.minimum(torch.minimum(tile[:-2], tile[1:-1]), tile[2:])
+            m = torch.minimum(m, torch.minimum(_shift(m, 1, 1, BIG),
+                                               _shift(m, -1, 1, BIG)))
+            lab = _run_min_scan(torch.where(mid < BIG, m, big), 1)
+            groups = (lab != mid).reshape(strip, n_cs, GROUP).any(2).any(0)
+            if bool(groups.any()):
+                mark_dirty(s)
+                dcol = [d or g for d, g in zip(dcol, groups.tolist())]
+            a[r0:r0 + strip] = lab
+        for c in range(n_cs):  # column stage over flagged groups
+            if dcol[c]:
+                tile = a[:, c * GROUP:(c + 1) * GROUP]
+                out = _run_min_scan(tile, 0)
+                bands = (out != tile).reshape(n_rs, strip * GROUP).any(1)
+                a[:, c * GROUP:(c + 1) * GROUP] = out
+                for b in torch.nonzero(bands).flatten().tolist():
+                    mark_dirty(b)
+            dcol[c] = False
+        drow = dnext
+        rounds += 1
+    return a[:h, :w].clone(), rounds
+
+
+def connected_components_fused_plain(binary: torch.Tensor,
+                                     iters: int = 24) -> torch.Tensor:
+    """(N, H, W) bool -> (N, H, W) int32 labels of the reference's fused
+    kernel under its cap, plain PyTorch, plane by plane."""
+    if binary.shape[0] == 0:
+        return torch.empty(binary.shape, dtype=torch.int32,
+                           device=binary.device)
+    return torch.stack([fused_plane_plain(p, iters)[0] for p in binary])
+
+
+def connected_components_batch(binary: torch.Tensor,
+                               iters: int = 24) -> torch.Tensor:
+    """(N, H, W) bool -> (N, H, W) int32 labels after at most ``iters``
+    Gauss-Seidel rounds (K2; the reference's
+    ``connected_components_fused_batch``)."""
+    global launches, _fused_rounds
     if binary.device.type == "cpu":
-        return connected_components_plain(binary)
+        return connected_components_fused_plain(binary, iters)
     cuda.require(binary, "binary", torch.bool, 3)
     n, h, w = binary.shape
+    strip = fused_geometry(h, w)[0]
     labels = torch.empty((n, h, w), dtype=torch.int32, device=binary.device)
-    cuda.check(cuda.library().arslam_ccl(binary.data_ptr(), labels.data_ptr(),
-                                         n, h, w, cuda.stream()),
-               "arslam_ccl")
+    scratch = torch.empty_like(labels)
+    rounds = torch.empty((n,), dtype=torch.int32, device=binary.device)
+    cuda.check(cuda.library().arslam_ccl(
+        binary.data_ptr(), labels.data_ptr(), scratch.data_ptr(),
+        rounds.data_ptr(), n, h, w, strip, iters, cuda.stream()),
+        "arslam_ccl")
     launches += 1
+    _fused_rounds = rounds
     return labels
+
+
+def fused_resident_planes(h: int, w: int) -> int:
+    """How many (h, w) planes K2 keeps on the card at once (one cluster
+    each); a batch larger than this runs in waves."""
+    strip = fused_geometry(h, w)[0]
+    n = cuda.library().arslam_ccl_resident_planes(h, w, strip)
+    if n < 0:
+        raise RuntimeError(f"arslam_ccl_resident_planes failed with {-n}")
+    return n
+
+
+def fused_plane_rounds() -> list[int]:
+    """The rounds each plane of the last K2 launch ran (at most its cap).
+    Reads the card; counted in ``fused_round_reads``."""
+    global fused_round_reads
+    if _fused_rounds is None:
+        raise RuntimeError("no K2 launch on a CUDA tensor yet")
+    fused_round_reads += 1
+    return _fused_rounds.tolist()
 
 
 def connected_components_strip_batch(binary: torch.Tensor,

@@ -3,11 +3,14 @@
 The stages are torch ops around four kernels (each with a plain PyTorch
 version that the CPU runs use):
 
-- adaptive threshold at every window, on box means from K1
-  (``detect.box``), stacked on the batch axis;
-- 2x count-pool decimation of the binary planes;
+- the frames go to the card as they come (uint8: a quarter of the bytes of
+  float32) and are converted there;
+- adaptive threshold at every window and 2x count-pool decimation of the
+  binary planes, stacked on the batch axis: one launch of K1
+  (``detect.box.threshold_batch``) on uint8 frames;
 - connected components with K2, or K3 on planes above
-  ``FUSED_CCL_PIXEL_LIMIT`` (``detect.ccl``);
+  ``FUSED_CCL_PIXEL_LIMIT`` (``detect.ccl``), both under the round cap
+  ``ccl_iters``;
 - top-K component ranking on a min-pooled label grid;
 - extreme-point quads with K4 (``detect.extract``), ordered, expanded and
   filtered;
@@ -36,8 +39,8 @@ from ar_slam_tpu_torch.device import resolve_device
 
 BIG = 2**30
 # largest padded decimated plane (padded as the reference pads it) that goes
-# to the fused CCL (K2); above it the strip-scan CCL (K3) runs, with the
-# round cap params.ccl_iters (tpu_detect.py:775-786,
+# to the fused CCL (K2); above it the strip-scan CCL (K3) runs; both with
+# the round cap params.ccl_iters (tpu_detect.py:775-786,
 # pallas_ccl.FUSED_CCL_PIXEL_LIMIT)
 FUSED_CCL_PIXEL_LIMIT = 1_000_000
 
@@ -46,8 +49,7 @@ class DetectParams(NamedTuple):
     """tpu_detect.DetectParams' fields and defaults (see there for the
     reasoning behind each gate), less ``ccl_backend`` (kernel or plain
     version follows the tensor's device).  ``ccl_iters`` bounds the rounds
-    of the strip-scan CCL (K3); the fused CCL (K2) is union-find and
-    always resolves fully."""
+    of both CCLs (K2 and K3)."""
 
     win: int = 23
     win_sizes: tuple = ()
@@ -449,13 +451,11 @@ def detect_batch(images, *, params: DetectParams = DetectParams(),
     (N, K') bool}}.
     """
     device = resolve_device(device)
-    images = torch.as_tensor(np.asarray(images) if not isinstance(
-        images, torch.Tensor) else images).to(device=device,
-                                              dtype=torch.float32)
-    images = images.contiguous()
+    frames = torch.as_tensor(np.asarray(images) if not isinstance(
+        images, torch.Tensor) else images).to(device).contiguous()
     tables = make_tables(dict_names, device)
     windows = tuple(params.win_sizes) or (params.win,)
-    n, h, w = images.shape
+    n, h, w = frames.shape
     k = params.max_candidates
     nw = len(windows)
 
@@ -464,20 +464,10 @@ def detect_batch(images, *, params: DetectParams = DetectParams(),
     hw_pad = (-(-hd // 128) * 128 if hd > 128 else -(-hd // 8) * 8) * (
         -(-wd // 128) * 128)
 
-    binary_b = torch.cat([images < box.box_mean_batch(images, win)
-                          - params.thresh_c for win in windows])
-    if d > 1:
-        bpad = binary_b
-        if (hd * d, wd * d) != (h, w):
-            bpad = torch.zeros((binary_b.shape[0], hd * d, wd * d),
-                               dtype=torch.bool, device=device)
-            bpad[:, :h, :w] = binary_b
-        counts = bpad.reshape(-1, hd, d, wd, d).to(torch.int32).sum(
-            dim=(2, 4))
-        binary_b = (counts >= (d * d + 1) // 2).contiguous()
-
+    binary_b = box.threshold_batch(frames, windows, params.thresh_c, d)
+    images = frames.to(torch.float32)  # for refine and decode
     if hw_pad <= FUSED_CCL_PIXEL_LIMIT:
-        labels_b = ccl.connected_components_batch(binary_b)
+        labels_b = ccl.connected_components_batch(binary_b, params.ccl_iters)
     else:
         labels_b = ccl.connected_components_strip_batch(binary_b,
                                                         params.ccl_iters)

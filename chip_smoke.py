@@ -8,27 +8,30 @@ Phases (each prints one JSON line; any failure exits non-zero):
 2. build   — compiles the CUDA kernels from ar_slam_tpu_torch/csrc (one
    nvcc per source, in parallel);
 3. kernels — each kernel against its plain PyTorch version on rendered
-   frames at the shapes of both main paths below: K1 (box filter) within a
-   stated tolerance of a float64 reference, K2 and K3 (connected
-   components) exactly, K4 (extreme points) exactly where its coordinate
-   sums are below 2^24 and within 2 px elsewhere, K3 also on a serpentine
-   cut short by its 24-round cap; K3 at the 24-round cap on room-16's
-   planes, whose per-plane rounds say whether the cap binds there (and, if
-   none reaches it, K3 must equal K2); the rounds each 12 MP plane ran and
-   K3's row- and column-stage device ms per round (torch.profiler); median
-   CUDA-event times of the kernel, its plain version and, for K1, the
-   library call F.avg_pool2d;
+   frames at the shapes of both main paths below: K1's threshold use
+   (uint8 frames, windows 3/13/23, one launch) bool for bool, K1's field
+   use (the five refine maps at window 11) bit for bit and within 1e-5 of
+   a float64 sum, K2 and K3 (connected components) exactly under their
+   24-round cap, K2 also with its per-plane rounds on a serpentine the cap
+   cuts short, 45 % noise and (8, 896, 1024) planes just under the fused
+   limit, K4 (extreme points) exactly where its coordinate sums are below
+   2^24 and within 2 px elsewhere, K3 also on a serpentine cut short by
+   its cap; whether the cap binds (K2 with a cap no plane reaches gives
+   the fixpoint); the rounds each plane ran and K3's row- and
+   column-stage device ms per round (torch.profiler); median CUDA-event
+   times of the kernel, its plain version and, for K1, the library call
+   F.avg_pool2d;
 4. room-16 — 16 rendered 1020x768 frames of a 24-tag room through the
-   engine (add_decoded in batches of 8 -> solve -> save_map); K1, K2 and
-   K4 must launch (K3 not), every rendered tag of side >= 40 px must be
-   found with its true id, no foreign id may appear, the map's rmse must
-   be < 1 px, and map.yaml must reload through the fast parser with the
-   same tags;
+   engine (add_decoded in batches of 8 -> solve -> save_map); K1 (both
+   uses), K2 and K4 must launch (K3 not, and no K2 rounds read), every
+   rendered tag of side >= 40 px must be found with its true id, no
+   foreign id may appear, the map's rmse must be < 1 px, and map.yaml must
+   reload through the fast parser with the same tags;
 5. phone_12mp — 12 rendered 4032x3024 phone photos of the room (50 mm
    tags, 114-182 px): frames
    0-7 mapped (one batch of 8), the map saved, then a fresh engine loads it
    and localizes frames 8-11, taken between the map's viewpoints
-   (engine.localize_decoded); K1, K3 and K4 must
+   (engine.localize_decoded); K1 (both uses), K3 and K4 must
    launch and K2 not, every rendered tag of side >= 80 px must be found
    with its true id and no foreign id, map and localize rmse < 1 px, every
    query localized, each query camera within 2 cm of the rendered truth
@@ -41,8 +44,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
 
 With --profile, one detection batch of each cell and phone_12mp's
 localization then run under torch.profiler (device time, idle share, the
-largest device items).  Then the kernel table as one JSON line, and last
-{"ok": true, "device": {...}}.  Uses no jax, PIL, cv2 or yaml.
+host-to-device bytes and ms, the largest device items).  Then the kernel
+table as one JSON line, and last {"ok": true, "device": {...}}.  Uses no
+jax, PIL, cv2 or yaml.
 """
 
 from __future__ import annotations
@@ -80,7 +84,8 @@ PHONE_ARC = [i / 7 for i in range(8)] + [(i + 0.5) / 7 for i in (0, 2, 4, 6)]
 
 
 # the launch counter (read_counts key) behind each kernel row
-COUNTERS = {"box_sum (K1)": "box", "connected_components (K2)": "ccl",
+COUNTERS = {"threshold (K1)": "box_threshold", "box_sum (K1)": "box",
+            "connected_components (K2)": "ccl",
             "connected_components_strip (K3)": "ccl_strip",
             "extreme_quads (K4)": "extract"}
 
@@ -145,17 +150,9 @@ def phase_build():
          nvcc_seconds=cuda.build_seconds, library=os.path.relpath(path, REPO))
 
 
-def _planes(imgs, windows=(3, 13, 23)):
-    """The main path's decimated binary planes of a batch of frames."""
-    import torch
-
-    from ar_slam_tpu_torch.detect import box
-
-    b = torch.cat([imgs < box.box_sum_plain(imgs, w) / float(w * w) - 7.0
-                   for w in windows])
-    n, h, w = b.shape
-    return (b.reshape(n, h // 2, 2, w // 2, 2).to(torch.int32).sum((2, 4))
-            >= 2).contiguous()
+WINDOWS, THRESH_C, DECIMATE = (3, 13, 23), 7.0, 2  # the main path's
+# threshold (config.DetectConfig, DetectParams.ccl_decimate)
+REFINE_WIN = 2 * 5 + 1  # the corner-refine box window (DetectParams)
 
 
 def _serpentine(h, w, seed=1):
@@ -168,11 +165,62 @@ def _serpentine(h, w, seed=1):
     return np.stack([img, noise])
 
 
-def _k1_row(imgs, label):
-    """K1 on one batch of frames: thresholds at 3/13/23 and the refine
-    fields at 11 checked, timing at win 23.  Returns the table row."""
-    import torch
+def _library_box_ms(imgs, win) -> float:
+    """The library's box sum: F.avg_pool2d on a replicate-padded plane,
+    times win^2."""
     import torch.nn.functional as F
+
+    r = win // 2
+    return cuda_ms(lambda: F.avg_pool2d(F.pad(
+        imgs[:, None], (r, r, r, r), mode="replicate"), win,
+        stride=1)[:, 0] * float(win * win))
+
+
+def _k1_threshold_row(frames, label):
+    """K1's threshold use on one batch of uint8 frames (all windows, one
+    launch): bool for bool the plain version.  Returns the table row."""
+    import torch
+
+    from ar_slam_tpu_torch.detect import box
+
+    n, h, w = frames.shape
+    args = (frames, WINDOWS, THRESH_C, DECIMATE)
+    got = box.threshold_batch(*args)
+    plain = box.threshold_plain(*args)
+    torch.cuda.synchronize()
+    differ = int((got != plain).sum())
+    emit("kernel_check", kernel="threshold", cell=label, shape=[n, h, w],
+         windows=list(WINDOWS), out_shape=list(got.shape),
+         differing=differ, dark_share=float(got.float().mean()))
+    if differ:
+        fail(f"K1 threshold {label}: {differ} planes' pixels differ from "
+             f"the plain version")
+    # the frames read once (1 B/px), the planes written once (1 B/px);
+    # a sliding box sum is 4 adds a pixel and window, then a divide, a
+    # subtract and a compare
+    bound_ms, bound_by = bound(frames.numel() + got.numel(),
+                               7 * len(WINDOWS) * frames.numel())
+    imgs = frames.to(torch.float32)
+    lib = sum(_library_box_ms(imgs, win) for win in WINDOWS)
+    del imgs, plain
+    return {
+        "name": "threshold (K1)", "route": "cuda",
+        "source": "ar_slam_tpu_torch/csrc/box.cu",
+        "replaces": "ar_slam_tpu/detect/pallas_box.py:35",
+        "max_abs_err": float(differ), "tolerance": "exact (bool)",
+        "ms": cuda_ms(lambda: box.threshold_batch(*args)),
+        "plain_ms": cuda_ms(lambda: box.threshold_plain(*args), reps=3,
+                            warm=1),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib,
+        "library_call": "F.avg_pool2d(F.pad(x, replicate)) * win^2, one "
+                        "call per window, summed (box sums only)",
+        "cell": label, "shape": [n, h, w], "windows": list(WINDOWS)}
+
+
+def _k1_field_row(imgs, label):
+    """K1's field use: the five corner-refine field maps of one batch at
+    window 11, bit for bit the plain version.  Returns the table row."""
+    import torch
 
     from ar_slam_tpu_torch.detect import box
     from ar_slam_tpu_torch.detect.detect import _gradient
@@ -185,44 +233,40 @@ def _k1_row(imgs, label):
     fields = torch.stack([gx * gx, gx * gy, gy * gy, gx * gx * x + gx * gy * y,
                           gx * gy * x + gy * gy * y], 1).reshape(n * 5, h, w)
     del gx, gy
-    k1_err = 0.0
-    for win, inp in ((3, imgs), (13, imgs), (23, imgs),
-                     (11, fields.contiguous())):
-        got = box.box_sum_batch(inp, win)
-        ref = box.box_sum_plain(inp.double(), win)
-        plain = box.box_sum_plain(inp, win)
-        torch.cuda.synchronize()
-        # float32 sums of win^2 taps: error <= ~win^2 * 2^-24 * max|ref|;
-        # stated bound 1e-5 * max|ref| (both kernel and plain version)
-        tol = 1e-5 * ref.abs().max().item()
-        err = (got.double() - ref).abs().max().item()
-        perr = (plain.double() - ref).abs().max().item()
-        del got, ref, plain
-        if not (err <= tol and perr <= tol):
-            fail(f"K1 {label} win {win}: error {err} (plain {perr}) > {tol}")
-        if win == 23:
-            k1_err = err
-        emit("kernel_check", kernel="box", cell=label, win=win,
-             shape=list(inp.shape), max_abs_err=err, plain_max_abs_err=perr,
-             tolerance=tol)
-    del fields
-    win, r = 23, 11
-    # one pass over the frames in and the sums out; 2 * (win - 1) adds per
-    # pixel for a separable window sum
-    bound_ms, bound_by = bound(2 * 4 * n * h * w, 2 * (win - 1) * n * h * w)
-    return {
+    win = REFINE_WIN
+    got = box.box_sum_batch(fields, win)
+    plain = box.box_sum_plain(fields, win)
+    torch.cuda.synchronize()
+    err = float((got - plain).abs().max())
+    # float32 sums of win^2 terms against a float64 sum: ~win^2 * 2^-24
+    ref = box.box_sum_plain(fields.double(), win)
+    f64_err = float((got.double() - ref).abs().max())
+    tol = 1e-5 * float(ref.abs().max())
+    del ref, plain
+    emit("kernel_check", kernel="box_sum", cell=label, win=win,
+         shape=list(fields.shape), max_abs_err=err, f64_max_abs_err=f64_err,
+         f64_tolerance=tol)
+    if not (err == 0.0 and f64_err <= tol):
+        fail(f"K1 fields {label}: {err} from the plain version, {f64_err} "
+             f"from float64 (bound {tol})")
+    # one read of the planes and one write of the sums; 2 * (win - 1) adds
+    # per pixel for a separable window sum
+    bound_ms, bound_by = bound(2 * 4 * fields.numel(),
+                               2 * (win - 1) * fields.numel())
+    row = {
         "name": "box_sum (K1)", "route": "cuda",
         "source": "ar_slam_tpu_torch/csrc/box.cu",
         "replaces": "ar_slam_tpu/detect/pallas_box.py:35",
-        "max_abs_err": k1_err, "tolerance": "1e-5 * max|f64 sum|",
-        "ms": cuda_ms(lambda: box.box_sum_batch(imgs, win)),
-        "plain_ms": cuda_ms(lambda: box.box_sum_plain(imgs, win)),
+        "max_abs_err": err, "tolerance": "exact (the plain version's sums)",
+        "ms": cuda_ms(lambda: box.box_sum_batch(fields, win)),
+        "plain_ms": cuda_ms(lambda: box.box_sum_plain(fields, win), reps=3,
+                            warm=1),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": cuda_ms(lambda: F.avg_pool2d(F.pad(
-            imgs[:, None], (r, r, r, r), mode="replicate"), win,
-            stride=1)[:, 0] * float(win * win)),
+        "library_ms": _library_box_ms(fields, win),
         "library_call": "F.avg_pool2d(F.pad(x, replicate)) * win^2",
-        "cell": label, "shape": [n, h, w], "win": win}
+        "cell": label, "shape": list(fields.shape), "win": win}
+    del fields, got
+    return row
 
 
 def _k4_row(labels, label, jobs):
@@ -281,68 +325,102 @@ def _k4_row(labels, label, jobs):
     return row
 
 
+def _k2_check(planes, iters, what) -> list:
+    """K2 on a batch against the plain transcription of the reference's
+    schedule: labels and per-plane rounds exactly.  Returns the rounds."""
+    import torch
+
+    from ar_slam_tpu_torch.detect import ccl
+
+    got = ccl.connected_components_batch(planes.contiguous(), iters)
+    rounds = ccl.fused_plane_rounds()
+    plain = [ccl.fused_plane_plain(p, iters) for p in planes]
+    torch.cuda.synchronize()
+    if not (torch.equal(got, torch.stack([lab for lab, _ in plain]))
+            and rounds == [r for _, r in plain]):
+        fail(f"K2 differs from the plain version on {what} (cap {iters})")
+    return rounds
+
+
+def _near_limit_planes(dev):
+    """(8, 896, 1024): planes just under FUSED_CCL_PIXEL_LIMIT, blobs of
+    16x16 cells plus 5 % noise."""
+    import torch
+
+    rng = np.random.default_rng(5)
+    base = rng.uniform(60, 220, size=(8, 896 // 16, 1024 // 16))
+    b = np.kron(base, np.ones((16, 16))) < 120
+    return torch.from_numpy(b | (rng.random(b.shape) < 0.05)).to(dev)
+
+
 def phase_kernels(frames16, frames12):
     """Each kernel against its plain version at the shapes of room-16
     (K1, K2, K4) and phone_12mp (K1, K3, K4).  Returns the kernel rows and
     the profiles to take later, (row, key, fn, kernel names, divisor)."""
     import torch
 
-    from ar_slam_tpu_torch.detect import ccl
+    from ar_slam_tpu_torch.detect import box, ccl
 
     dev = torch.device(DEVICE)
     rows, jobs = [], []
 
     # room-16: 8 frames of 1020x768
-    imgs = torch.from_numpy(frames16[:8]).to(dev, torch.float32).contiguous()
-    rows.append(_k1_row(imgs, "room-16"))
-    planes = _planes(imgs)
-    got = ccl.connected_components_batch(planes)
-    plain = ccl.connected_components_plain(planes)
+    frames = torch.from_numpy(frames16[:8]).to(dev).contiguous()
+    rows.append(_k1_threshold_row(frames, "room-16"))
+    rows.append(_k1_field_row(frames.to(torch.float32), "room-16"))
+    planes = box.threshold_plain(frames, WINDOWS, THRESH_C, DECIMATE)
+    iters = 24
+    rounds = _k2_check(planes, iters, "room-16's planes")
+    got = ccl.connected_components_batch(planes, iters)
     extra = torch.from_numpy(_serpentine(*planes.shape[1:])).to(dev)
-    got_x = ccl.connected_components_batch(extra.contiguous())
-    plain_x = ccl.connected_components_plain(extra)
-    torch.cuda.synchronize()
-    if not (torch.equal(got, plain) and torch.equal(got_x, plain_x)):
-        fail("K2 labels differ from the plain version")
+    rounds_x = _k2_check(extra, iters, "a serpentine and 45 % noise")
+    rounds_n = _k2_check(_near_limit_planes(dev), iters,
+                         "(8, 896, 1024) planes")
+    if rounds_x[0] != iters:
+        fail(f"the serpentine did not reach K2's cap ({rounds_x[0]} rounds)")
+    # does the 24-round cap bind on these planes?  K2 with a cap no plane
+    # reaches gives the fixpoint
+    fixpoint = ccl.connected_components_batch(planes, planes[0].numel())
+    fix_rounds = ccl.fused_plane_rounds()
     emit("kernel_check", kernel="ccl", cell="room-16",
-         shape=list(planes.shape), exact=True,
+         shape=list(planes.shape), exact=True, iters=iters,
+         plane_rounds=rounds, serpentine_noise_rounds=rounds_x,
+         near_limit_rounds=rounds_n,
          components=int((got == torch.arange(
              got[0].numel(), device=dev).reshape(got.shape[1:])).sum()))
-    # does the reference's 24-round cap bind on these planes?  Its fused
-    # kernel propagates at least as fast as K3's Jacobi rounds, so if every
-    # plane reaches its fixpoint under K3 within the cap, the reference
-    # does too, and K2 (no cap) equals it here
-    capped = ccl.connected_components_strip_batch(planes, 24)
-    rounds, converged = ccl.strip_plane_rounds()
-    if all(converged) and not torch.equal(capped, got):
-        fail("room-16: K3 reached every fixpoint within 24 rounds but "
-             "differs from K2")
-    emit("kernel_check", kernel="ccl_cap", cell="room-16", iters=24,
-         plane_rounds=rounds, all_converged=all(converged),
-         k3_equals_k2=bool(torch.equal(capped, got)))
-    del capped
+    emit("kernel_check", kernel="ccl_cap", cell="room-16", iters=iters,
+         plane_rounds=rounds, fixpoint_rounds=fix_rounds,
+         equals_fixpoint=bool(torch.equal(got, fixpoint)))
+    del fixpoint, extra
     # the binary planes read once (1 B/px), the labels written once
     bound_ms, bound_by = bound(5 * planes.numel())
     rows.append({
         "name": "connected_components (K2)", "route": "cuda",
         "source": "ar_slam_tpu_torch/csrc/ccl.cu",
         "replaces": "ar_slam_tpu/detect/pallas_ccl.py:197",
-        "max_abs_err": float(max((got - plain).abs().max(),
-                                 (got_x - plain_x).abs().max())),
-        "ms": cuda_ms(lambda: ccl.connected_components_batch(planes)),
-        "plain_ms": cuda_ms(lambda: ccl.connected_components_plain(planes),
-                            reps=3, warm=1),
+        "max_abs_err": 0.0, "iters": iters,
+        "plane_rounds_min_median_max": [
+            min(rounds), float(np.median(rounds)), max(rounds)],
+        "ms": cuda_ms(lambda: ccl.connected_components_batch(planes, iters)),
+        # the plane of most rounds alone: as long as the batch when the
+        # time is each round's latency chain, not throughput
+        "slowest_plane_alone_ms": cuda_ms(
+            lambda p=planes[int(np.argmax(rounds))][None].contiguous():
+            ccl.connected_components_batch(p, iters)),
+        "resident_planes": ccl.fused_resident_planes(*planes.shape[1:]),
+        "plain_ms": cuda_ms(lambda: ccl.connected_components_fused_plain(
+            planes, iters), reps=3, warm=1),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "cell": "room-16", "shape": list(planes.shape)})
     rows.append(_k4_row(got, "room-16", jobs))
-    del imgs, planes, got, plain, extra, got_x, plain_x
+    del frames, planes, got
 
     # phone_12mp: 8 frames of 4032x3024
-    imgs = torch.from_numpy(frames12[:8]).to(dev, torch.float32).contiguous()
-    rows.append(_k1_row(imgs, "phone_12mp"))
-    planes = _planes(imgs)
-    del imgs
-    iters = 24
+    frames = torch.from_numpy(frames12[:8]).to(dev).contiguous()
+    rows.append(_k1_threshold_row(frames, "phone_12mp"))
+    rows.append(_k1_field_row(frames.to(torch.float32), "phone_12mp"))
+    planes = box.threshold_plain(frames, WINDOWS, THRESH_C, DECIMATE)
+    del frames
     got = ccl.connected_components_strip_batch(planes, iters)
     plane_rounds, converged = ccl.strip_plane_rounds()
     rounds = max(plane_rounds)
@@ -351,21 +429,22 @@ def phase_kernels(frames16, frames12):
     got_x = ccl.connected_components_strip_batch(extra.contiguous(), iters)
     rounds_x = ccl.strip_rounds()
     plain_x = ccl.connected_components_plain(extra, iters)
-    fixpoint = ccl.connected_components_batch(planes)  # K2, no cap
+    # the fixpoint: K2 with a cap no plane reaches
+    fixpoint = ccl.connected_components_batch(planes, planes[0].numel())
     torch.cuda.synchronize()
     snake = extra[0]
     snake_labels = int(torch.unique(got_x[0][snake]).numel())
     if not (torch.equal(got, plain) and torch.equal(got_x, plain_x)):
         fail("K3 labels differ from the plain version")
     if all(converged) and not torch.equal(got, fixpoint):
-        fail("K3 reached every fixpoint but differs from K2's")
+        fail("K3 reached every fixpoint but differs from it")
     if not (rounds_x == iters and snake_labels > 1):
         fail(f"the serpentine did not reach the round cap ({rounds_x}, "
              f"{snake_labels} labels)")
     emit("kernel_check", kernel="ccl_strip", cell="phone_12mp",
          shape=list(planes.shape), exact=True, iters=iters, rounds=rounds,
          plane_rounds=plane_rounds, converged_planes=sum(converged),
-         equals_k2_fixpoint=bool(torch.equal(got, fixpoint)),
+         equals_fixpoint=bool(torch.equal(got, fixpoint)),
          serpentine_rounds=rounds_x, serpentine_labels=snake_labels)
     del fixpoint, plain, extra, got_x, plain_x
     # the binary planes read once (1 B/px), the labels written once; this
@@ -411,14 +490,17 @@ def phase_kernel_profiles(jobs) -> None:
 def reset_counts() -> None:
     from ar_slam_tpu_torch.detect import box, ccl, extract
 
-    box.launches = ccl.launches = ccl.strip_launches = extract.launches = 0
+    box.launches = box.threshold_launches = ccl.launches = 0
+    ccl.strip_launches = extract.launches = 0
     ccl.strip_kernel_launches = ccl.strip_flag_reads = 0
+    ccl.fused_round_reads = 0
 
 
 def read_counts() -> dict:
     from ar_slam_tpu_torch.detect import box, ccl, extract
 
-    return {"box": box.launches, "ccl": ccl.launches,
+    return {"box": box.launches, "box_threshold": box.threshold_launches,
+            "ccl": ccl.launches, "ccl_round_reads": ccl.fused_round_reads,
             "ccl_strip": ccl.strip_launches,
             "ccl_strip_kernels": ccl.strip_kernel_launches,
             "ccl_strip_flag_reads": ccl.strip_flag_reads,
@@ -484,8 +566,9 @@ def phase_main_path(frames, truth):
     engine.save_map(map_path)
     launches = read_counts()
 
-    check_launches("room-16", launches, ("box", "ccl", "extract"),
-                   ("ccl_strip",))
+    check_launches("room-16", launches,
+                   ("box", "box_threshold", "ccl", "extract"),
+                   ("ccl_strip", "ccl_round_reads"))
     n_req = check_tags("room-16", _ids_in(engine.store), truth["frames"],
                        [c.uid for c in caps], 40.0)
     rmse = summary.get("rmse", float("nan"))
@@ -592,7 +675,8 @@ def phase_phone_12mp(frames, truth, tag_m: float):
          solve_seconds=t_solve, localize_seconds=t_loc,
          localize_with_detection_seconds=t_loc_total)
 
-    check_launches("phone_12mp", launches, ("box", "ccl_strip", "extract"),
+    check_launches("phone_12mp", launches,
+                   ("box", "box_threshold", "ccl_strip", "extract"),
                    ("ccl", "ccl_strip_flag_reads"))
     n_req = check_tags("phone_12mp", found, truth["frames"],
                        [c.uid for c in caps], PHONE_SIDE_PX)
@@ -717,8 +801,20 @@ def _profiled(label: str, fn) -> None:
             and a.self_device_time_total > 0]
     device_ms = sum(a.self_device_time_total for a in avgs) / 1e3
     top = sorted(avgs, key=lambda a: -a.self_device_time_total)[:10]
+    # host-to-device copies, from the trace's memcpy records
+    os.makedirs(OUT_DIR, exist_ok=True)
+    trace = os.path.join(OUT_DIR, "profile_trace.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f).get("traceEvents", [])
+    os.remove(trace)
+    h2d = [e for e in events if e.get("cat") == "gpu_memcpy"
+           and "HtoD" in e.get("name", "")]
     emit("profile", run=label, wall_ms=wall_ms, device_ms=device_ms,
          device_idle_share=1.0 - device_ms / wall_ms if device_ms else None,
+         h2d_bytes=sum(e.get("args", {}).get("bytes", 0) for e in h2d),
+         h2d_ms=sum(e.get("dur", 0.0) for e in h2d) / 1e3,
+         h2d_copies=len(h2d),
          device_items=sum(a.count for a in avgs),
          top=[{"name": a.key[:80], "ms": a.self_device_time_total / 1e3,
                "count": a.count} for a in top])

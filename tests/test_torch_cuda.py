@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from ar_slam_tpu_torch.detect import box, ccl, extract
-from torch_cases import extract_cases, mixed_batch, serpentine
+from torch_cases import cap_planes, extract_cases, mixed_batch, serpentine
 
 pytestmark = pytest.mark.cuda
 
@@ -28,55 +28,104 @@ def dev():
 
 
 def _frames(n=8, h=768, w=1020, seed=0):
+    """(n, h, w) uint8 frames: flat patches of 16x17 pixels plus noise."""
     rng = np.random.default_rng(seed)
-    base = rng.uniform(60, 220, size=(n, h // 16, w // 17))
+    base = rng.uniform(60, 220, size=(n, -(-h // 16), -(-w // 17)))
     img = np.kron(base, np.ones((16, 17)))[:, :h, :w]
     img += rng.normal(scale=8.0, size=img.shape)
-    return np.clip(img, 0, 255).astype(np.float32)
+    return np.clip(img, 0, 255).astype(np.uint8)
 
 
 def _planes(dev, n=8):
-    imgs = torch.from_numpy(_frames(n)).to(dev)
-    bins = [imgs < box.box_sum_plain(imgs, w) / float(w * w) - 7.0
-            for w in (3, 13, 23)]
-    b = torch.cat(bins)
-    nb, h, w = b.shape
-    counts = b.reshape(nb, h // 2, 2, w // 2, 2).to(torch.int32).sum((2, 4))
-    return (counts >= 2).contiguous()
+    frames = torch.from_numpy(_frames(n)).to(dev)
+    return box.threshold_plain(frames, (3, 13, 23), 7.0, 2)
 
 
 @pytest.mark.parametrize("win", [3, 13, 23, 11])
 def test_box_kernel_matches_f64(dev, win):
-    imgs = torch.from_numpy(_frames()).to(dev)
+    """Bit for bit the plain version (the same direct sums in the same
+    order), and within float32 rounding of a float64 sum."""
+    imgs = torch.from_numpy(_frames()).to(dev, torch.float32)
     if win == 11:  # the refine field maps: values ~1e7 per pixel
         imgs = imgs * imgs * torch.arange(1020, device=dev, dtype=torch.float32)
     got = box.box_sum_batch(imgs, win)
     ref = box.box_sum_plain(imgs.double(), win)
     plain = box.box_sum_plain(imgs, win)
     torch.cuda.synchronize()
+    assert torch.equal(got, plain)
     # float32 sums of <= 23*23 positive terms: relative error ~ taps * 2^-24
     tol = 1e-5 * ref.abs().max().item()
     assert (got.double() - ref).abs().max().item() <= tol
-    assert (plain.double() - ref).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("shape", [(8, 768, 1020), (2, 3024, 4032),
+                                   (3, 37, 141), (1, 65, 257)])
+def test_threshold_kernel_equals_plain(dev, shape):
+    """One launch for every window: bool for bool the plain version on
+    room-16 and 12 MP frames and on sizes with partial tiles and partial
+    2x2 blocks; also at decimation 1 and 3 and a single window."""
+    frames = torch.from_numpy(_frames(*shape)).to(dev)
+    for windows, d in (((3, 13, 23), 2), ((23,), 1), ((5, 11), 3)):
+        before = box.threshold_launches
+        got = box.threshold_batch(frames, windows, 7.0, d)
+        assert box.threshold_launches == before + 1
+        plain = box.threshold_plain(frames, windows, 7.0, d)
+        torch.cuda.synchronize()
+        assert got.shape == plain.shape and torch.equal(got, plain)
+
+
+def _k2_equal(b, iters):
+    """K2 on a batch equals the plain transcription, labels and rounds."""
+    got = ccl.connected_components_batch(b.contiguous(), iters)
+    rounds = ccl.fused_plane_rounds()
+    plain = [ccl.fused_plane_plain(p, iters) for p in b]
+    assert torch.equal(got, torch.stack([lab for lab, _ in plain]))
+    assert rounds == [r for _, r in plain]
+    return got, rounds
 
 
 def test_ccl_kernel_equals_plain(dev):
-    planes = _planes(dev)
-    got = ccl.connected_components_batch(planes)
-    torch.cuda.synchronize()
-    assert torch.equal(got, ccl.connected_components_plain(planes))
+    """Room-16's planes (24 of 384x510) at the cap of 24."""
+    _k2_equal(_planes(dev), 24)
 
 
-def test_ccl_kernel_serpentine(dev):
-    img = np.zeros((96, 96), bool)
-    for i, y in enumerate(range(4, 92, 6)):
-        img[y, 4:92] = True
-        if y + 6 < 92:
-            img[y:y + 7, 90 if i % 2 == 0 else 4] = True
-    rng = np.random.default_rng(2)
-    b = torch.from_numpy(np.stack([img, rng.random((96, 96)) < 0.45])).to(dev)
-    assert torch.equal(ccl.connected_components_batch(b),
-                       ccl.connected_components_plain(b))
+@pytest.mark.parametrize("iters", [2, 24])
+def test_ccl_kernel_serpentine(dev, iters):
+    """A serpentine the cap cuts short, 45 % noise and the serpentine with
+    5 % noise: equal to the Gauss-Seidel plain version under the cap."""
+    b = torch.from_numpy(cap_planes()).to(dev)
+    got, rounds = _k2_equal(b, iters)
+    assert rounds[0] == iters
+    assert torch.unique(got[0][b[0]]).numel() > 1
+
+
+@pytest.mark.parametrize("iters", [2, 24])
+def test_ccl_kernel_mixed_batch(dev, iters):
+    """Planes that stop at different rounds in one launch."""
+    b = torch.from_numpy(mixed_batch()).to(dev)
+    _, rounds = _k2_equal(b, iters)
+    assert iters < 3 or rounds[0] < rounds[1] == iters
+
+
+def test_ccl_kernel_near_pixel_limit(dev):
+    """(8, 896, 1024): just under FUSED_CCL_PIXEL_LIMIT, 14 strips on a
+    cluster of 8 CTAs, several cluster summary steps per column stage."""
+    rng = np.random.default_rng(5)
+    base = rng.uniform(60, 220, size=(8, 896 // 16, 1024 // 16))
+    b = torch.from_numpy(np.kron(base, np.ones((16, 16))) < 120).to(dev)
+    b |= torch.from_numpy(rng.random(b.shape) < 0.05).to(dev)
+    _k2_equal(b, 24)
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (1, 77), (77, 1), (64, 128),
+                                 (65, 129), (3000, 40), (9, 8192)])
+def test_ccl_kernel_shapes(dev, h, w):
+    """A single row, column and pixel, one full strip and column group, one
+    row and column beyond them, 47 strips, and the widest plane."""
+    rng = np.random.default_rng(h * 7 + w)
+    b = torch.from_numpy(np.stack([rng.random((h, w)) < 0.45,
+                                   rng.random((h, w)) < 0.1])).to(dev)
+    _k2_equal(b, 24)
 
 
 def test_extract_kernel_equals_plain(dev):
@@ -118,7 +167,7 @@ def test_ccl_strip_kernel_serpentine_at_cap(dev, iters):
 
 def test_ccl_strip_kernel_12mp_planes(dev):
     """Decimated 12 MP planes (1512x2016): equal to the plain version and,
-    once converged below the cap, to K2's fixpoint."""
+    once converged below the cap, to the fixpoint."""
     rng = np.random.default_rng(4)
     base = rng.uniform(60, 220, size=(2, 1512 // 24, 2016 // 24))
     b = torch.from_numpy(np.kron(base, np.ones((24, 24))) < 120).to(dev)
@@ -126,8 +175,9 @@ def test_ccl_strip_kernel_12mp_planes(dev):
     got = ccl.connected_components_strip_batch(b.contiguous(), 24)
     torch.cuda.synchronize()
     assert torch.equal(got, ccl.connected_components_plain(b, 24))
-    if ccl.strip_rounds() < 24:
-        assert torch.equal(got, ccl.connected_components_batch(b.contiguous()))
+    if ccl.strip_rounds() < 24:  # K2 with a cap no plane reaches
+        assert torch.equal(got, ccl.connected_components_batch(
+            b.contiguous(), b[0].numel()))
 
 
 @pytest.mark.parametrize("iters", [1, 2, 24])

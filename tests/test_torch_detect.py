@@ -1,5 +1,5 @@
-"""Port parity: the three detection kernels' plain versions against the
-Pallas kernels (interpret mode) and their XLA contracts, the detect_batch
+"""Port parity: the detection kernels' plain versions against the Pallas
+kernels (interpret mode) and their XLA contracts, the detect_batch
 helpers, and detect_batch itself against the JAX detector on rendered
 frames (CPU)."""
 
@@ -11,13 +11,14 @@ import torch
 
 from ar_slam_tpu.detect import tpu_detect as jdet
 from ar_slam_tpu.detect.gen import render_marker
+from ar_slam_tpu.detect.pallas_box import box_mean_batch as j_box_mean
 from ar_slam_tpu.detect.pallas_box import box_sum_batch as j_box_sum
 from ar_slam_tpu.detect.pallas_ccl import connected_components_fused_batch
 from ar_slam_tpu.detect.pallas_extract import extreme_quads_pallas
 from ar_slam_tpu_torch.detect import box, ccl, extract
 from ar_slam_tpu_torch.detect import detect as tdet
 from tests.test_detect import place_marker
-from torch_cases import extract_cases
+from torch_cases import cap_planes, extract_cases
 
 torch.set_num_threads(1)
 
@@ -70,19 +71,93 @@ def test_ccl_plain_matches_fused_pallas():
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
-def test_ccl_plain_has_no_round_cap():
-    """A serpentine needing more rounds than a small cap still merges (the
-    plain version iterates to its fixpoint, like union-find)."""
-    img = np.zeros((96, 96), bool)
-    for i, y in enumerate(range(4, 92, 6)):
-        img[y, 4:92] = True
-        if y + 6 < 92:
-            img[y:y + 7, 90 if i % 2 == 0 else 4] = True
-    got = ccl.connected_components_batch(torch.from_numpy(img[None]))[0]
-    fg = got.numpy()[img]
-    assert (fg == fg.min()).all() and fg.min() == np.flatnonzero(img)[0]
-    capped = np.asarray(jdet.connected_components(jnp.asarray(img), 2))
-    assert len(np.unique(capped[img])) > 1  # the reference at 2 rounds
+@pytest.mark.parametrize("iters", [1, 2, 3, 5, 24])
+def test_ccl_fused_plain_matches_pallas_under_cap(iters):
+    """K2's plain version (the CPU branch of its wrapper) equals the fused
+    Pallas kernel label for label at its cap: several 64-row strips and
+    128-wide column groups, a serpentine the cap cuts short, 45 % noise
+    and the serpentine with 5 % noise.  At 24 rounds neither the uncapped
+    fixpoint nor Jacobi rounds give the noise plane's labels."""
+    batch = cap_planes()
+    ref = np.asarray(connected_components_fused_batch(
+        jnp.asarray(batch), iters=iters, interpret=True))
+    t = torch.from_numpy(batch)
+    got = ccl.connected_components_batch(t, iters).numpy()
+    np.testing.assert_array_equal(got, ref)
+    snake = got[0][batch[0]]
+    assert len(np.unique(snake)) > 1  # the cap binds
+    if iters == 24:
+        for other in (ccl.connected_components_plain(t[1:2]),
+                      ccl.connected_components_plain(t[1:2], iters)):
+            assert not np.array_equal(other.numpy()[0], ref[1])
+
+
+def _count_pool_jnp(binary, d):
+    """tpu_detect.py:749-760, the count pool of the binary planes."""
+    m, h, w = binary.shape
+    hd, wd = -(-h // d), -(-w // d)
+    bpad = binary
+    if (hd * d, wd * d) != (h, w):
+        bpad = jnp.pad(binary, ((0, 0), (0, hd * d - h), (0, wd * d - w)))
+    counts = bpad.reshape(m, hd, d, wd, d).astype(jnp.int32).sum(axis=(2, 4))
+    return counts >= (d * d + 1) // 2
+
+
+@pytest.mark.parametrize("decimate", [1, 2, 3])
+def test_threshold_plain_matches_pallas(decimate):
+    """K1's threshold use on uint8 frames at windows 3/13/23: exactly the
+    reference's ``images < box_mean_batch(images, win) - c`` (Pallas,
+    interpret mode; its prefix sums are exact at this size), stacked
+    window-major and count-pooled, at sizes that leave partial d x d
+    blocks."""
+    rng = np.random.default_rng(8)
+    base = rng.uniform(40, 220, size=(2, 5, 9))
+    frames = np.kron(base, np.ones((8, 16)))[:, :37, :141]
+    frames = np.clip(frames + rng.normal(scale=9.0, size=frames.shape), 0,
+                     255).astype(np.uint8)
+    windows, c = (3, 13, 23), 7.0
+    imgs = jnp.asarray(frames).astype(jnp.float32)
+    bins = jnp.concatenate([imgs < j_box_mean(imgs, win, interpret=True) - c
+                            for win in windows])
+    ref = np.asarray(_count_pool_jnp(bins, decimate) if decimate > 1
+                     else bins)
+    got = box.threshold_batch(torch.from_numpy(frames), windows, c, decimate)
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert 0.05 < ref.mean() < 0.6
+
+
+@pytest.mark.parametrize("thresh_c", [7.0, 7.3])
+def test_threshold_table_is_the_float_compare(thresh_c):
+    """The card's compare ``sum >= table[p]`` equals the plain version's
+    float32 ``p < sum / win^2 - thresh_c`` for every pixel value and every
+    window sum, at the default constant and at one float32 cannot hold."""
+    windows = (3, 13, 23)
+    table = box.threshold_table(windows, thresh_c)
+    p = torch.arange(256, dtype=torch.float32)[:, None]
+    for i, win in enumerate(windows):
+        sums = torch.arange(255 * win * win + 1)
+        mean_c = (sums.to(torch.float32) / torch.tensor(float(win * win))
+                  - thresh_c)
+        from_table = sums[None] >= torch.from_numpy(table[i])[:, None]
+        assert torch.equal(p < mean_c[None], from_table)
+
+
+def test_detect_batch_uploads_uint8(monkeypatch):
+    """The frames reach the threshold as uint8, on the detector's device,
+    unconverted (a quarter of the bytes of float32 to upload)."""
+    seen = []
+    threshold = box.threshold_batch
+
+    def spy(frames, *args):
+        seen.append((frames.dtype, frames.device.type, tuple(frames.shape)))
+        return threshold(frames, *args)
+
+    monkeypatch.setattr(box, "threshold_batch", spy)
+    frames, _ = _frames(n=1)
+    tdet.detect_batch(frames, params=tdet.DetectParams(win_sizes=(3, 23)),
+                      device="cpu")
+    assert seen == [(torch.uint8, "cpu", frames.shape)]
 
 
 def _extract_frame():

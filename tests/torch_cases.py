@@ -1,4 +1,4 @@
-"""Inputs shared by the port's CPU and card tests of K3 and K4 (numpy
+"""Inputs shared by the port's CPU and card tests of K2, K3 and K4 (numpy
 only, so the card's test run, which has no jax, imports it too)."""
 
 import numpy as np
@@ -17,6 +17,16 @@ def serpentine(h, w, pitch=6):
             x = w - 3 if i % 2 == 0 else 2
             img[y:ys[i + 1] + 1, x] = True
     return img
+
+
+def cap_planes(h=150, w=200, seed=1):
+    """Three planes on which K2's round cap binds differently: a serpentine
+    (the cap cuts it short), 45 % noise (where Gauss-Seidel, Jacobi and the
+    fixpoint all differ at 24 rounds) and the serpentine with 5 % noise."""
+    rng = np.random.default_rng(seed)
+    snake = serpentine(h, w)
+    return np.stack([snake, rng.random((h, w)) < 0.45,
+                     snake | (rng.random((h, w)) < 0.05)])
 
 
 def mixed_batch(h=120, w=45, seed=7):
