@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 import torch
@@ -47,6 +48,8 @@ _SIGNATURES = {
 }
 
 _LIB = None
+# the pipelined serve loop detects on a worker thread: one build and load
+_LIB_LOCK = threading.Lock()
 build_seconds = 0.0  # wall time of the nvcc call this process made (0 = cached)
 
 
@@ -110,13 +113,14 @@ def build() -> str:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(build())
-        for name, args in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        _LIB = lib
+    with _LIB_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(build())
+            for name, args in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            _LIB = lib
     return _LIB
 
 

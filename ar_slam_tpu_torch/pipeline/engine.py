@@ -1,18 +1,19 @@
-"""The mapping engine (trimmed port of ar_slam_tpu/pipeline/engine.py).
+"""The mapping engine (port of ar_slam_tpu/pipeline/engine.py).
 
-≙ the batch flow of the reference's ar_slam_cli: ingest images, detect
-markers on the device, add each capture's detections to the constraint
-graph, solve, save map.yaml; and ≙ ar_loc: localize new images against a
-loaded map.  The event log, snapshots, artifact export and the incremental
-solve of the reference engine are not ported yet.
+≙ the ArSlam node (ar_slam.cpp): consume merged detections, run incremental
+BA, export transforms/camera-info/markers, save the map on shutdown
+(ar_slam.cpp:103-111).  Plus the batch flows of the CLIs (ar_slam_cli.cpp,
+ar_loc.cpp) and the event-log recorder (≙ BagRecorder, bag_recorder.cpp —
+jsonl instead of a rosbag).  Detection and the solves run on the engine's
+device (the card unless the caller names the CPU).
 """
 
 from __future__ import annotations
 
-import contextlib
+import json
 import logging
+import os
 import time
-from collections import defaultdict
 
 import numpy as np
 
@@ -21,38 +22,61 @@ from ar_slam_tpu_torch.device import resolve_device, resolve_dtype
 from ar_slam_tpu_torch.graph.store import MapStore
 from ar_slam_tpu_torch.graph.yamlio import load_yaml, save_yaml
 from ar_slam_tpu_torch.pipeline.ingest import ImageIngest
+from ar_slam_tpu_torch.utils.metrics import Metrics, profile_trace
 
 logger = logging.getLogger(__name__)
 
 
-class Metrics:
-    """Accumulating counters + stage timings (utils/metrics.Metrics)."""
+def _encode_png_b64(image) -> str:
+    """Grayscale (H, W) uint8 -> base64 PNG string (hermetic log record)."""
+    import base64
+    import io
 
-    def __init__(self):
-        self.counters: dict[str, float] = defaultdict(float)
-        self.timings: dict[str, list[float]] = defaultdict(list)
+    from PIL import Image
 
-    def count(self, name: str, value: float = 1.0):
-        self.counters[name] += value
+    buf = io.BytesIO()
+    Image.fromarray(image, mode="L").save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode("ascii")
 
-    @contextlib.contextmanager
-    def timer(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.timings[name].append(time.perf_counter() - t0)
 
-    def summary(self) -> dict:
-        out = dict(self.counters)
-        for name, vals in self.timings.items():
-            out[f"{name}_s"] = round(sum(vals), 4)
-            out[f"{name}_calls"] = len(vals)
-        return out
+def decode_png_b64(data: str):
+    """Inverse of _encode_png_b64 (used by ``arslam-torch replay``)."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(base64.b64decode(data)))
+                      .convert("L"))
+
+
+class EventLog:
+    """Append-only jsonl event recorder (≙ BagRecorder's /tmp/ar_slam.bag):
+    captures and merged detections, replayable into a new engine."""
+
+    def __init__(self, path: str):
+        self.path = path
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self._f = open(path, "a")
+
+    def record(self, kind: str, **payload):
+        rec = {"t": time.time(), "kind": kind, **payload}
+        self._f.write(json.dumps(rec) + "\n")
+        self._f.flush()
+
+    def close(self):
+        self._f.close()
+
+    @staticmethod
+    def replay(path: str):
+        with open(path) as f:
+            for line in f:
+                if line.strip():
+                    yield json.loads(line)
 
 
 class ArSlamEngine:
-    """Batch mapping engine with the batched device detector.
+    """Incremental mapping engine with the batched device detector.
 
     ``device`` (default: the card; without one only ``"cpu"`` runs) runs
     detection and the solves; ``dtype`` (default: config.solver.dtype) is
@@ -68,6 +92,9 @@ class ArSlamEngine:
         self.store = MapStore(initial_focal=self.config.camera.initial_focal)
         self.ingest = ImageIngest()
         self.metrics = Metrics()
+        self.event_log = None
+        if self.config.pipeline.event_log_path:
+            self.event_log = EventLog(self.config.pipeline.event_log_path)
 
     def load_map(self, path: str):
         load_yaml(self.store, path)
@@ -125,11 +152,25 @@ class ArSlamEngine:
         out = []
         for i, cap in enumerate(caps):
             by_dict = per_image[i]
-            n_det = sum(len(d) for d in by_dict.values())
-            if n_det <= 2:
+            flat = [d for dets in by_dict.values() for d in dets]
+            if len(flat) <= 2:
                 logger.warning("not enough AR tags detected in %s (%d)",
-                               cap.path, n_det)
+                               cap.path, len(flat))
             out.append((cap.uid, by_dict, (w, h), cap.path))
+            if self.event_log:
+                # ≙ BagRecorder's captures stream (bag_recorder.cpp:73-83):
+                # the capture (its pixels too with event_log_embed_images,
+                # replayable without the originals), then its detections
+                extra = {}
+                if self.config.pipeline.event_log_embed_images:
+                    extra["image_png"] = _encode_png_b64(cap.image)
+                self.event_log.record("capture", uid=cap.uid, path=cap.path,
+                                      width=w, height=h, **extra)
+                self.event_log.record(
+                    "detections", uid=cap.uid, path=cap.path, width=w,
+                    height=h, detections=[
+                        {"id": tid, "corners": c.reshape(-1).tolist()}
+                        for tid, c in flat])
         return out
 
     def _run_detector(self, images, dict_names):
@@ -204,11 +245,34 @@ class ArSlamEngine:
         """Batch BFS solve (≙ ar_slam_cli)."""
         from ar_slam_tpu_torch.solve.batch import solve
 
-        with self.metrics.timer("solve"):
-            out = solve(self.store, self.config, dtype=self.dtype,
-                        device=self.device)
+        return self._solve("solve", solve)
+
+    def solve_incremental(self) -> dict:
+        """Incremental solve (≙ ArSlam::detection_callback path)."""
+        from ar_slam_tpu_torch.solve.batch import solve_incremental
+
+        return self._solve("solve_incremental", solve_incremental)
+
+    def _solve(self, name: str, fn) -> dict:
+        with self.metrics.timer(name), \
+                profile_trace(self.config.pipeline.profile_trace_dir):
+            out = fn(self.store, self.config, dtype=self.dtype,
+                     device=self.device)
         self.metrics.count("captures_solved", out.get("waves", 0))
+        self._maybe_snapshot()
         return out
+
+    def _maybe_snapshot(self):
+        """Periodic durable checkpoint during long solves (the map.yaml is
+        the checkpoint format, SURVEY.md §5.4)."""
+        p = self.config.pipeline
+        if not p.output_map_fn or p.snapshot_every_s <= 0:
+            return
+        now = time.time()
+        last = getattr(self, "_last_snapshot", 0.0)
+        if now - last >= p.snapshot_every_s:
+            self._last_snapshot = now
+            self.save_map(p.output_map_fn)
 
     def save_map(self, path: str):
         save_yaml(self.store, path)
@@ -217,3 +281,17 @@ class ArSlamEngine:
     def print_cameras(self):
         p = self.store.camera.params
         print(f"\tf={p[0]}\tl1={p[1]}\tl1={p[2]}")
+
+    def export_artifacts(self) -> dict:
+        from ar_slam_tpu_torch.viz.export import (camera_info, marker_array,
+                                                  transforms)
+
+        return {
+            "transforms": transforms(self.store),
+            "camera_info": camera_info(self.store),
+            "markers": marker_array(self.store, self.config.aruco_size),
+        }
+
+    def close(self):
+        if self.event_log:
+            self.event_log.close()

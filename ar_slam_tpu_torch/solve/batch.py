@@ -1,16 +1,21 @@
-"""Batch BFS mapping solve (port of ar_slam_tpu/solve/batch.py:solve).
+"""Batch BFS and incremental mapping solves (port of
+ar_slam_tpu/solve/batch.py:solve and solve_incremental).
 
-≙ ``ArSlamSolver::solve`` (ar_slam_util.cpp:744-866): start at the capture
-with the most blocks, walk the capture–tag graph breadth first, and after
-each capture (or every ``optimize_every``-th) re-run LM on the active
-subproblem.  Pose state stays on the device between waves.  Waves that do
-not optimize only queue their seeds; the next optimizing wave applies the
-queued seeds in order, then (register-then-refine) solves the new captures
-and tags against the frozen map, then runs the joint LM.
+``solve`` ≙ ``ArSlamSolver::solve`` (ar_slam_util.cpp:744-866): start at
+the capture with the most blocks, walk the capture–tag graph breadth first,
+and after each capture (or every ``optimize_every``-th) re-run LM on the
+active subproblem.  Pose state stays on the device between waves.  Waves
+that do not optimize only queue their seeds; the next optimizing wave
+applies the queued seeds in order, then (register-then-refine) solves the
+new captures and tags against the frozen map, then runs the joint LM.
+
+``solve_incremental`` ≙ ``ArSlamSolver::solveIncremental``: the solved
+captures re-enter the active problem as they are, then each unsolved
+capture that sees an initialized tag is attached through it, one
+optimizing wave per attachment, until none is left that can be.
 
 Single-device path only; the mesh path, the CG row-split tables and the
-host-stepped progress printer of the reference are not ported, and
-``solve_incremental`` waits for a later port.
+host-stepped progress printer of the reference are not ported.
 """
 
 from __future__ import annotations
@@ -222,10 +227,8 @@ class _WaveRunner:
                         int(self.last_info["iterations"]))
 
 
-def solve(store: MapStore, config=None, dtype=None, device=None) -> dict:
-    """Batch BFS solve (≙ ArSlamSolver::solve) on ``device`` (default: the
-    card when present) in ``dtype`` (default: config.solver.dtype).
-    Returns {"waves", "cost", "rmse"}."""
+def _resolve(config, dtype, device):
+    """(config, dtype, device) of a solve, refusing what is not ported."""
     from ar_slam_tpu_torch.config import ArSlamConfig
 
     config = config or ArSlamConfig()
@@ -235,6 +238,14 @@ def solve(store: MapStore, config=None, dtype=None, device=None) -> dict:
         raise NotImplementedError("only the dense Schur solver is ported")
     if getattr(getattr(config, "dist", None), "num_devices", 0) > 1:
         raise NotImplementedError("the distributed solve is not ported")
+    return config, dtype, device
+
+
+def solve(store: MapStore, config=None, dtype=None, device=None) -> dict:
+    """Batch BFS solve (≙ ArSlamSolver::solve) on ``device`` (default: the
+    card when present) in ``dtype`` (default: config.solver.dtype).
+    Returns {"waves", "cost", "rmse"}."""
+    config, dtype, device = _resolve(config, dtype, device)
     if not store.captures:
         return {"waves": 0}
     _maybe_calibrate_focal(store, config)
@@ -268,14 +279,73 @@ def solve(store: MapStore, config=None, dtype=None, device=None) -> dict:
     runner.polish(getattr(config.solver, "final_polish_iterations", 0))
     runner.finish()
 
-    info = runner.last_info
-    sq = (float(info["cost"]) if config.solver.loss == "trivial"
-          else runner.true_sq_cost())
-    return {
-        "waves": len(order),
-        "cost": float(info["cost"]),
-        "rmse": rmse_from_cost(sq, int(np.sum(runner.active_blocks))),
-    }
+    cost = float(runner.last_info["cost"])
+    return {"waves": len(order), "cost": cost,
+            "rmse": _rmse(runner, config, cost)}
+
+
+def solve_incremental(store: MapStore, config=None, dtype=None,
+                      device=None) -> dict:
+    """Incremental solve (≙ ArSlamSolver::solveIncremental) on ``device``
+    in ``dtype``, as ``solve``: repeatedly attach an unsolved capture that
+    shares an initialized tag with the solved set; each attachment
+    re-optimizes the whole active problem.  Returns {"waves", "unsolved"},
+    plus "cost" and "rmse" when a wave ran."""
+    config, dtype, device = _resolve(config, dtype, device)
+    if not store.captures:
+        return {"waves": 0}
+    _maybe_calibrate_focal(store, config)
+
+    runner = _WaveRunner(store, config.solver, config.aruco_size, dtype,
+                         device, camera_cfg=config.camera)
+    # the solved captures re-enter the active problem without an LM pass:
+    # their poses came with the export
+    for cap in store.captures:
+        if cap.index in store.unsolved_captures:
+            continue
+        runner.active_caps.add(cap.index)
+        for bh in cap.blocks:
+            runner.active_blocks[bh] = True
+            t = store.blocks[bh].tag_idx
+            runner.active_tags[t] = True
+            runner.tag_initialized[t] = True
+
+    waves = 0
+    if len(store.unsolved_captures) == len(store.captures):
+        first = min(store.unsolved_captures)
+        logger.info("Solving initial capture %d", first)
+        store.unsolved_captures.discard(first)
+        runner.run_wave(first, None)
+        waves += 1
+
+    repeat = True
+    while repeat:
+        repeat = False
+        for cap_index in sorted(store.unsolved_captures):
+            cap = store.captures[cap_index]
+            connect = next((bh for bh in cap.blocks if runner.tag_initialized[
+                store.blocks[bh].tag_idx]), None)
+            if connect is not None:
+                logger.info("Capture %s can be solved through %s", cap.uid,
+                            store.arucos[store.blocks[connect].tag_idx].id)
+                store.unsolved_captures.discard(cap_index)
+                runner.run_wave(cap_index, connect)
+                waves += 1
+                repeat = True
+                break
+    runner.finish()
+    out = {"waves": waves, "unsolved": len(store.unsolved_captures)}
+    if runner.last_info is not None:
+        out["cost"] = float(runner.last_info["cost"])
+        out["rmse"] = _rmse(runner, config, out["cost"])
+    return out
+
+
+def _rmse(runner: _WaveRunner, config, cost: float) -> float:
+    """Reprojection RMSE of the runner's active blocks: from the LM cost,
+    or under a robust loss from the raw squared residuals."""
+    sq = cost if config.solver.loss == "trivial" else runner.true_sq_cost()
+    return rmse_from_cost(sq, int(np.sum(runner.active_blocks)))
 
 
 def rmse_from_cost(cost: float, n_blocks: int) -> float:

@@ -38,7 +38,22 @@ Phases (each prints one JSON line; any failure exits non-zero):
    after aligning the map's cameras to it (utils/ate.py), and the card's
    float32 localization within 1e-3 (pose) and 0.01 px (rmse) of a float64
    CPU localization of the same detections against the same map;
-6. solver  — the 500-tag / 200-capture synthetic in float32: final cost
+6. serve_12mp — the same 12 frames as .npy files (np.load stands in for
+   the image decoder: the card has no PIL) streamed through
+   StreamPipeline in batches of 8 + 4: the ingest thread decodes, the
+   detect thread runs the detector, the merge stage joins, and this
+   thread runs solve_incremental twice (the second call replays the 8
+   solved captures and attaches 4), recording an event log; K1 (both
+   uses), K3 and K4 must launch, only from the detect thread, and K2 not;
+   12 waves, 0 unsolved, every merge published, the tags as in
+   phone_12mp, rmse < 1 px, every camera within 2 cm of the truth after
+   alignment; a second engine's add_images + solve_incremental over the
+   same batches (serve --sequential) must give the same captures and
+   stats, rmse within 1e-3 px and focal within 1e-4; the replay command
+   must rebuild the same blocks from the event log at rmse < 1 px.
+   Printed: both runs' wall seconds, each stage's seconds, the
+   detect/solve and ingest/detect overlaps, each solve_incremental call;
+7. solver  — the 500-tag / 200-capture synthetic in float32: final cost
    within 1e-3 relative of the float64 optimum 3771.57, and LM
    iterations/s from two iteration budgets.
 
@@ -77,6 +92,9 @@ QUERY_POSITION_M = 0.02  # query camera position bound after alignment
 # pixels, so their corners are held within 2 px
 K4_INEXACT_TOL_PX = 2.0
 F32_POSE_TOL, F32_RMSE_TOL_PX = 1e-3, 0.01  # card float32 vs CPU float64
+# serve_12mp, pipelined vs sequential: the same detections and solves in
+# another thread interleaving; only reduction order on the card may differ
+SERVE_RMSE_TOL_PX, SERVE_FOCAL_TOL = 1e-3, 1e-4
 # phone_12mp camera arc: the 8 map frames evenly along it, the 4 queries
 # halfway between map frames 0-1, 2-3, 4-5 and 6-7 (photos taken inside
 # the mapped stretch of the room)
@@ -700,6 +718,188 @@ def phase_phone_12mp(frames, truth, tag_m: float):
     return launches
 
 
+def _align_errors(store, truth) -> np.ndarray:
+    """Each camera's distance (m) from the rendered truth after aligning
+    the map's cameras to it (utils/ate.py); uids end in the frame index."""
+    from ar_slam_tpu_torch.utils.ate import camera_positions, umeyama_alignment
+
+    true_pos = -truth["cap_poses"][:, 0:3][
+        [int(c.uid[5:]) for c in store.captures]]
+    pos = camera_positions(store)
+    s, rot, t = umeyama_alignment(pos, true_pos)
+    return np.linalg.norm((s * (rot @ pos.T)).T + t - true_pos, axis=1)
+
+
+def phase_serve_12mp(frames, truth, tag_m: float) -> None:
+    """serve_12mp: the 12 phone_12mp frames streamed as files through
+    StreamPipeline (ingest thread, detect thread, merge join, incremental
+    solve on this thread; batches of 8 + 4), against a second engine doing
+    add_images + solve_incremental over the same batches (serve
+    --sequential); then the event log replayed by the replay command."""
+    import contextlib
+    import io
+    import shutil
+    import threading
+
+    import torch
+
+    from ar_slam_tpu_torch import cli
+    from ar_slam_tpu_torch.config import ArSlamConfig, PipelineConfig
+    from ar_slam_tpu_torch.graph.store import MapStore
+    from ar_slam_tpu_torch.graph.yamlio import load_yaml
+    from ar_slam_tpu_torch.pipeline import ingest
+    from ar_slam_tpu_torch.pipeline.engine import ArSlamEngine
+    from ar_slam_tpu_torch.pipeline.stream import StreamPipeline
+
+    serve_dir = os.path.join(OUT_DIR, "serve")
+    shutil.rmtree(serve_dir, ignore_errors=True)
+    os.makedirs(serve_dir)
+    paths = []
+    for k, frame in enumerate(frames):
+        paths.append(os.path.join(serve_dir, f"phone{k:02d}.npy"))
+        np.save(paths[-1], frame)
+    uids = [f"phone{k:02d}" for k in range(len(frames))]
+    log = os.path.join(serve_dir, "events.jsonl")
+
+    # the card has no PIL and these frames are rendered, not photographed:
+    # the ingest stage decodes .npy files for this phase only
+    load_image = ingest.load_image
+    ingest.load_image = np.load
+    try:
+        engine = ArSlamEngine(ArSlamConfig(aruco_size=tag_m,
+                                           pipeline=PipelineConfig(
+                                               event_log_path=log)),
+                              device=DEVICE)
+        # where detection ran, and what it launched there
+        detect_calls = []
+        detect = engine.detect_decoded
+
+        def traced_detect(caps):
+            before = read_counts()
+            out = detect(caps)
+            after = read_counts()
+            detect_calls.append((threading.current_thread().name,
+                                 {k: after[k] - before[k] for k in after}))
+            return out
+
+        engine.detect_decoded = traced_detect
+        waves = []
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe = StreamPipeline(engine, on_solve=lambda summary, batch:
+                              waves.append((summary, list(batch))))
+        try:
+            pipe.submit(paths)
+            pipe.drain()
+        finally:
+            pipe.close()
+        torch.cuda.synchronize()
+        t_piped = time.perf_counter() - t0
+        launches = read_counts()
+        engine.close()
+
+        seq = ArSlamEngine(ArSlamConfig(aruco_size=tag_m), device=DEVICE)
+        seq_out = []
+        t0 = time.perf_counter()
+        for batch in (paths[:8], paths[8:]):
+            seq.add_images(batch)
+            seq_out.append(seq.solve_incremental())
+        t_seq = time.perf_counter() - t0
+    finally:
+        ingest.load_image = load_image
+
+    summaries = [s for s, _ in waves]
+    if [b for _, b in waves] != [uids[:8], uids[8:]] or len(seq_out) != 2:
+        fail(f"serve_12mp: solved batches {[b for _, b in waves]}")
+    stage_s = {k: sum(b - a for a, b in v)
+               for k, v in pipe.timeline.intervals.items()}
+    rmse = summaries[-1].get("rmse", float("nan"))
+    focal = float(engine.store.camera.params[0])
+    seq_focal = float(seq.store.camera.params[0])
+    d_rmse = abs(rmse - seq_out[-1].get("rmse", float("nan")))
+    d_focal = abs(focal - seq_focal) / seq_focal
+    d_pose = max(float(np.abs(a.inv_pose - b.inv_pose).max())
+                 for a, b in zip(engine.store.captures, seq.store.captures))
+    cam_err = _align_errors(engine.store, truth)
+
+    out = os.path.join(serve_dir, "replayed.yaml")
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main(["replay", log, "-o", out, "--device", DEVICE])
+    t_replay = time.perf_counter() - t0
+    replayed = MapStore()
+    load_yaml(replayed, out)
+    replay_rmse = float(printed.getvalue().split("replayed -> rmse ")[1]
+                        .split(" px")[0])
+
+    def blocks(store):
+        return sorted((store.captures[b.cap_idx].uid,
+                       store.arucos[b.tag_idx].id) for b in store.blocks)
+
+    stats = {k: v for k, v in engine.store.stats().items() if k != "focal"}
+    seq_stats = {k: v for k, v in seq.store.stats().items() if k != "focal"}
+    emit("main_path", cell="serve_12mp", frames=len(frames),
+         size=list(frames.shape[1:]),
+         decode="np.load of .npy frames in place of pipeline.ingest."
+                "load_image (the card has no PIL; the frames are rendered)",
+         launches=launches,
+         detect_calls=[{"thread": n, "launches": c} for n, c in detect_calls],
+         stats=engine.store.stats(), map_rmse_px=rmse, focal=focal,
+         camera_position_err_m=float(cam_err.max()),
+         pipelined_seconds=t_piped, sequential_seconds=t_seq,
+         stage_seconds=stage_s,
+         detect_solve_overlap_s=pipe.timeline.overlap_s("detect", "solve"),
+         ingest_detect_overlap_s=pipe.timeline.overlap_s("ingest", "detect"),
+         solve_incremental=[
+             {"seconds": t, "waves": s.get("waves")} for t, s in zip(
+                 engine.metrics.timings["solve_incremental"], summaries)],
+         sequential_solve_incremental=[
+             {"seconds": t, "waves": s.get("waves")} for t, s in zip(
+                 seq.metrics.timings["solve_incremental"], seq_out)],
+         sequential_rmse_px=seq_out[-1].get("rmse"),
+         pipelined_vs_sequential={"rmse_px": d_rmse, "focal_rel": d_focal,
+                                  "capture_pose": d_pose},
+         replay_rmse_px=replay_rmse, replay_blocks=len(replayed.blocks),
+         replay_seconds=t_replay)
+
+    if sum(s.get("waves", 0) for s in summaries) != len(frames) or (
+            summaries[-1].get("unsolved") != 0):
+        fail(f"serve_12mp: waves and unsolved {summaries}")
+    if pipe.merge.inner.published != set(uids):
+        fail(f"serve_12mp: merge published {sorted(pipe.merge.inner.published)}")
+    check_launches("serve_12mp", launches,
+                   ("box", "box_threshold", "ccl_strip", "extract"),
+                   ("ccl", "ccl_round_reads", "ccl_strip_flag_reads"))
+    main_thread = threading.main_thread().name
+    if (any(n == main_thread for n, _ in detect_calls)
+            or {k: sum(c[k] for _, c in detect_calls) for k in launches}
+            != launches):
+        fail(f"serve_12mp: kernels launched outside the detect thread: "
+             f"{detect_calls}, all launches {launches}")
+    n_req = check_tags("serve_12mp", _ids_in(engine.store), truth["frames"],
+                       uids, PHONE_SIDE_PX)
+    if not (np.isfinite(rmse) and rmse < 1.0):
+        fail(f"serve_12mp map rmse {rmse} px is not < 1")
+    if not cam_err.max() <= QUERY_POSITION_M:
+        fail(f"serve_12mp cameras off by {cam_err.tolist()} m after "
+             f"alignment (bound {QUERY_POSITION_M})")
+    if ([c.uid for c in engine.store.captures]
+            != [c.uid for c in seq.store.captures] or stats != seq_stats):
+        fail(f"serve_12mp: pipelined {engine.store.stats()} differs from "
+             f"sequential {seq.store.stats()}")
+    if not (d_rmse <= SERVE_RMSE_TOL_PX and d_focal <= SERVE_FOCAL_TOL):
+        fail(f"serve_12mp: pipelined vs sequential rmse {d_rmse} px (bound "
+             f"{SERVE_RMSE_TOL_PX}), focal {d_focal} (bound "
+             f"{SERVE_FOCAL_TOL})")
+    if not (rc == 0 and blocks(replayed) == blocks(engine.store)
+            and replay_rmse < 1.0):
+        fail(f"serve_12mp: replay rc {rc}, {len(replayed.captures)} "
+             f"captures, {len(replayed.blocks)} blocks, rmse {replay_rmse}")
+    emit("serve_12mp_tags", tags_required=n_req, min_side_px=PHONE_SIDE_PX)
+
+
 def phase_solver():
     import torch
 
@@ -870,6 +1070,7 @@ def main() -> int:
     rows, jobs = phase_kernels(frames16, frames12)
     launches = {"room-16": phase_main_path(frames16, truth16),
                 "phone_12mp": phase_phone_12mp(frames12, truth12, tag_m)}
+    phase_serve_12mp(frames12, truth12, tag_m)
     phase_solver()
     if args.profile:
         phase_profile(frames16, frames12, tag_m)

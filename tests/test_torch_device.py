@@ -34,7 +34,7 @@ def _entry_points():
     from ar_slam_tpu_torch.detect.detect import detect_batch
     from ar_slam_tpu_torch.graph.arrays import export_arrays
     from ar_slam_tpu_torch.pipeline.engine import ArSlamEngine
-    from ar_slam_tpu_torch.solve.batch import solve
+    from ar_slam_tpu_torch.solve.batch import solve, solve_incremental
     from ar_slam_tpu_torch.solve.localize import localize_many
 
     store, _ = make_synthetic_map(n_tags=4, n_caps=3, seed=1)
@@ -43,6 +43,7 @@ def _entry_points():
         "detect_batch": lambda **kw: detect_batch(
             np.zeros((1, 64, 64), np.uint8), **kw),
         "solve": lambda **kw: solve(store, **kw),
+        "solve_incremental": lambda **kw: solve_incremental(store, **kw),
         "localize_many": lambda **kw: localize_many(store, 2, **kw),
         "arrays_from_numpy": lambda **kw: arrays_from_numpy(
             export_arrays(store), **kw),
@@ -50,7 +51,8 @@ def _entry_points():
 
 
 @pytest.mark.parametrize("name", ["engine", "detect_batch", "solve",
-                                  "localize_many", "arrays_from_numpy"])
+                                  "solve_incremental", "localize_many",
+                                  "arrays_from_numpy"])
 def test_entry_points_refuse_silent_cpu(no_cuda, name):
     """Without ``device`` every entry point raises; with ``device="cpu"``
     it runs on the CPU."""
@@ -62,7 +64,8 @@ def test_entry_points_refuse_silent_cpu(no_cuda, name):
         assert out.device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("cmd", ["map", "localize", "detect"])
+@pytest.mark.parametrize("cmd", ["map", "localize", "detect", "serve",
+                                 "replay"])
 def test_cli_without_device_does_not_run_on_cpu(no_cuda, tmp_path, cmd):
     """``arslam-torch`` without ``--device`` stops with the error rather
     than building a CPU engine (it fails before reading any input)."""
@@ -70,6 +73,8 @@ def test_cli_without_device_does_not_run_on_cpu(no_cuda, tmp_path, cmd):
 
     args = {"map": ["map", "a.png", "-o", str(tmp_path / "m.yaml")],
             "localize": ["localize", "m.yaml", "a.png"],
-            "detect": ["detect", "a.png"]}[cmd]
+            "detect": ["detect", "a.png"],
+            "serve": ["serve", "-o", str(tmp_path / "m.yaml")],
+            "replay": ["replay", "events.jsonl"]}[cmd]
     with pytest.raises(RuntimeError, match="--device cpu"):
         main(args)

@@ -83,11 +83,16 @@ PORT_MODULES = [
     "ar_slam_tpu_torch.graph.native", "ar_slam_tpu_torch.graph.store",
     "ar_slam_tpu_torch.graph.yamlio", "ar_slam_tpu_torch.pipeline.engine",
     "ar_slam_tpu_torch.pipeline.fast_decode",
-    "ar_slam_tpu_torch.pipeline.ingest", "ar_slam_tpu_torch.solve.batch",
+    "ar_slam_tpu_torch.pipeline.ingest", "ar_slam_tpu_torch.pipeline.merge",
+    "ar_slam_tpu_torch.pipeline.messages",
+    "ar_slam_tpu_torch.pipeline.service", "ar_slam_tpu_torch.pipeline.stream",
+    "ar_slam_tpu_torch.solve.batch",
     "ar_slam_tpu_torch.solve.localize", "ar_slam_tpu_torch.solve.lm",
     "ar_slam_tpu_torch.solve.residuals",
     "ar_slam_tpu_torch.solve.schur", "ar_slam_tpu_torch.utils.ate",
-    "ar_slam_tpu_torch.utils.render", "ar_slam_tpu_torch.utils.synthetic",
+    "ar_slam_tpu_torch.utils.metrics", "ar_slam_tpu_torch.utils.render",
+    "ar_slam_tpu_torch.utils.synthetic", "ar_slam_tpu_torch.viz",
+    "ar_slam_tpu_torch.viz.annotate", "ar_slam_tpu_torch.viz.export",
 ]
 
 
@@ -112,6 +117,8 @@ def test_port_imports_without_jax_yaml_pil():
 
 COPIES = ["config.py", "graph/store.py", "graph/arrays.py", "graph/native.py",
           "pipeline/ingest.py", "pipeline/fast_decode.py",
+          "pipeline/merge.py", "pipeline/messages.py", "pipeline/stream.py",
+          "pipeline/service.py", "viz/export.py",
           "utils/synthetic.py", "utils/ate.py", "core/calib.py",
           "detect/dictionaries.py"]
 
