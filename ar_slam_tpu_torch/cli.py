@@ -13,10 +13,11 @@
 - ``arslam-torch annotate map.yaml``  annotated debug images.
 
 All that detect or solve run on the card; without one they stop with an
-error unless ``--device cpu`` asks for the CPU.  The reference CLI's
-``gen``, ``audit`` and ``scene`` are not ported yet; of its flags,
---cpu-detector, --devices, --multihost, --platform, --iterative-schur and
---progress are accepted and refused with a message.
+error unless ``--device cpu`` asks for the CPU.  ``--iterative-schur``
+solves with implicit-Schur CG, ``--progress`` prints one line per LM
+iteration.  The reference CLI's ``gen``, ``audit`` and ``scene`` are not
+ported yet; of its flags, --cpu-detector, --devices, --multihost and
+--platform are accepted and refused with a message.
 """
 
 from __future__ import annotations
@@ -60,6 +61,10 @@ def _config(args):
         solver["loss"] = args.robust_loss
     if args.loss_scale is not None:
         solver["loss_scale"] = args.loss_scale
+    if args.iterative_schur:
+        solver["linear_solver"] = "cg"
+    if args.progress:
+        solver["minimizer_progress_to_stdout"] = True
     if args.optimize_every is not None and args.optimize_every >= 1:
         solver["optimize_every"] = args.optimize_every
     if args.max_side is not None:
@@ -92,8 +97,7 @@ def _config(args):
         pipeline=dataclasses.replace(cfg.pipeline, **pipeline))
 
 
-_NOT_PORTED = ("cpu_detector", "devices", "multihost", "platform",
-               "iterative_schur", "progress")
+_NOT_PORTED = ("cpu_detector", "devices", "multihost", "platform")
 
 
 def _engine(args):
@@ -448,9 +452,17 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--profile", default="",
                         help="write a torch.profiler chrome trace of each "
                              "solve (host and card) into this directory")
-        for flag in ("--cpu-detector", "--iterative-schur", "--progress"):
-            sp.add_argument(flag, action="store_true",
-                            help="not ported yet (refused)")
+        sp.add_argument("--iterative-schur", action="store_true",
+                        help="solve the reduced camera system with "
+                             "implicit-Schur preconditioned CG instead of "
+                             "dense Cholesky (large maps; ≙ ceres "
+                             "ITERATIVE_SCHUR)")
+        sp.add_argument("--progress", action="store_true",
+                        help="print one line per LM iteration "
+                             "(host-stepped; ≙ ceres "
+                             "minimizer_progress_to_stdout)")
+        sp.add_argument("--cpu-detector", action="store_true",
+                        help="not ported yet (refused)")
         for flag in ("--multihost", "--platform"):
             sp.add_argument(flag, default="", help="not ported yet (refused)")
         sp.add_argument("--devices", type=int, default=None,

@@ -14,13 +14,17 @@ captures re-enter the active problem as they are, then each unsolved
 capture that sees an initialized tag is attached through it, one
 optimizing wave per attachment, until none is left that can be.
 
-Single-device path only; the mesh path, the CG row-split tables and the
-host-stepped progress printer of the reference are not ported.
+With ``linear_solver="cg"`` every LM runs the implicit-Schur CG on the
+row-split slot packing, its row budgets sized from the whole store.  With
+``minimizer_progress_to_stdout`` the joint LM of each flush runs one
+iteration per call and prints a ceres-style line per iteration.
+Single-device path only; the mesh path of the reference is not ported.
 """
 
 from __future__ import annotations
 
 import logging
+import time
 
 import numpy as np
 import torch
@@ -31,7 +35,7 @@ from ar_slam_tpu_torch.core.seeding import (seed_capture_pose_multi,
 from ar_slam_tpu_torch.device import resolve_device, resolve_dtype
 from ar_slam_tpu_torch.graph.arrays import export_arrays, obs_bucket, write_back
 from ar_slam_tpu_torch.graph.store import MapStore
-from ar_slam_tpu_torch.solve.lm import LMConfig, lm_solve
+from ar_slam_tpu_torch.solve.lm import TERMINATION_REASONS, LMConfig, lm_solve
 from ar_slam_tpu_torch.solve.residuals import total_cost
 
 logger = logging.getLogger(__name__)
@@ -94,6 +98,8 @@ def _lm_config(cfg, camera_cfg=None) -> LMConfig:
         enable_distortion=bool(getattr(camera_cfg, "enable_distortion",
                                        False)),
         linear_solver=getattr(cfg, "linear_solver", "dense"),
+        cg_tolerance=cfg.cg_tolerance,
+        cg_max_iterations=cfg.cg_max_iterations,
         loss=getattr(cfg, "loss", "trivial"),
         loss_scale=getattr(cfg, "loss_scale", 4.0),
     )
@@ -103,14 +109,14 @@ class _WaveRunner:
     """Device-resident pose state across the waves of one padded export."""
 
     def __init__(self, store: MapStore, solver_cfg, aruco_size, dtype,
-                 device, camera_cfg=None):
+                 device, camera_cfg=None, assemble_fn=None):
         self.store = store
         self.aruco_size = aruco_size
         self.device = device
+        self.assemble_fn = assemble_fn
         self.config = _lm_config(solver_cfg, camera_cfg)
-        if getattr(solver_cfg, "minimizer_progress_to_stdout", False):
-            logger.warning("minimizer_progress_to_stdout is not ported; "
-                           "running the ordinary solve")
+        self.progress = getattr(solver_cfg, "minimizer_progress_to_stdout",
+                                False)
         self.seed_mode = getattr(solver_cfg, "seed_mode", "hybrid")
         self.seed_anchors = getattr(solver_cfg, "seed_anchors", "multi")
         self.warmup = getattr(solver_cfg, "warmup_new_captures", True)
@@ -123,6 +129,18 @@ class _WaveRunner:
             max((len(a.blocks) for a in store.arucos), default=1))
         self.obs_per_cap = obs_bucket(
             max((len(c.blocks) for c in store.captures), default=1))
+        # CG solves use the row-split slot packing (schur.TagRows): the row
+        # budgets cover the whole store's observations (waves activate
+        # subsets), bucketed like the other bounds
+        self.row_slots = self.tag_rows = self.cap_rows = None
+        if self.config.linear_solver == "cg":
+            self.row_slots = 8
+            self.tag_rows = obs_bucket(sum(
+                -(-max(len(a.blocks), 1) // self.row_slots)
+                for a in store.arucos) or 1)
+            self.cap_rows = obs_bucket(sum(
+                -(-max(len(c.blocks), 1) // self.row_slots)
+                for c in store.captures) or 1)
         self.camera, self.cap_poses, self.tag_poses = (
             t["camera"], t["cap_poses"], t["tag_poses"])
         self.cap_idx, self.tag_idx, self.corners = (
@@ -138,14 +156,18 @@ class _WaveRunner:
     def _mask(self, a) -> torch.Tensor:
         return torch.as_tensor(np.array(a, dtype=bool), device=self.device)
 
-    def _lm(self, cam_active, cap_active, tag_active, enabled, budget):
+    def _lm(self, cam_active, cap_active, tag_active, enabled, budget,
+            lam0=None, nu0=None):
         (self.camera, self.cap_poses, self.tag_poses, info) = lm_solve(
             self.camera, self.cap_poses, self.tag_poses, self.cap_idx,
             self.tag_idx, self.corners, self._mask(self.active_blocks),
             cam_active, self._mask(cap_active), self._mask(tag_active),
-            aruco_size=self.aruco_size, config=self.config, enabled=enabled,
+            aruco_size=self.aruco_size, config=self.config,
+            assemble_fn=self.assemble_fn, enabled=enabled,
             iter_budget=budget, obs_per_tag=self.obs_per_tag,
-            obs_per_cap=self.obs_per_cap)
+            obs_per_cap=self.obs_per_cap, row_slots=self.row_slots,
+            tag_rows=self.tag_rows, cap_rows=self.cap_rows, lam0=lam0,
+            nu0=nu0)
         return info
 
     def polish(self, budget: int):
@@ -201,13 +223,50 @@ class _WaveRunner:
             self.corners, waves, self.aruco_size, self.seed_mode)
         # register-then-refine: solve only the flush's new captures + tags
         # against the frozen established map first (skipped for a brand-new
-        # map, where nothing established exists, and for polish passes)
+        # map, where nothing established exists, for polish passes and
+        # under progress printing)
         if (lm_enabled and self.warmup and iter_budget is None
-                and warm_caps.any() and (cap_active & ~warm_caps).any()):
+                and warm_caps.any() and (cap_active & ~warm_caps).any()
+                and not self.progress):
             self._lm(False, warm_caps, warm_tags, True, budget)
+        if lm_enabled and self.progress:
+            self.last_info = self._lm_host_stepped(cap_active, budget)
+            return self.last_info
         info = self._lm(True, cap_active, self.active_tags.copy(),
                         lm_enabled, budget)
         self.last_info = info
+        return info
+
+    def _lm_host_stepped(self, cap_active, budget: int):
+        """One LM iteration per call, printing ceres-style progress lines
+        (≙ minimizer_progress_to_stdout, ar_slam_util.cpp:1012).  lam and
+        nu carry over through lam0 / nu0, so the damping schedule is the
+        one-call solve's.  ``budget`` is the wave's iteration budget."""
+        lam, nu = self.config.initial_lambda, 2.0
+        prev_cost = None
+        t_start = time.time()
+        print("iter      cost      cost_change  |gradient|  "
+              "tr_radius   iter_time  total_time")
+        info = None
+        for it in range(min(budget, self.config.max_iterations)):
+            t0 = time.time()
+            info = self._lm(True, cap_active, self.active_tags.copy(), True,
+                            1, lam0=lam, nu0=nu)
+            cost = float(info["cost"])
+            lam, nu = float(info["lambda"]), float(info["nu"])
+            dcost = 0.0 if prev_cost is None else prev_cost - cost
+            now = time.time()
+            print(f"{it:4d}  {cost:11.6e}  {dcost:11.2e}  "
+                  f"{float(info['grad_max']):11.2e}  "
+                  f"{1.0 / max(lam, 1e-30):10.2e}  {now - t0:9.2e}  "
+                  f"{now - t_start:9.2e}")
+            prev_cost = cost
+            if bool(info["converged"]):
+                print("terminating: " + TERMINATION_REASONS.get(
+                    int(info["termination"]), "?"))
+                break
+        if info is not None:
+            info = {**info, "iterations": it + 1}
         return info
 
     def true_sq_cost(self) -> float:
@@ -234,17 +293,17 @@ def _resolve(config, dtype, device):
     config = config or ArSlamConfig()
     device = resolve_device(device)
     dtype = resolve_dtype(dtype if dtype is not None else config.solver.dtype)
-    if getattr(config.solver, "linear_solver", "dense") != "dense":
-        raise NotImplementedError("only the dense Schur solver is ported")
     if getattr(getattr(config, "dist", None), "num_devices", 0) > 1:
         raise NotImplementedError("the distributed solve is not ported")
     return config, dtype, device
 
 
-def solve(store: MapStore, config=None, dtype=None, device=None) -> dict:
+def solve(store: MapStore, config=None, dtype=None, device=None,
+          assemble_fn=None) -> dict:
     """Batch BFS solve (≙ ArSlamSolver::solve) on ``device`` (default: the
     card when present) in ``dtype`` (default: config.solver.dtype).
-    Returns {"waves", "cost", "rmse"}."""
+    ``assemble_fn`` overrides the normal-equation assembly (the flat
+    hooks then run; see lm.lm_solve).  Returns {"waves", "cost", "rmse"}."""
     config, dtype, device = _resolve(config, dtype, device)
     if not store.captures:
         return {"waves": 0}
@@ -259,7 +318,8 @@ def solve(store: MapStore, config=None, dtype=None, device=None) -> dict:
                        "and stay unsolved", len(store.captures) - len(order))
 
     runner = _WaveRunner(store, config.solver, config.aruco_size, dtype,
-                         device, camera_cfg=config.camera)
+                         device, camera_cfg=config.camera,
+                         assemble_fn=assemble_fn)
     every = max(getattr(config.solver, "optimize_every", 1), 1)
     growth = float(getattr(config.solver, "optimize_growth", 0.0) or 0.0)
     geo_marks: set[int] = set()
@@ -285,19 +345,20 @@ def solve(store: MapStore, config=None, dtype=None, device=None) -> dict:
 
 
 def solve_incremental(store: MapStore, config=None, dtype=None,
-                      device=None) -> dict:
+                      device=None, assemble_fn=None) -> dict:
     """Incremental solve (≙ ArSlamSolver::solveIncremental) on ``device``
-    in ``dtype``, as ``solve``: repeatedly attach an unsolved capture that
-    shares an initialized tag with the solved set; each attachment
-    re-optimizes the whole active problem.  Returns {"waves", "unsolved"},
-    plus "cost" and "rmse" when a wave ran."""
+    in ``dtype`` with ``assemble_fn``, as ``solve``: repeatedly attach an
+    unsolved capture that shares an initialized tag with the solved set;
+    each attachment re-optimizes the whole active problem.  Returns
+    {"waves", "unsolved"}, plus "cost" and "rmse" when a wave ran."""
     config, dtype, device = _resolve(config, dtype, device)
     if not store.captures:
         return {"waves": 0}
     _maybe_calibrate_focal(store, config)
 
     runner = _WaveRunner(store, config.solver, config.aruco_size, dtype,
-                         device, camera_cfg=config.camera)
+                         device, camera_cfg=config.camera,
+                         assemble_fn=assemble_fn)
     # the solved captures re-enter the active problem without an LM pass:
     # their poses came with the export
     for cap in store.captures:

@@ -1,5 +1,4 @@
-"""Levenberg–Marquardt trust-region driver, grouped dense-Schur branch
-(port of ar_slam_tpu/solve/lm.py).
+"""Levenberg–Marquardt trust-region loop (port of ar_slam_tpu/solve/lm.py).
 
 The loop runs in Python with its state on the device; each iteration reads
 back two flags (accept / converged).  The accept/reject rule, the lambda
@@ -11,6 +10,9 @@ when every step is rejected past ``stall_lambda``.
 
 The assembled normal equations are carried between iterations and rebuilt
 only after an accepted step; step quality comes from quad forms on them.
+``lm_solve`` runs the tag-grouped hooks when given ``obs_per_tag`` (with
+the dense Schur solve, or implicit-Schur CG for ``linear_solver="cg"``)
+and the flat block hooks otherwise, as the reference does.
 """
 
 from __future__ import annotations
@@ -20,10 +22,12 @@ from typing import NamedTuple
 import torch
 
 from ar_slam_tpu_torch.solve.residuals import linearize, residuals_and_rho
-from ar_slam_tpu_torch.solve.schur import (assemble_grouped,
+from ar_slam_tpu_torch.solve.schur import (assemble, assemble_grouped,
                                            group_blocks_by_tag,
-                                           quad_form_grouped,
-                                           schur_solve_grouped)
+                                           group_blocks_by_tag_rows,
+                                           quad_form_flat, quad_form_grouped,
+                                           schur_solve, schur_solve_grouped,
+                                           schur_solve_grouped_cg)
 
 
 class LMConfig(NamedTuple):
@@ -38,7 +42,13 @@ class LMConfig(NamedTuple):
     min_lambda: float = 1e-16
     stall_lambda: float = 1e12
     enable_distortion: bool = False
-    linear_solver: str = "dense"  # only "dense" is ported
+    # "dense" = Cholesky on the reduced system (≙ DENSE_SCHUR); "cg" =
+    # implicit-Schur preconditioned CG (≙ ITERATIVE_SCHUR).  Grouped path.
+    linear_solver: str = "dense"
+    # CG's relative tolerance and step cap: the trust region absorbs the
+    # inexact steps (the reference's defaults)
+    cg_tolerance: float = 0.3
+    cg_max_iterations: int = 25
     loss: str = "trivial"
     loss_scale: float = 4.0
 
@@ -76,20 +86,67 @@ def _grad_inf_norm(eqs, cam_active, cap_active, tag_active):
     return torch.maximum(gc, torch.maximum(gp, gt))
 
 
+def make_block_hooks(cap_idx, tag_idx, corners, block_mask, aruco_size,
+                     n_caps, n_tags, distortion=False, loss="trivial",
+                     loss_scale=1.0):
+    """Hooks over the flat (padded) block table: (lin_fn, quality_fn)."""
+
+    def lin_fn(camera, cap_poses, tag_poses):
+        r, jc, jp, jt, rho = linearize(
+            camera, cap_poses, tag_poses, cap_idx, tag_idx, corners,
+            block_mask, aruco_size, distortion, loss, loss_scale)
+        eqs = assemble(r, jc, jp, jt, cap_idx, tag_idx, n_caps, n_tags)
+        return eqs, 0.5 * torch.sum(rho)
+
+    def quality_fn(eqs, new_camera, new_caps, new_tags, d_cam, d_cap, d_tag):
+        _, rho_new = residuals_and_rho(
+            new_camera, new_caps, new_tags, cap_idx, tag_idx, corners,
+            block_mask, aruco_size, distortion, loss, loss_scale)
+        g_dot_d, jd_sq = quad_form_flat(eqs, d_cam, d_cap, d_tag)
+        return 0.5 * torch.sum(rho_new), g_dot_d, jd_sq
+
+    return lin_fn, quality_fn
+
+
 def make_grouped_hooks(cap_idx, tag_idx, corners, block_mask, aruco_size,
                        n_caps, n_tags, s_max, sc_max, distortion=False,
-                       loss="trivial", loss_scale=1.0):
+                       loss="trivial", loss_scale=1.0, row_slots=None,
+                       n_rows=None, n_cap_rows=None):
     """Hooks over a TAG-GROUPED (T*S) block table, regrouped once here (by
     tag, and by capture for the capture-side sums).
 
-    Returns (lin_fn, quality_fn, slot_cap) with slot_cap the grouped
-    capture index of every slot."""
+    ``row_slots``/``n_rows`` switch the tag side to the ROW-SPLIT layout
+    (schur.TagRows: ``n_rows`` rows of ``row_slots`` slots, a tag spanning
+    ceil(obs / row_slots) consecutive rows), and ``n_cap_rows`` the
+    capture side likewise; for the CG solver, since the dense grouped
+    elimination consumes the (T, S_max) form.
+
+    Returns (lin_fn, quality_fn, group_ctx) with group_ctx = (slot_cap,
+    cap_gather, cap_gmask, rows, cap_rows): slot_cap the grouped capture
+    index of every slot, rows / cap_rows the TagRows or None."""
     dev = cap_idx.device
-    gather, mask_g = group_blocks_by_tag(tag_idx, block_mask, n_tags, s_max)
-    tag_idx_g = torch.arange(n_tags, device=dev).repeat_interleave(s_max)
+    if row_slots is not None:
+        max_rows = -(-s_max // row_slots)
+        gather, mask_g, rows = group_blocks_by_tag_rows(
+            tag_idx, block_mask, n_tags, row_slots, n_rows, max_rows)
+        s_used = row_slots
+        tag_idx_g = rows.row_tag[:, None].expand(n_rows, row_slots).reshape(-1)
+    else:
+        gather, mask_g = group_blocks_by_tag(tag_idx, block_mask, n_tags,
+                                             s_max)
+        rows = None
+        s_used = s_max
+        tag_idx_g = torch.arange(n_tags, device=dev)[:, None].expand(
+            n_tags, s_max).reshape(-1)
     cap_idx_g = cap_idx.to(torch.int64)[gather]
-    cap_gather, cap_gmask = group_blocks_by_tag(cap_idx_g, mask_g, n_caps,
-                                                sc_max)
+    if row_slots is not None and n_cap_rows is not None:
+        max_cap_rows = -(-sc_max // row_slots)
+        cap_gather, cap_gmask, cap_rows = group_blocks_by_tag_rows(
+            cap_idx_g, mask_g, n_caps, row_slots, n_cap_rows, max_cap_rows)
+    else:
+        cap_gather, cap_gmask = group_blocks_by_tag(cap_idx_g, mask_g,
+                                                    n_caps, sc_max)
+        cap_rows = None
     corners_g = corners[gather]
 
     def lin_fn(camera, cap_poses, tag_poses):
@@ -97,7 +154,7 @@ def make_grouped_hooks(cap_idx, tag_idx, corners, block_mask, aruco_size,
             camera, cap_poses, tag_poses, cap_idx_g, tag_idx_g, corners_g,
             mask_g, aruco_size, distortion, loss, loss_scale)
         eqs = assemble_grouped(r, jc, jp, jt, cap_gather, cap_gmask, n_caps,
-                               n_tags, s_max)
+                               n_tags, s_used, rows=rows, cap_rows=cap_rows)
         return eqs, 0.5 * torch.sum(rho)
 
     def quality_fn(eqs, new_camera, new_caps, new_tags, d_cam, d_cap, d_tag):
@@ -105,20 +162,35 @@ def make_grouped_hooks(cap_idx, tag_idx, corners, block_mask, aruco_size,
             new_camera, new_caps, new_tags, cap_idx_g, tag_idx_g, corners_g,
             mask_g, aruco_size, distortion, loss, loss_scale)
         g_dot_d, jd_sq = quad_form_grouped(eqs, cap_idx_g, d_cam, d_cap,
-                                           d_tag)
+                                           d_tag, rows=rows)
         return 0.5 * torch.sum(rho_new), g_dot_d, jd_sq
 
-    return lin_fn, quality_fn, cap_idx_g
+    return lin_fn, quality_fn, (cap_idx_g, cap_gather, cap_gmask, rows,
+                                cap_rows)
 
 
 def lm_core(camera, cap_poses, tag_poses, cam_active, cap_active, tag_active,
-            lin_fn, quality_fn, solve_fn, config: LMConfig, enabled=True,
-            iter_budget=None):
-    """Generic LM loop over the hooks; ``solve_fn(eqs, lam) -> (d_cam,
-    d_cap, d_tag)``.  ``enabled=False`` runs zero iterations (seed-only
-    waves).  Returns (camera, cap_poses, tag_poses, info)."""
+            lin_fn, quality_fn, config: LMConfig, enabled=True,
+            solve_fn=None, iter_budget=None, solver_state0=None, lam0=None,
+            nu0=None):
+    """Generic LM loop over the hooks.  Returns (camera, cap_poses,
+    tag_poses, info).
+
+    ``solve_fn(eqs, lam) -> (d_cam, d_cap, d_tag)`` is the damped solve
+    (default: the flat ``schur_solve``).  With ``solver_state0`` set it is
+    ``solve_fn(eqs, lam, state) -> (d_cam, d_cap, d_tag, state)``: the CG
+    path threads its reduced solution through as the next warm start,
+    zeroed after an accepted step (the next optimal step is near zero).
+    ``enabled=False`` runs zero iterations (seed-only waves); ``lam0`` /
+    ``nu0`` resume the damping schedule across host-stepped calls."""
     dtype = cap_poses.dtype
     dev = cap_poses.device
+    stateful = solver_state0 is not None
+    sol = solver_state0
+    if solve_fn is None:
+        def solve_fn(eqs, lam):
+            return schur_solve(eqs, lam, cam_active, cap_active, tag_active,
+                               jacobi_scaling=config.jacobi_scaling)
 
     def scalar(v):
         return torch.as_tensor(v, dtype=dtype, device=dev)
@@ -131,14 +203,17 @@ def lm_core(camera, cap_poses, tag_poses, cam_active, cap_active, tag_active,
     term = torch.where(g_conv0, 3, 0) if enabled else torch.tensor(5)
     state = LMState(
         camera=camera.to(dtype), cap_poses=cap_poses, tag_poses=tag_poses,
-        lam=scalar(config.initial_lambda), nu=scalar(2.0), cost=cost0,
-        iteration=0,
+        lam=scalar(config.initial_lambda if lam0 is None else lam0),
+        nu=scalar(2.0 if nu0 is None else nu0), cost=cost0, iteration=0,
         converged=converged, term=torch.as_tensor(term, device=dev))
 
     budget = min(config.max_iterations if iter_budget is None
                  else int(iter_budget), config.max_iterations)
     while state.iteration < budget and not bool(state.converged):
-        d_cam, d_cap, d_tag = solve_fn(eqs, state.lam)
+        if stateful:
+            d_cam, d_cap, d_tag, sol = solve_fn(eqs, state.lam, sol)
+        else:
+            d_cam, d_cap, d_tag = solve_fn(eqs, state.lam)
         new_camera = state.camera + d_cam
         new_caps = state.cap_poses + d_cap
         new_tags = state.tag_poses + d_tag
@@ -185,6 +260,8 @@ def lm_core(camera, cap_poses, tag_poses, cam_active, cap_active, tag_active,
             converged=converged_fp | g_conv,
             term=term,
         )
+        if stateful and accepted:
+            sol = torch.zeros_like(sol)
     info = {
         "cost": state.cost,
         "iterations": state.iteration,
@@ -198,47 +275,83 @@ def lm_core(camera, cap_poses, tag_poses, cam_active, cap_active, tag_active,
     return state.camera, state.cap_poses, state.tag_poses, info
 
 
-def obs_bound(idx: torch.Tensor, mask: torch.Tensor, n: int) -> int:
-    """Most observations of any index (a host read), bucketed like
-    graph.arrays.obs_bucket: multiples of 8."""
-    counts = torch.bincount(idx[mask].to(torch.int64), minlength=n)
-    m = max(int(counts.max().item()) if counts.numel() else 1, 1)
-    return -(-m // 8) * 8
-
-
 def lm_solve(camera, cap_poses, tag_poses, cap_idx, tag_idx, corners,
              block_mask, cam_active, cap_active, tag_active, *,
-             aruco_size: float, config: LMConfig = LMConfig(), enabled=True,
-             iter_budget=None, obs_per_tag: int | None = None,
-             obs_per_cap: int | None = None):
+             aruco_size: float, config: LMConfig = LMConfig(),
+             assemble_fn=None, enabled=True, iter_budget=None,
+             obs_per_tag: int | None = None, obs_per_cap: int | None = None,
+             row_slots: int | None = None, tag_rows: int | None = None,
+             cap_rows: int | None = None, lam0=None, nu0=None):
     """Run LM on the (masked, padded) problem on the tensors' device.
 
-    ``obs_per_tag``/``obs_per_cap`` are static upper bounds on the
-    observations per tag / capture (excess observations would be dropped);
-    when omitted they are read off the block table.  This is the
-    reference's grouped (tag-grouped, dense Schur) branch; its flat and CG
-    branches are not ported.
+    With ``obs_per_tag`` (a true upper bound on the observations per tag;
+    excess ones would be dropped) the TAG-GROUPED hooks run: the dense
+    grouped Schur solve, or for ``config.linear_solver == "cg"`` the
+    implicit-Schur CG, warm-started from the previous reduced solution.
+    ``obs_per_cap`` bounds the observations per capture (default n_tags *
+    obs_per_tag: safe but wasteful).  ``row_slots`` / ``tag_rows`` /
+    ``cap_rows`` switch the CG solve to the row-split packing (callers
+    size tag_rows >= sum_t ceil(obs_t / row_slots), cap_rows likewise);
+    the dense solve ignores them.
+
+    Without ``obs_per_tag``, or with ``assemble_fn(r, jc, jp, jt, cap_idx,
+    tag_idx, n_caps, n_tags) -> NormalEqs`` overriding the assembly, the
+    flat block hooks and the flat dense Schur solve run.  ``lam0`` / ``nu0``
+    resume the damping schedule (host-stepped progress printing).
     """
-    if config.linear_solver != "dense":
-        raise NotImplementedError(
-            f"linear_solver={config.linear_solver!r}: only the dense "
-            "grouped Schur solver is ported")
     n_caps = cap_poses.shape[0]
     n_tags = tag_poses.shape[0]
-    if obs_per_tag is None:
-        obs_per_tag = obs_bound(tag_idx, block_mask, n_tags)
-    if obs_per_cap is None:
-        obs_per_cap = obs_bound(cap_idx, block_mask, n_caps)
-    lin_fn, quality_fn, slot_cap = make_grouped_hooks(
-        cap_idx, tag_idx, corners, block_mask, aruco_size, n_caps, n_tags,
-        obs_per_tag, obs_per_cap, distortion=config.enable_distortion,
-        loss=config.loss, loss_scale=config.loss_scale)
+    if obs_per_tag is not None and assemble_fn is None:
+        if obs_per_cap is None:
+            obs_per_cap = n_tags * obs_per_tag
+        if config.linear_solver != "cg":
+            # the dense grouped elimination consumes the (T, S_max) form
+            row_slots = tag_rows = cap_rows = None
+        lin_fn, quality_fn, group_ctx = make_grouped_hooks(
+            cap_idx, tag_idx, corners, block_mask, aruco_size, n_caps,
+            n_tags, obs_per_tag, obs_per_cap,
+            distortion=config.enable_distortion, loss=config.loss,
+            loss_scale=config.loss_scale, row_slots=row_slots,
+            n_rows=tag_rows, n_cap_rows=cap_rows)
+        slot_cap, cap_gather, cap_gmask, rows, cap_rows_ctx = group_ctx
 
-    def solve_fn(eqs, lam):
-        return schur_solve_grouped(eqs, slot_cap, lam, cam_active,
-                                   cap_active, tag_active,
-                                   jacobi_scaling=config.jacobi_scaling)
+        solver_state0 = None
+        if config.linear_solver == "cg":
+            solver_state0 = torch.zeros(3 + 6 * n_caps, dtype=cap_poses.dtype,
+                                        device=cap_poses.device)
+
+            def solve_fn(eqs, lam, x0):
+                return schur_solve_grouped_cg(
+                    eqs, slot_cap, cap_gather, cap_gmask, lam, cam_active,
+                    cap_active, tag_active,
+                    jacobi_scaling=config.jacobi_scaling,
+                    cg_tol=config.cg_tolerance,
+                    cg_iters=config.cg_max_iterations, x0=x0, rows=rows,
+                    cap_rows=cap_rows_ctx)
+        else:
+            def solve_fn(eqs, lam):
+                return schur_solve_grouped(
+                    eqs, slot_cap, lam, cam_active, cap_active, tag_active,
+                    jacobi_scaling=config.jacobi_scaling)
+
+        return lm_core(camera, cap_poses, tag_poses, cam_active, cap_active,
+                       tag_active, lin_fn, quality_fn, config,
+                       enabled=enabled, solve_fn=solve_fn,
+                       iter_budget=iter_budget, solver_state0=solver_state0,
+                       lam0=lam0, nu0=nu0)
+    lin_fn, quality_fn = make_block_hooks(
+        cap_idx, tag_idx, corners, block_mask, aruco_size, n_caps, n_tags,
+        distortion=config.enable_distortion, loss=config.loss,
+        loss_scale=config.loss_scale)
+    if assemble_fn is not None:
+        def lin_fn(camera, cap_poses, tag_poses):  # noqa: F811
+            r, jc, jp, jt, rho = linearize(
+                camera, cap_poses, tag_poses, cap_idx, tag_idx, corners,
+                block_mask, aruco_size, config.enable_distortion,
+                config.loss, config.loss_scale)
+            eqs = assemble_fn(r, jc, jp, jt, cap_idx, tag_idx, n_caps, n_tags)
+            return eqs, 0.5 * torch.sum(rho)
 
     return lm_core(camera, cap_poses, tag_poses, cam_active, cap_active,
-                   tag_active, lin_fn, quality_fn, solve_fn, config,
-                   enabled=enabled, iter_budget=iter_budget)
+                   tag_active, lin_fn, quality_fn, config, enabled=enabled,
+                   iter_budget=iter_budget, lam0=lam0, nu0=nu0)

@@ -55,9 +55,27 @@ Phases (each prints one JSON line; any failure exits non-zero):
    detect/solve and ingest/detect overlaps, each solve_incremental call;
 7. solver  — the 500-tag / 200-capture synthetic in float32: final cost
    within 1e-3 relative of the float64 optimum 3771.57, and LM
-   iterations/s from two iteration budgets.
+   iterations/s from two iteration budgets;
+8. solver_cg_10k — implicit-Schur CG (``--iterative-schur``) at the
+   large-map scale: make_synthetic_map(10000, 4000) (9 860 tags, 4 000
+   captures, 262 839 blocks) in float32, row-split slot packing (8 slots a
+   row), 12 LM iterations; the final cost must be finite and below the
+   initial one, and one CG solve must raise nothing under
+   torch.cuda.set_sync_debug_mode("error") (no host read);
+9. solver_cg_vs_dense_2000 — 2 000 tags / 800 captures in float32, CG and
+   dense each to convergence: both rmse < 1 px, costs within 1e-2;
+10. solver_flat_500 — the 500-tag problem through lm_solve without
+   observation bounds (the flat hooks): cost within 1e-3 of 3771.57;
+11. map_cg_room16 — room-16's detections (from phase 4) mapped again with
+   linear_solver="cg": rmse < 1 px, every tag in the map;
+12. progress — room-16's first 4 captures solved with
+   minimizer_progress_to_stdout, in float64: >= 2 iteration lines and a
+   terminating line, rmse within 1e-3 px of the ordinary solve.
 
-With --profile, one detection batch of each cell and phone_12mp's
+Last, where the time goes in one CG LM iteration at 10k (the CG solve,
+the step quality, the relinearization): wall ms on the host clock (taken
+in phase 8, before any profiler attaches), device ms and items from
+torch.profiler, and both per CG step.  With --profile, one detection batch of each cell and phone_12mp's
 localization then run under torch.profiler (device time, idle share, the
 host-to-device bytes and ms, the largest device items).  Then the kernel
 table as one JSON line, and last {"ok": true, "device": {...}}.  Uses no
@@ -71,12 +89,16 @@ import os
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "build", "chip_smoke")
 F64_OPTIMUM_500 = 3771.57  # BASELINE.md, CPU float64 solve of the same map
+CG_VS_DENSE_REL = 1e-2  # f32 CG and dense stop at points of a shallow valley
+PROGRESS_RMSE_TOL_PX = 1e-3  # host-stepped vs one-call LM (tests/test_lm.py)
+ROW_SLOTS = 8  # the CG path's row-split packing (solve/batch.py)
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM 80 GB, NVIDIA data sheet (700 W)
 F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same source
@@ -110,6 +132,14 @@ COUNTERS = {"threshold (K1)": "box_threshold", "box_sum (K1)": "box",
 
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def timed(phase: str, fn, *args):
+    """fn(*args), then a line with its wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    emit("seconds", of=phase, seconds=time.perf_counter() - t0)
+    return out
 
 
 def fail(msg: str) -> None:
@@ -602,7 +632,7 @@ def phase_main_path(frames, truth):
          rmse_px=rmse, focal=float(engine.store.camera.params[0]),
          detect_seconds=t_detect,
          detect_frames_per_s=len(frames) / t_detect, solve_seconds=t_solve)
-    return launches
+    return launches, engine.store, rmse
 
 
 def phase_phone_12mp(frames, truth, tag_m: float):
@@ -900,16 +930,18 @@ def phase_serve_12mp(frames, truth, tag_m: float) -> None:
     emit("serve_12mp_tags", tags_required=n_req, min_side_px=PHONE_SIDE_PX)
 
 
-def phase_solver():
+def _synthetic(n_tags: int, n_caps: int):
+    """make_synthetic_map(n_tags, n_caps) at its truth, every pose then
+    perturbed by N(0, 0.005) (bench.py:28-49), float32 on the card.
+    Returns (tensors, numpy BlockArrays, generation seconds)."""
     import torch
 
     from ar_slam_tpu_torch.convert import arrays_from_numpy
     from ar_slam_tpu_torch.graph.arrays import export_arrays
-    from ar_slam_tpu_torch.solve.lm import LMConfig, lm_solve
     from ar_slam_tpu_torch.utils.synthetic import make_synthetic_map
 
     t0 = time.perf_counter()
-    store, truth = make_synthetic_map(n_tags=500, n_caps=200, seed=0,
+    store, truth = make_synthetic_map(n_tags=n_tags, n_caps=n_caps, seed=0,
                                       noise_px=0.3, focal=3000.0)
     for cap in store.captures:
         cap.inv_pose[:] = truth["cap_poses"][int(cap.uid.split("_")[1])]
@@ -924,36 +956,332 @@ def phase_solver():
     arrs = arrs._replace(cap_poses=cap0.astype(np.float32),
                          tag_poses=tag0.astype(np.float32))
     t = arrays_from_numpy(arrs, DEVICE, torch.float32)
-    gen_s = time.perf_counter() - t0
+    return t, arrs, time.perf_counter() - t0
+
+
+def _slot_bounds(arrs, cg: bool) -> dict:
+    """lm_solve's static slot bounds for ``arrs`` (bench.py:80-102): the
+    most observations of a tag / capture in multiples of 8, and for CG the
+    row-split budgets sum ceil(obs / 8) in multiples of 256."""
+    def up(n, m):
+        return -(-int(n) // m) * m
+
     counts = np.bincount(arrs.tag_idx[arrs.block_mask])
     ccounts = np.bincount(arrs.cap_idx[arrs.block_mask])
+    kw = dict(obs_per_tag=up(counts.max(), 8),
+              obs_per_cap=up(ccounts.max(), 8))
+    if cg:
+        kw.update(row_slots=ROW_SLOTS,
+                  tag_rows=up((-(-counts // ROW_SLOTS)).sum(), 256),
+                  cap_rows=up((-(-ccounts // ROW_SLOTS)).sum(), 256))
+    return kw
+
+
+def _lm_run(t, config, budget=None, **kw):
+    """One lm_solve on the synthetic tensors: (seconds, info)."""
+    import torch
+
+    from ar_slam_tpu_torch.solve.lm import lm_solve
+
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = lm_solve(
+        t["camera"], t["cap_poses"], t["tag_poses"], t["cap_idx"],
+        t["tag_idx"], t["corners"], t["block_mask"], True, t["cap_mask"],
+        t["tag_mask"], aruco_size=0.0635, config=config, iter_budget=budget,
+        **kw)
+    float(out[3]["cost"])  # waits for the card
+    return time.perf_counter() - t1, out[3]
+
+
+def _marginal_rate(t, config, lo: int, hi: int, **kw):
+    """LM iterations/s between budgets ``lo`` and ``hi`` after a warm-up:
+    (rate, seconds at lo, seconds at hi, info at hi)."""
+    _lm_run(t, config, 2, **kw)
+    t_lo, info_lo = _lm_run(t, config, lo, **kw)
+    t_hi, info_hi = _lm_run(t, config, hi, **kw)
+    rate = (info_hi["iterations"] - info_lo["iterations"]) / max(
+        t_hi - t_lo, 1e-9)
+    return rate, t_lo, t_hi, info_hi
+
+
+def phase_solver() -> float:
+    """The 500-tag synthetic through the grouped dense solve; returns its
+    LM iterations/s."""
+    from ar_slam_tpu_torch.solve.lm import LMConfig
+
+    t, arrs, gen_s = _synthetic(500, 200)
     config = LMConfig(max_iterations=32, function_tolerance=0.0,
                       parameter_tolerance=0.0)
-
-    def run(n):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        out = lm_solve(
-            t["camera"], t["cap_poses"], t["tag_poses"], t["cap_idx"],
-            t["tag_idx"], t["corners"], t["block_mask"], True,
-            t["cap_mask"], t["tag_mask"], aruco_size=0.0635, config=config,
-            iter_budget=n, obs_per_tag=-(-int(counts.max()) // 8) * 8,
-            obs_per_cap=-(-int(ccounts.max()) // 8) * 8)
-        cost = float(out[3]["cost"])
-        return time.perf_counter() - t1, out[3]["iterations"], cost
-
-    run(2)  # warm-up
-    t_lo, it_lo, _ = run(8)
-    t_hi, it_hi, cost = run(32)
+    rate, _, t_hi, info = _marginal_rate(t, config, 8, 32,
+                                         **_slot_bounds(arrs, cg=False))
+    cost = float(info["cost"])
     rel = abs(cost - F64_OPTIMUM_500) / F64_OPTIMUM_500
-    rate = (it_hi - it_lo) / max(t_hi - t_lo, 1e-9)
     emit("solver", tags=arrs.n_tags, captures=arrs.n_caps,
          blocks=arrs.n_blocks, dtype="float32", final_cost=cost,
-         f64_optimum=F64_OPTIMUM_500, rel_err=rel, iterations=it_hi,
-         lm_iterations_per_s=rate, seconds_32=t_hi, problem_gen_s=gen_s)
+         f64_optimum=F64_OPTIMUM_500, rel_err=rel,
+         iterations=info["iterations"], lm_iterations_per_s=rate,
+         seconds_32=t_hi, problem_gen_s=gen_s)
     if not rel <= 1e-3:
         fail(f"500-tag final cost {cost} is not within 1e-3 of "
              f"{F64_OPTIMUM_500}")
+    return rate
+
+
+def phase_solver_flat_500(grouped_rate: float) -> None:
+    """The 500-tag synthetic through lm_solve without observation bounds:
+    the flat block hooks and the flat dense Schur solve."""
+    from ar_slam_tpu_torch.solve.lm import LMConfig
+
+    t, arrs, gen_s = _synthetic(500, 200)
+    config = LMConfig(max_iterations=32, function_tolerance=0.0,
+                      parameter_tolerance=0.0)
+    rate, _, t_hi, info = _marginal_rate(t, config, 8, 32)
+    cost = float(info["cost"])
+    rel = abs(cost - F64_OPTIMUM_500) / F64_OPTIMUM_500
+    emit("solver_flat_500", tags=arrs.n_tags, captures=arrs.n_caps,
+         blocks=arrs.n_blocks, dtype="float32", final_cost=cost,
+         f64_optimum=F64_OPTIMUM_500, rel_err=rel,
+         iterations=info["iterations"], lm_iterations_per_s=rate,
+         grouped_lm_iterations_per_s=grouped_rate, seconds_32=t_hi,
+         problem_gen_s=gen_s)
+    if not rel <= 1e-3:
+        fail(f"flat 500-tag final cost {cost} is not within 1e-3 of "
+             f"{F64_OPTIMUM_500}")
+
+
+def _wall_ms(fn, reps: int = 5) -> float:
+    """Median host milliseconds of fn() to a synchronized card, after one
+    warm-up call, with no profiler attached."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_solver_cg_10k():
+    """CG at 10 000 tags / 4 000 captures (tools/big_map_bench.py's
+    problem): LM iterations/s from budgets 3 and 12, one CG solve under
+    set_sync_debug_mode("error"), and the host ms of one LM iteration's
+    parts.  Returns (the parts, their ms, the CG steps) for their profile,
+    taken last (phase_cg_profile)."""
+    import torch
+
+    from ar_slam_tpu_torch.solve.batch import rmse_from_cost
+    from ar_slam_tpu_torch.solve.lm import LMConfig, make_grouped_hooks
+    from ar_slam_tpu_torch.solve.schur import schur_solve_grouped_cg
+
+    t, arrs, gen_s = _synthetic(10000, 4000)
+    kw = _slot_bounds(arrs, cg=True)
+    config = LMConfig(max_iterations=12, function_tolerance=0.0,
+                      parameter_tolerance=0.0, linear_solver="cg")
+    torch.cuda.reset_peak_memory_stats()
+    rate, t_lo, t_hi, info = _marginal_rate(t, config, 3, 12, **kw)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cost0, cost = float(info["initial_cost"]), float(info["cost"])
+
+    # one CG solve with no host read: every input is on the card first
+    lin, quality, ctx = make_grouped_hooks(
+        t["cap_idx"], t["tag_idx"], t["corners"], t["block_mask"], 0.0635,
+        t["cap_poses"].shape[0], t["tag_poses"].shape[0], kw["obs_per_tag"],
+        kw["obs_per_cap"], row_slots=ROW_SLOTS, n_rows=kw["tag_rows"],
+        n_cap_rows=kw["cap_rows"])
+    eqs, _ = lin(t["camera"], t["cap_poses"], t["tag_poses"])
+    lam = torch.full((), config.initial_lambda, device=DEVICE)
+
+    def cg(iters):
+        return schur_solve_grouped_cg(
+            eqs, ctx[0], ctx[1], ctx[2], lam, True, t["cap_mask"],
+            t["tag_mask"], cg_tol=config.cg_tolerance, cg_iters=iters,
+            x0=torch.zeros(3 + 6 * t["cap_poses"].shape[0], device=DEVICE),
+            rows=ctx[3], cap_rows=ctx[4])
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sol = cg(config.cg_max_iterations)
+    except RuntimeError as e:
+        traceback.print_exc()
+        fail(f"solver_cg_10k: the CG solve synchronised the card: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sol_finite = all(bool(torch.isfinite(x).all()) for x in sol)
+    # one LM iteration's parts on the host clock, before any profiler has
+    # attached to this process (profiling leaves the host slower after it)
+    d_cam, d_cap, d_tag, _ = sol
+    new = (t["camera"] + d_cam, t["cap_poses"] + d_cap,
+           t["tag_poses"] + d_tag)
+    parts = {"cg_solve": lambda: cg(config.cg_max_iterations),
+             "cg_solve_1_step": lambda: cg(1),
+             "step_quality": lambda: quality(eqs, *new, d_cam, d_cap, d_tag),
+             "relinearize": lambda: lin(*new)}
+    wall = {name: _wall_ms(fn) for name, fn in parts.items()}
+    emit("solver_cg_10k", tags=arrs.n_tags, captures=arrs.n_caps,
+         blocks=arrs.n_blocks, padded=[arrs.tag_poses.shape[0],
+                                       arrs.cap_poses.shape[0]],
+         dtype="float32", slot_bounds=kw,
+         slots=kw["tag_rows"] * ROW_SLOTS,
+         cg=[config.cg_tolerance, config.cg_max_iterations],
+         initial_cost=cost0, final_cost=cost,
+         final_rmse_px=rmse_from_cost(cost, arrs.n_blocks),
+         iterations=info["iterations"], lm_iterations_per_s=rate,
+         seconds_3=t_lo, seconds_12=t_hi, peak_memory_gb=peak_gb,
+         sync_debug_cg_solve="no synchronising call",
+         sync_debug_solution_finite=sol_finite, part_wall_ms=wall,
+         problem_gen_s=gen_s)
+    if not (np.isfinite(cost) and cost < cost0 and sol_finite):
+        fail(f"solver_cg_10k: final cost {cost} from {cost0}, CG solution "
+             f"finite: {sol_finite}")
+    return parts, wall, config.cg_max_iterations
+
+
+def phase_cg_profile(fns, wall, steps) -> None:
+    """Where one CG LM iteration at 10k goes (run last, like the kernel
+    profiles): the CG solve, the step quality and the relinearization of an
+    accepted step.  Wall ms on the host clock from phase_solver_cg_10k,
+    device ms and items from one profiled run each; per CG step from solves
+    of 1 and ``steps`` steps."""
+    parts = {}
+    for name, fn in fns.items():
+        prof = _profiled(f"cg_10k {name}", fn)
+        parts[name] = {"wall_ms": wall[name], "device_ms": prof["device_ms"],
+                       "device_items": prof["device_items"],
+                       "profiled_wall_ms": prof["wall_ms"]}
+    one = parts.pop("cg_solve_1_step")
+    wall_ms = sum(p["wall_ms"] for p in parts.values())
+    device = sum(p["device_ms"] for p in parts.values())
+    emit("cg_10k_iteration", parts=parts, wall_ms=wall_ms, device_ms=device,
+         device_idle_share=1.0 - device / wall_ms,
+         cg_step_wall_ms=(parts["cg_solve"]["wall_ms"] - one["wall_ms"])
+         / (steps - 1),
+         cg_step_device_ms=(parts["cg_solve"]["device_ms"]
+                            - one["device_ms"]) / (steps - 1),
+         cg_step_device_items=(parts["cg_solve"]["device_items"]
+                               - one["device_items"]) / (steps - 1),
+         cg_setup_wall_ms=one["wall_ms"], cg_setup_device_ms=one["device_ms"])
+
+
+def phase_solver_cg_vs_dense_2000() -> None:
+    """2 000 tags / 800 captures (README's 4x scale), CG and dense each
+    run to convergence in float32."""
+    from ar_slam_tpu_torch.solve.batch import rmse_from_cost
+    from ar_slam_tpu_torch.solve.lm import TERMINATION_REASONS, LMConfig
+
+    t, arrs, gen_s = _synthetic(2000, 800)
+    out = {}
+    for solver in ("cg", "dense"):
+        config = LMConfig(max_iterations=50, linear_solver=solver)
+        kw = _slot_bounds(arrs, cg=solver == "cg")
+        _lm_run(t, config, 2, **kw)  # warm-up
+        seconds, info = _lm_run(t, config, **kw)
+        cost = float(info["cost"])
+        out[solver] = {"cost": cost,
+                       "rmse_px": rmse_from_cost(cost, arrs.n_blocks),
+                       "iterations": info["iterations"],
+                       "termination": TERMINATION_REASONS[
+                           int(info["termination"])],
+                       "seconds": seconds}
+    rel = abs(out["cg"]["cost"] - out["dense"]["cost"]) / out["dense"]["cost"]
+    emit("solver_cg_vs_dense_2000", tags=arrs.n_tags, captures=arrs.n_caps,
+         blocks=arrs.n_blocks, dtype="float32", cost_rel_diff=rel,
+         tolerance=CG_VS_DENSE_REL, problem_gen_s=gen_s, **out)
+    if not (all(v["rmse_px"] < 1.0 for v in out.values())
+            and rel <= CG_VS_DENSE_REL):
+        fail(f"solver_cg_vs_dense_2000: {out}, costs {rel} apart")
+
+
+def _store_from(src, caps):
+    """A fresh MapStore holding the detections of ``caps`` of ``src``."""
+    from ar_slam_tpu_torch.graph.store import MapStore
+
+    from ar_slam_tpu_torch.config import CameraConfig
+
+    store = MapStore(initial_focal=CameraConfig().initial_focal)
+    for cap in caps:
+        store.add_detections(
+            cap.uid, [(src.arucos[src.blocks[b].tag_idx].id,
+                       src.blocks[b].corners) for b in cap.blocks],
+            src.camera.size, cap.img_fn)
+    return store
+
+
+def phase_map_cg_room16(store16, dense_rmse: float, truth) -> None:
+    """room-16's detections mapped again, with linear_solver="cg"."""
+    import dataclasses
+
+    from ar_slam_tpu_torch.config import ArSlamConfig
+    from ar_slam_tpu_torch.solve.batch import solve
+
+    config = ArSlamConfig()
+    config = dataclasses.replace(config, solver=dataclasses.replace(
+        config.solver, linear_solver="cg"))
+    store = _store_from(store16, store16.captures)
+    t0 = time.perf_counter()
+    summary = solve(store, config, device=DEVICE)
+    seconds = time.perf_counter() - t0
+    rmse = summary.get("rmse", float("nan"))
+    n_req = check_tags("map_cg_room16", _ids_in(store), truth["frames"],
+                       [c.uid for c in store.captures], 40.0)
+    tags = sorted(a.id for a in store.arucos)
+    emit("map_cg_room16", waves=summary.get("waves"), rmse_px=rmse,
+         dense_rmse_px=dense_rmse, tags_in_map=len(tags),
+         tags_required=n_req, focal=float(store.camera.params[0]),
+         solve_seconds=seconds)
+    if not (np.isfinite(rmse) and rmse < 1.0
+            and summary.get("waves") == len(store16.captures)
+            and tags == sorted(a.id for a in store16.arucos)):
+        fail(f"map_cg_room16: rmse {rmse} px, {summary.get('waves')} waves, "
+             f"{len(tags)} tags")
+
+
+def phase_progress(store16) -> None:
+    """room-16's first 4 captures solved host-stepped with progress
+    printing, against the ordinary solve of the same detections, both in
+    float64 as the reference's own check (tests/test_lm.py:658-678, x64):
+    the stepped solve skips the register-then-refine warmup, as the
+    reference's does, and in float32 the two can stall in different basins
+    (PERF.md)."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import torch
+
+    from ar_slam_tpu_torch.config import ArSlamConfig
+    from ar_slam_tpu_torch.solve.batch import solve
+
+    config = ArSlamConfig()
+    caps = store16.captures[:4]
+    plain = solve(_store_from(store16, caps), config, dtype=torch.float64,
+                  device=DEVICE)
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        stepped = solve(_store_from(store16, caps), dataclasses.replace(
+            config, solver=dataclasses.replace(
+                config.solver, minimizer_progress_to_stdout=True)),
+            dtype=torch.float64, device=DEVICE)
+    seconds = time.perf_counter() - t0
+    lines = printed.getvalue().splitlines()
+    iters = [ln for ln in lines if ln.split() and ln.split()[0].isdigit()]
+    terms = [ln for ln in lines if ln.startswith("terminating: ")]
+    d_rmse = abs(stepped["rmse"] - plain["rmse"])
+    emit("progress", captures=len(caps), dtype="float64",
+         iteration_lines=len(iters),
+         terminating=terms, rmse_px=stepped["rmse"],
+         plain_rmse_px=plain["rmse"], rmse_diff_px=d_rmse,
+         tolerance_px=PROGRESS_RMSE_TOL_PX, seconds=seconds,
+         last_line=iters[-1] if iters else None)
+    if not (len(iters) >= 2 and terms and d_rmse <= PROGRESS_RMSE_TOL_PX):
+        fail(f"progress: {len(iters)} iteration lines, {terms}, rmse "
+             f"{stepped['rmse']} vs {plain['rmse']}")
 
 
 def _device_ms(fn, names) -> dict:
@@ -979,10 +1307,10 @@ def _device_ms(fn, names) -> dict:
     return out
 
 
-def _profiled(label: str, fn) -> None:
+def _profiled(label: str, fn) -> dict:
     """One run of fn under torch.profiler: wall ms (host clock, synchronized),
     device ms (summed over kernels and copies), the idle share, and the
-    largest device items."""
+    largest device items; printed and returned."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1010,14 +1338,17 @@ def _profiled(label: str, fn) -> None:
     os.remove(trace)
     h2d = [e for e in events if e.get("cat") == "gpu_memcpy"
            and "HtoD" in e.get("name", "")]
-    emit("profile", run=label, wall_ms=wall_ms, device_ms=device_ms,
-         device_idle_share=1.0 - device_ms / wall_ms if device_ms else None,
-         h2d_bytes=sum(e.get("args", {}).get("bytes", 0) for e in h2d),
-         h2d_ms=sum(e.get("dur", 0.0) for e in h2d) / 1e3,
-         h2d_copies=len(h2d),
-         device_items=sum(a.count for a in avgs),
-         top=[{"name": a.key[:80], "ms": a.self_device_time_total / 1e3,
-               "count": a.count} for a in top])
+    out = dict(
+        wall_ms=wall_ms, device_ms=device_ms,
+        device_idle_share=1.0 - device_ms / wall_ms if device_ms else None,
+        h2d_bytes=sum(e.get("args", {}).get("bytes", 0) for e in h2d),
+        h2d_ms=sum(e.get("dur", 0.0) for e in h2d) / 1e3,
+        h2d_copies=len(h2d),
+        device_items=sum(a.count for a in avgs),
+        top=[{"name": a.key[:80], "ms": a.self_device_time_total / 1e3,
+              "count": a.count} for a in top])
+    emit("profile", run=label, **out)
+    return out
 
 
 def phase_profile(frames16, frames12, tag_m: float) -> None:
@@ -1068,13 +1399,21 @@ def main() -> int:
                                    aruco_size=tag_m, **PHONE_12MP)
     emit("render", seconds=time.perf_counter() - t0)
     rows, jobs = phase_kernels(frames16, frames12)
-    launches = {"room-16": phase_main_path(frames16, truth16),
+    room16, store16, rmse16 = phase_main_path(frames16, truth16)
+    launches = {"room-16": room16,
                 "phone_12mp": phase_phone_12mp(frames12, truth12, tag_m)}
     phase_serve_12mp(frames12, truth12, tag_m)
-    phase_solver()
+    grouped_rate = timed("solver", phase_solver)
+    cg_10k = timed("solver_cg_10k", phase_solver_cg_10k)
+    timed("solver_cg_vs_dense_2000", phase_solver_cg_vs_dense_2000)
+    timed("solver_flat_500", phase_solver_flat_500, grouped_rate)
+    timed("map_cg_room16", phase_map_cg_room16, store16, rmse16, truth16)
+    timed("progress", phase_progress, store16)
     if args.profile:
         phase_profile(frames16, frames12, tag_m)
     phase_kernel_profiles(jobs)
+    timed("cg_10k_profile", phase_cg_profile, *cg_10k)
+    del cg_10k
     for row in rows:
         row["launches"] = launches[row["cell"]][COUNTERS[row["name"]]]
     # K3's wrapper enqueues 1 + 2 x iters kernels a call and reads no flag

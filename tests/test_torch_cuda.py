@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+CG solver's host-read-free steps against the CPU, on the card.
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 False (the CPU runs of the suite).  Run on a machine with an NVIDIA GPU:
@@ -223,3 +224,57 @@ def test_extract_kernel_edge_cases(dev):
     got = extract.extreme_quads(lab, r)
     assert torch.equal(got, extract.extreme_quads_plain(lab, r))
     assert torch.equal(got[0, 1, 1], got[0, 1, 0])  # B = A on the +-0 tie
+
+
+def _cg_problem(dev):
+    """The seed-4 synthetic map's row-split grouped equations (rows of 2
+    slots) on ``dev`` in float64, and what the CG solve needs."""
+    from ar_slam_tpu_torch.convert import arrays_from_numpy
+    from ar_slam_tpu_torch.solve.lm import make_grouped_hooks
+    from torch_cases import slot_bounds, synthetic_arrays
+
+    a = synthetic_arrays(seed=4)
+    s_tag, s_cap, n_rows, n_cap_rows = slot_bounds(a, 2)
+    t = arrays_from_numpy(a, dev, torch.float64)
+    lin, _, ctx = make_grouped_hooks(
+        t["cap_idx"], t["tag_idx"], t["corners"], t["block_mask"], 0.0635,
+        a.cap_poses.shape[0], a.tag_poses.shape[0], s_tag, s_cap,
+        row_slots=2, n_rows=n_rows, n_cap_rows=n_cap_rows)
+    eqs, _ = lin(t["camera"], t["cap_poses"], t["tag_poses"])
+    cap_act = t["cap_mask"].clone()
+    cap_act[0] = False
+    return eqs, ctx, cap_act, t, (s_tag, n_rows)
+
+
+@pytest.mark.parametrize("tol,iters", [(0.3, 25), (1e-10, 100)])
+def test_cg_solve_no_sync_matches_cpu(dev, tol, iters):
+    """The row-split grouping and schur_solve_grouped_cg read nothing back
+    to the host (set_sync_debug_mode("error") raises on any synchronising
+    call), and equal the CPU float64 results: the grouping exactly, the
+    solve within 1e-8 relative."""
+    from ar_slam_tpu_torch.solve import schur
+
+    out = {}
+    for d in ("cpu", dev):
+        eqs, ctx, cap_act, t, (s_tag, n_rows) = _cg_problem(d)
+        torch.cuda.synchronize()
+        if d == dev:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            rows = schur.group_blocks_by_tag_rows(
+                t["tag_idx"], t["block_mask"], t["tag_poses"].shape[0], 2,
+                n_rows, -(-s_tag // 2))
+            sol = schur.schur_solve_grouped_cg(
+                eqs, ctx[0], ctx[1], ctx[2], 1e-4, True, cap_act,
+                t["tag_mask"], cg_tol=tol, cg_iters=iters, rows=ctx[3],
+                cap_rows=ctx[4])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        out[str(d)] = rows, sol
+    (g_c, m_c, r_c), sol_c = out["cpu"]
+    (g_d, m_d, r_d), sol_d = out[str(dev)]
+    assert torch.equal(g_d.cpu(), g_c) and torch.equal(m_d.cpu(), m_c)
+    for a, b in zip(r_d, r_c):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(sol_d, sol_c):
+        assert ((a.cpu() - b).abs().max() / b.abs().max()).item() <= 1e-8

@@ -116,7 +116,7 @@ def test_assemble_and_schur_solve_grouped_match(lam):
         a.camera, a.cap_poses, a.tag_poses, a.cap_idx, a.tag_idx, a.corners,
         a.block_mask, cap_act, a.tag_mask)))
     t = arrays_from_numpy(a, "cpu", torch.float64)
-    lin, _, slot_cap = tlm.make_grouped_hooks(
+    lin, _, (slot_cap, *_) = tlm.make_grouped_hooks(
         t["cap_idx"], t["tag_idx"], t["corners"], t["block_mask"], SIZE,
         n_caps, n_tags, s_tag, s_cap)
     eqs, cost = lin(t["camera"], t["cap_poses"], t["tag_poses"])

@@ -1,5 +1,6 @@
-"""Inputs shared by the port's CPU and card tests of K2, K3 and K4 (numpy
-only, so the card's test run, which has no jax, imports it too)."""
+"""Inputs shared by the port's CPU and card tests of K2, K3, K4 and the
+solver (numpy and the port only, so the card's test run, which has no jax,
+imports it too)."""
 
 import numpy as np
 
@@ -73,3 +74,38 @@ def extract_cases(h=40, w=52):
                       [ring, blob, BIG, BIG, ring, absent, blob, BIG]],
                      np.int32)
     return labels, roots
+
+
+def synthetic_arrays(seed=3, n_tags=20, n_caps=10, perturb=0.01):
+    """The padded float64 block arrays of a synthetic map (0.3 px corner
+    noise) with every pose at its truth plus N(0, perturb)."""
+    from ar_slam_tpu_torch.graph.arrays import export_arrays
+    from ar_slam_tpu_torch.utils.synthetic import make_synthetic_map
+
+    store, truth = make_synthetic_map(n_tags=n_tags, n_caps=n_caps,
+                                      seed=seed, noise_px=0.3)
+    arrs = export_arrays(store, dtype=np.float64)
+    rng = np.random.default_rng(seed)
+    cap = np.zeros_like(arrs.cap_poses)
+    tag = np.zeros_like(arrs.tag_poses)
+    for c in store.captures:
+        cap[c.index] = truth["cap_poses"][int(c.uid.split("_")[1])]
+    for t in store.arucos:
+        tag[t.index] = truth["tag_poses"][int(t.id.split("_")[-1])]
+    cap += rng.normal(scale=perturb, size=cap.shape)
+    tag += rng.normal(scale=perturb, size=tag.shape)
+    return arrs._replace(cap_poses=cap, tag_poses=tag)
+
+
+def slot_bounds(arrs, row_slots=2):
+    """(obs_per_tag, obs_per_cap) bucketed to multiples of 8, and the
+    row-split budgets (tag_rows, cap_rows) for ``row_slots``, each sum_i
+    ceil(obs_i / row_slots) rounded up to a multiple of 8."""
+    def up8(n):
+        return int(-(-n // 8) * 8)
+
+    counts = [np.bincount(idx[arrs.block_mask])
+              for idx in (arrs.tag_idx, arrs.cap_idx)]
+    obs = [up8(c.max()) for c in counts]
+    rows = [up8((-(-c // row_slots)).sum()) for c in counts]
+    return obs[0], obs[1], rows[0], rows[1]
