@@ -11,13 +11,19 @@
 - ``arslam-torch load-images`` / ``make-map``  clients of a running serve.
 - ``arslam-torch replay log.jsonl``  rebuild a map from an event log.
 - ``arslam-torch annotate map.yaml``  annotated debug images.
+- ``arslam-torch audit map.yaml``  per-block reprojection audit.
+- ``arslam-torch scene map.yaml -o scene.png``  3-D render of the map.
+- ``arslam-torch gen``  printable tag sheets (≙ ar_gen).
 
 All that detect or solve run on the card; without one they stop with an
-error unless ``--device cpu`` asks for the CPU.  ``--iterative-schur``
-solves with implicit-Schur CG, ``--progress`` prints one line per LM
-iteration.  The reference CLI's ``gen``, ``audit`` and ``scene`` are not
-ported yet; of its flags, --cpu-detector, --devices, --multihost and
---platform are accepted and refused with a message.
+error unless ``--device cpu`` (or ``--platform cpu``) asks for the CPU.
+``--iterative-schur`` solves with implicit-Schur CG, ``--progress`` prints
+one line per LM iteration.  ``--devices N`` shards the solve's tags over N
+devices (repeated CPU shards with ``--device cpu``) and, for ``detect``,
+the image batch; ``--multihost coordinator:port,num_processes,process_id``
+(or ``auto``) first joins a torch.distributed process group (NCCL on the
+card, gloo on the CPU), over which the mesh then spans every process.
+``--cpu-detector`` detects with the NumPy oracle on the host.
 """
 
 from __future__ import annotations
@@ -90,26 +96,42 @@ def _config(args):
         pipeline["event_log_embed_images"] = True
     if args.profile:
         pipeline["profile_trace_dir"] = args.profile
+    dist = {}
+    if args.devices is not None:
+        dist["num_devices"] = args.devices if args.devices > 1 else 0
     return dataclasses.replace(
-        cfg, solver=dataclasses.replace(cfg.solver, **solver),
+        cfg, dist=dataclasses.replace(cfg.dist, **dist),
+        solver=dataclasses.replace(cfg.solver, **solver),
         camera=dataclasses.replace(cfg.camera, **camera),
         detect=dataclasses.replace(cfg.detect, **detect),
         pipeline=dataclasses.replace(cfg.pipeline, **pipeline))
 
 
-_NOT_PORTED = ("cpu_detector", "devices", "multihost", "platform")
+_PLATFORMS = {"cpu": "cpu", "gpu": "cuda"}
 
 
-def _engine(args):
+def _device(args):
+    """The command's device from --device and --platform (None: the
+    card); a platform that contradicts the device is refused."""
+    device = args.device or None
+    platform = getattr(args, "platform", "")
+    if platform:
+        if platform not in _PLATFORMS:
+            raise SystemExit(f"--platform {platform!r}: choose from "
+                             f"{sorted(_PLATFORMS)}")
+        if device and device.split(":")[0] != _PLATFORMS[platform]:
+            raise SystemExit(f"--platform {platform} contradicts "
+                             f"--device {device}")
+        device = device or _PLATFORMS[platform]
+    return device
+
+
+def _engine(args, detect_mesh=None):
     from ar_slam_tpu_torch.pipeline.engine import ArSlamEngine
 
-    for name in _NOT_PORTED:
-        value = getattr(args, name)
-        if value and not (name == "devices" and value == 1):
-            raise SystemExit(f"--{name.replace('_', '-')} is not ported to "
-                             "arslam-torch yet")
-
-    return ArSlamEngine(config=_config(args), device=args.device or None)
+    return ArSlamEngine(config=_config(args), device=_device(args),
+                        detect_mesh=detect_mesh,
+                        use_device_detector=not args.cpu_detector)
 
 
 def cmd_map(args) -> int:
@@ -151,8 +173,27 @@ def cmd_localize(args) -> int:
     return 0
 
 
+def cmd_gen(args) -> int:
+    from ar_slam_tpu_torch.detect.gen import generate_pages
+
+    for p in generate_pages(args.out_dir, args.dictionary):
+        print(p)
+    return 0
+
+
 def cmd_detect(args) -> int:
-    engine = _engine(args)
+    mesh = None
+    if args.devices and args.devices > 1:
+        import torch
+
+        from ar_slam_tpu_torch.parallel.detect import image_mesh
+
+        device = _device(args)
+        if device and torch.device(device).type != "cuda":
+            mesh = image_mesh(devices=[device] * args.devices)
+        else:
+            mesh = image_mesh(args.devices)
+    engine = _engine(args, detect_mesh=mesh)
     for uid, dets, size, _path in engine.detect_images(args.inputs):
         print(json.dumps({
             "uid": uid,
@@ -414,6 +455,36 @@ def cmd_annotate(args) -> int:
     return 0
 
 
+def cmd_audit(args) -> int:
+    """Per-block reprojection audit (≙ compareProjections,
+    ar_slam_util.cpp:576-589): worst blocks first."""
+    from ar_slam_tpu_torch.graph.store import MapStore
+    from ar_slam_tpu_torch.graph.yamlio import load_yaml
+    from ar_slam_tpu_torch.utils.audit import compare_projections, format_audit
+
+    store = MapStore()
+    load_yaml(store, args.map)
+    rows = compare_projections(store, device=args.device or None)
+    if args.json:
+        for d in rows:
+            print(json.dumps(d))
+    else:
+        print(format_audit(rows, limit=args.limit))
+    return 0
+
+
+def cmd_scene(args) -> int:
+    """Render the 3-D map scene (≙ the Foxglove 3D panel, headless)."""
+    from ar_slam_tpu_torch.graph.store import MapStore
+    from ar_slam_tpu_torch.graph.yamlio import load_yaml
+    from ar_slam_tpu_torch.viz.scene import render_scene
+
+    store = MapStore()
+    load_yaml(store, args.map)
+    print(render_scene(store, args.output))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="arslam-torch",
@@ -462,11 +533,24 @@ def build_parser() -> argparse.ArgumentParser:
                              "(host-stepped; ≙ ceres "
                              "minimizer_progress_to_stdout)")
         sp.add_argument("--cpu-detector", action="store_true",
-                        help="not ported yet (refused)")
-        for flag in ("--multihost", "--platform"):
-            sp.add_argument(flag, default="", help="not ported yet (refused)")
+                        help="detect with the NumPy oracle on the host "
+                             "instead of the batched device detector")
         sp.add_argument("--devices", type=int, default=None,
-                        help="not ported yet (refused)")
+                        help="shard the solve's tags over N devices "
+                             "(distributed BA over a 'blocks' mesh; with "
+                             "--device cpu, N CPU shards) and, for detect, "
+                             "the image batch; 0/1 = single device")
+        sp.add_argument("--multihost", default="",
+                        help="join a torch.distributed process group before "
+                             "any device use: 'coordinator:port,"
+                             "num_processes,process_id' or 'auto' "
+                             "(torchrun's environment); NCCL on the card, "
+                             "gloo on the CPU; the mesh then spans every "
+                             "process and --devices defaults to the world's "
+                             "device count")
+        sp.add_argument("--platform", default="",
+                        help="'cpu' or 'gpu': the device kind (must agree "
+                             "with --device)")
 
     sp = sub.add_parser("map", help="batch mapping (≙ ar_slam_cli)")
     sp.add_argument("inputs", nargs="+",
@@ -482,9 +566,14 @@ def build_parser() -> argparse.ArgumentParser:
     common(sp)
     sp.set_defaults(fn=cmd_localize)
 
+    sp = sub.add_parser("gen", help="generate printable tag sheets (≙ ar_gen)")
+    sp.add_argument("--dictionary", default="4X4_50")
+    sp.add_argument("--out-dir", default=".")
+    sp.set_defaults(fn=cmd_gen)
+
     sp = sub.add_parser("detect", help="detect markers, print JSON")
     sp.add_argument("inputs", nargs="+")
-    common(sp)
+    common(sp)  # --devices = split the image batch (data-parallel detect)
     sp.set_defaults(fn=cmd_detect)
 
     sp = sub.add_parser("serve", help="incremental mapping loop")
@@ -552,6 +641,22 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--out-dir", default="annotated")
     sp.add_argument("--all-tags", action="store_true")
     sp.set_defaults(fn=cmd_annotate)
+
+    sp = sub.add_parser("audit", help="per-block reprojection audit "
+                                      "(≙ compareProjections)")
+    sp.add_argument("map")
+    sp.add_argument("--limit", type=int, default=20,
+                    help="show the N worst blocks (0 = all)")
+    sp.add_argument("--json", action="store_true",
+                    help="one JSON object per block instead of the table")
+    sp.add_argument("--device", default="",
+                    help="torch device of the projection (default: cuda)")
+    sp.set_defaults(fn=cmd_audit)
+
+    sp = sub.add_parser("scene", help="render the 3-D map scene to PNG")
+    sp.add_argument("map")
+    sp.add_argument("-o", "--output", default="scene.png")
+    sp.set_defaults(fn=cmd_scene)
     return p
 
 
@@ -559,7 +664,48 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO,
                         format="[%(levelname)s] %(name)s: %(message)s")
     args = build_parser().parse_args(argv)
-    return args.fn(args)
+    _maybe_multihost(args)
+    try:
+        return args.fn(args)
+    finally:
+        if getattr(args, "multihost", ""):
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _maybe_multihost(args) -> None:
+    """--multihost: join the process group before any device use.
+
+    Every process runs the identical command; the host-side graph
+    bookkeeping is a pure function of the inputs, so all processes run
+    the same reductions (parallel/multihost.py).  The other processes
+    write their outputs into a scratch directory and mute stdout: only
+    process 0 publishes results."""
+    spec = getattr(args, "multihost", "")
+    if not spec:
+        return
+    from ar_slam_tpu_torch.device import resolve_device
+    from ar_slam_tpu_torch.parallel import multihost
+
+    device = resolve_device(_device(args))
+    pid, nproc = multihost.initialize(spec, device)
+    if args.devices is None:
+        args.devices = multihost.world_device_count(device)
+    logging.getLogger("arslam").info(
+        "multihost: process %d/%d, %d shards on %s", pid, nproc,
+        args.devices, device.type)
+    if pid != 0:
+        import tempfile
+
+        scratch = tempfile.mkdtemp(prefix="arslam-mh-")
+        # per-process artifacts (the map and the profile traces) go to
+        # scratch, so that N processes never clobber each other's files
+        for attr in ("output", "profile"):
+            if getattr(args, attr, None):
+                setattr(args, attr, os.path.join(
+                    scratch, os.path.basename(getattr(args, attr))))
+        sys.stdout = open(os.devnull, "w")
 
 
 if __name__ == "__main__":

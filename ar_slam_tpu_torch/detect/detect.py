@@ -451,6 +451,15 @@ def detect_batch(images, *, params: DetectParams = DetectParams(),
     (N, K') bool}}.
     """
     device = resolve_device(device)
+    if device.type == "cuda":
+        # the kernels launch on the current device's stream: make it the
+        # frames' card (a mesh shard may live on any of them)
+        with torch.cuda.device(device):
+            return _detect_batch(images, params, dict_names, device)
+    return _detect_batch(images, params, dict_names, device)
+
+
+def _detect_batch(images, params: DetectParams, dict_names, device):
     frames = torch.as_tensor(np.asarray(images) if not isinstance(
         images, torch.Tensor) else images).to(device).contiguous()
     tables = make_tables(dict_names, device)

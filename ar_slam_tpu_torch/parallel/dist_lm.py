@@ -1,0 +1,513 @@
+"""Distributed LM: TAG-SHARDED Schur elimination over a device mesh (port
+of ar_slam_tpu/parallel/dist_lm.py).
+
+The tag (landmark) axis is partitioned over a 1-D mesh and the block
+(observation) table repacked so that each shard holds exactly its tags'
+observations (``partition.prepare_tag_shards``).  Each LM iteration then:
+
+- linearizes and assembles the TAG-side blocks (per-tag 6x6 V, the
+  capture-sparse (t, S, 6, 6) coupling, the tag gradients) on each shard;
+  they never leave it;
+- reduces the CAPTURE-side blocks over the shards (~C*63 numbers);
+- Schur-eliminates each shard's tags on that shard and reduces the
+  additive reduced system (dense path), or runs the implicit-Schur CG
+  with one packed (3 + 6C,) reduction per matvec (``linear_solver="cg"``);
+- solves the dense reduced system once, replicated on the mesh's home
+  device, and back-substitutes each shard's tag steps locally; the tag
+  poses stay sharded (``Sharded``) for the whole solve.
+
+Each shard's work is a function over that shard, enqueued on its device
+by a loop over the shards.  ``_psum_packed`` is the one reduction: the
+shards' arrays raveled into one vector each, summed over the local shards
+on the home device, then, with a process group of several processes,
+one ``all_reduce``.  A dense LM iteration costs exactly TWO reductions
+(the solve's, and the fused step quality + speculative relinearization of
+``make_quality_lin``); a CG solve one at setup and one per matvec.  The
+tag-side sums the LM loop itself needs (the parameter test's norms, the
+gradient test's max) ride the same packs, so processes agree on every
+host decision without another collective.  The mesh counts the
+reductions (``Mesh.reductions``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ar_slam_tpu_torch.graph.arrays import obs_bucket
+from ar_slam_tpu_torch.parallel.mesh import Mesh, Sharded, replicate
+from ar_slam_tpu_torch.parallel.multihost import fetch, put_global
+from ar_slam_tpu_torch.parallel.partition import prepare_tag_shards
+from ar_slam_tpu_torch.solve.lm import LMConfig, lm_core
+from ar_slam_tpu_torch.solve.residuals import linearize
+from ar_slam_tpu_torch.solve.schur import (CapEqs, CgShard, TagRows,
+                                           assemble_grouped,
+                                           backsub_tags_sparse,
+                                           cap_scale_vectors,
+                                           eliminate_tags_grouped,
+                                           group_blocks_by_tag,
+                                           group_blocks_by_tag_rows,
+                                           quad_form_cap_side,
+                                           quad_form_tag_side, reduced_solve,
+                                           schur_solve_sharded_cg)
+
+
+class ShardedEqs(NamedTuple):
+    """The normal equations of a tag-sharded solve."""
+
+    cap: CapEqs  # replicated, on the mesh's home device
+    tags: list  # per local shard: (hct, wt_s, htt, g_t)
+    g_t_max: torch.Tensor  # max |g_t| over the active tags of every shard
+    tag_sq: torch.Tensor  # sum of the squared tag poses they were taken at
+    step_sq: torch.Tensor  # sum of the squared tag step that proposed them
+
+
+def _psum_packed(mesh: Mesh, shard_arrs):
+    """ONE reduction for several same-dtype arrays: ``shard_arrs`` holds
+    one list of arrays per local shard; each list is raveled and
+    concatenated, the shards' vectors summed on the home device (with
+    several processes then all-reduced once), and the sum split back into
+    the arrays' shapes, on the home device; a shard that consumes a value
+    moves it to its device.  Packing keeps each stage at one collective:
+    on latency-bound links the count matters more than the bytes, and the
+    payloads here are small."""
+    shapes = [a.shape for a in shard_arrs[0]]
+    dtypes = {a.dtype for arrs in shard_arrs for a in arrs}
+    assert len(dtypes) == 1, (
+        f"_psum_packed requires one dtype, got {sorted(map(str, dtypes))}: "
+        "concatenate would silently promote and change downstream dtypes")
+    flat = None
+    for arrs in shard_arrs:
+        f = torch.cat([a.reshape(-1) for a in arrs]).to(mesh.home)
+        flat = f if flat is None else flat + f
+    if mesh.group is not None and mesh.world > 1:
+        import torch.distributed as dist
+
+        dist.all_reduce(flat, group=mesh.group)
+    mesh.reductions += 1
+    out, off = [], 0
+    for s in shapes:
+        n = int(np.prod(s))
+        out.append(flat[off:off + n].reshape(s))
+        off += n
+    return out
+
+
+class _Group(NamedTuple):
+    """One shard's grouped block table (``make_group``): slot tables with
+    SHARD-LOCAL tag ids."""
+
+    cap_idx: torch.Tensor
+    tag_idx: torch.Tensor
+    corners: torch.Tensor
+    mask: torch.Tensor
+    cap_gather: torch.Tensor
+    cap_gmask: torch.Tensor
+    rows: TagRows | None
+    cap_rows: TagRows | None
+
+
+def make_tag_sharded_hooks(mesh: Mesh, t_per, n_caps, aruco_size,
+                           jacobi_scaling=True, distortion=False,
+                           obs_per_tag: int = 8, obs_per_cap: int = 8,
+                           loss="trivial", loss_scale=1.0,
+                           linear_solver: str = "dense",
+                           cg_tol: float = 1e-2, cg_iters: int = 100,
+                           row_slots: int | None = None,
+                           shard_rows: int | None = None,
+                           shard_cap_rows: int | None = None):
+    """(make_group, make_lin, make_quality_lin, make_solve) for lm_core
+    with the tags sharded over ``mesh``.
+
+    Tag-indexed arrays are in the RENUMBERED order of
+    ``prepare_tag_shards`` (global count t_per * n_shards), as ``Sharded``
+    (t_per, ...) tensors; block ``tag_idx`` holds the new GLOBAL ids.
+    ``obs_per_tag`` / ``obs_per_cap`` are the static slot counts of the
+    grouped assembly (global maxima, shared by all shards).  For CG,
+    ``row_slots`` / ``shard_rows`` / ``shard_cap_rows`` switch each
+    shard's tables to the ROW-SPLIT layout, sized for the heaviest shard.
+    The JAX package's ``make_quality`` is not ported: the loop takes the
+    fused ``make_quality_lin`` whenever the hooks are sharded."""
+    use_rows = row_slots is not None and linear_solver == "cg"
+    use_cap_rows = use_rows and shard_cap_rows is not None
+    s_max = row_slots if use_rows else obs_per_tag
+    max_rows = -(-obs_per_tag // row_slots) if use_rows else 1
+    max_cap_rows = -(-obs_per_cap // row_slots) if use_cap_rows else 1
+    shards = list(zip(mesh.shard_ids(), mesh.devices))
+
+    def make_group(cap_idx, tag_idx, corners, block_mask):
+        """Regroup each shard's blocks by local tag into (t_per * S) slots
+        (row-split: shard_rows * row_slots) and by capture: one ``_Group``
+        a shard, built once a solve."""
+        out = []
+        for (g, _), ci, ti, crn, bm in zip(shards, cap_idx, tag_idx,
+                                           corners, block_mask):
+            til = ti - g * t_per
+            dev = til.device
+            if use_rows:
+                gather, mask_g, rows = group_blocks_by_tag_rows(
+                    til, bm, t_per, row_slots, shard_rows, max_rows)
+                til_g = rows.row_tag[:, None].expand(
+                    shard_rows, row_slots).reshape(-1)
+            else:
+                gather, mask_g = group_blocks_by_tag(til, bm, t_per, s_max)
+                rows = None
+                til_g = torch.arange(t_per, device=dev)[:, None].expand(
+                    t_per, s_max).reshape(-1)
+            ci_g = ci[gather]
+            if use_cap_rows:
+                cap_gather, cap_gmask, cap_rows = group_blocks_by_tag_rows(
+                    ci_g, mask_g, n_caps, row_slots, shard_cap_rows,
+                    max_cap_rows)
+            else:
+                cap_gather, cap_gmask = group_blocks_by_tag(
+                    ci_g, mask_g, n_caps, obs_per_cap)
+                cap_rows = None
+            out.append(_Group(ci_g, til_g, crn[gather], mask_g, cap_gather,
+                              cap_gmask, rows, cap_rows))
+        return out
+
+    def _assemble(camera, cap_poses, tags, grp):
+        dev = tags.device
+        r, jc, jp, jt, rho = linearize(
+            camera.to(dev), cap_poses.to(dev), tags, grp.cap_idx,
+            grp.tag_idx, grp.corners, grp.mask, aruco_size, distortion,
+            loss, loss_scale)
+        eqs = assemble_grouped(r, jc, jp, jt, grp.cap_gather, grp.cap_gmask,
+                               n_caps, t_per, s_max, rows=grp.rows,
+                               cap_rows=grp.cap_rows)
+        return eqs, 0.5 * torch.sum(rho)
+
+    def _g_t_max(g, g_t, tag_active):
+        """This shard's max |g_t| over its active tags, at its slot of an
+        (n_shards,) vector: the sum over shards holds every shard's."""
+        dt = g_t.dtype
+        m = torch.max(torch.abs(g_t) * tag_active[:, None].to(dt))
+        slot = torch.arange(mesh.n_shards, device=g_t.device) == g
+        return slot.to(dt) * m
+
+    def _eqs(packed, tag_side):
+        hcc, hcp, hpp, g_c, g_p, cost, g_max, tag_sq, step_sq = packed
+        return ShardedEqs(CapEqs(hcc, hcp, hpp, g_c, g_p), tag_side,
+                          torch.max(g_max), tag_sq, step_sq), cost
+
+    def make_lin(grouped, tag_active):
+        def lin_fn(camera, cap_poses, tag_poses):
+            packs, tag_side = [], []
+            for (g, _), tags, grp, ta in zip(shards, tag_poses, grouped,
+                                             tag_active):
+                e, cost = _assemble(camera, cap_poses, tags, grp)
+                tag_side.append((e.hct, e.wt_s, e.htt, e.g_t))
+                packs.append([e.hcc, e.hcp, e.hpp, e.g_c, e.g_p, cost,
+                              _g_t_max(g, e.g_t, ta), torch.sum(tags ** 2),
+                              torch.zeros_like(cost)])
+            return _eqs(_psum_packed(mesh, packs), tag_side)
+
+        return lin_fn
+
+    def make_quality_lin(grouped, tag_active):
+        """Fused step quality + SPECULATIVE relinearization at the
+        proposed parameters: the quality scalars ride the same packed
+        reduction as the relinearized capture-side blocks (two reductions
+        an iteration instead of three).  d^T g and d^T H d come from the
+        CURRENT eqs (quad_form_*); the extra Jacobians of a rejected step
+        are local work."""
+        def quality_lin_fn(eqs, new_camera, new_caps, new_tags, d_cam,
+                           d_cap, d_tag):
+            packs, tag_side = [], []
+            for (g, dev), tags, dt_, grp, ta, old in zip(
+                    shards, new_tags, d_tag, grouped, tag_active, eqs.tags):
+                e, cost = _assemble(new_camera, new_caps, tags, grp)
+                gd_t, q_t = quad_form_tag_side(
+                    *old, grp.cap_idx, d_cam.to(dev), d_cap.to(dev), dt_,
+                    rows=grp.rows)
+                tag_side.append((e.hct, e.wt_s, e.htt, e.g_t))
+                packs.append([e.hcc, e.hcp, e.hpp, e.g_c, e.g_p, cost,
+                              _g_t_max(g, e.g_t, ta), torch.sum(tags ** 2),
+                              torch.sum(dt_ ** 2), gd_t, q_t])
+            packed = _psum_packed(mesh, packs)
+            gd_t, q_t = packed[-2:]
+            new_eqs, new_cost = _eqs(packed[:-2], tag_side)
+            # the capture side is replicated: added after the reduction
+            gd_c, q_c = quad_form_cap_side(*eqs.cap, d_cam, d_cap)
+            return new_cost, gd_c + gd_t, q_c + q_t, new_eqs
+
+        return quality_lin_fn
+
+    def make_solve(cam_active, cap_active, tag_active, grouped):
+        if linear_solver == "cg":
+            def solve_fn(eqs, lam, x0):
+                cg_shards = [CgShard(*side, grp.cap_idx, grp.cap_gather,
+                                     grp.cap_gmask, ta, grp.rows,
+                                     grp.cap_rows)
+                             for side, grp, ta in zip(eqs.tags, grouped,
+                                                      tag_active)]
+                d_cam, d_cap, d_tags, delta_r = schur_solve_sharded_cg(
+                    eqs.cap, cg_shards, lam, cam_active, cap_active,
+                    lambda per_shard: _psum_packed(mesh, per_shard),
+                    jacobi_scaling=jacobi_scaling, cg_tol=cg_tol,
+                    cg_iters=cg_iters, x0=x0)
+                return d_cam, d_cap, Sharded(d_tags), delta_r
+
+            return solve_fn
+
+        def solve_fn(eqs, lam):
+            s_c, s_p = cap_scale_vectors(eqs.cap, cam_active, cap_active,
+                                         jacobi_scaling)
+            packs, ctxs = [], []
+            for (_, dev), side, grp, ta in zip(shards, eqs.tags, grouped,
+                                               tag_active):
+                hct, wt_s, htt, g_t = side
+                wvw, wvg, ctx = eliminate_tags_grouped(
+                    hct, wt_s, grp.cap_idx, htt, g_t, s_c.to(dev),
+                    s_p.to(dev), ta, lam.to(dev), jacobi_scaling)
+                packs.append([wvw, wvg])
+                ctxs.append(ctx)
+            wvw, wvg = _psum_packed(mesh, packs)
+            delta_r, d_cam, d_cap = reduced_solve(
+                eqs.cap, s_c, s_p, cam_active, cap_active, lam, wvw, wvg)
+            d_tag = Sharded(
+                backsub_tags_sparse(v_inv, hct_s, wt_ss, grp.cap_idx, g_t_s,
+                                    s_t, ta, delta_r.to(grp.cap_idx.device))
+                for (v_inv, hct_s, wt_ss, g_t_s, s_t), grp, ta
+                in zip(ctxs, grouped, tag_active))
+            return d_cam, d_cap, d_tag
+
+        return solve_fn
+
+    return make_group, make_lin, make_quality_lin, make_solve
+
+
+class TagShardedProblem:
+    """Host-side prep: tag renumbering, block repack and placement on the
+    mesh; converts results back to the original tag numbering.  Float
+    arrays take ``dtype`` (default: their numpy dtype)."""
+
+    def __init__(self, mesh: Mesh, cap_idx, tag_idx, corners, block_mask,
+                 n_tags, dtype=None):
+        self.mesh = mesh
+        self.n_dev = mesh.n_shards
+        self.dtype = dtype
+        cap_idx = np.asarray(cap_idx)
+        tag_idx = np.asarray(tag_idx)
+        corners = np.asarray(corners)
+        block_mask = np.asarray(block_mask)
+        self.prep = prepare_tag_shards(cap_idx, tag_idx, block_mask, n_tags,
+                                       self.n_dev)
+        p = self.prep
+        # static slot counts of the grouped assembly: the global max
+        # observations per tag / capture, bucketed (shared by all shards)
+        counts = np.bincount(tag_idx[block_mask], minlength=n_tags)
+        self.obs_per_tag = obs_bucket(int(counts.max()) if counts.size
+                                      else 1)
+        ccounts = np.bincount(cap_idx[block_mask])
+        self.obs_per_cap = obs_bucket(int(ccounts.max()) if ccounts.size
+                                      else 1)
+        # per-shard ROW-SPLIT budget of the CG path: the rows of the
+        # heaviest shard (each shard owns a contiguous range of new tags)
+        self.row_slots = 8
+        new_counts = np.bincount(p["new_tag_idx"][p["row_mask"]],
+                                 minlength=p["t_new"])
+        rows_per_tag = -(-new_counts // self.row_slots)
+        per_shard = rows_per_tag.reshape(self.n_dev, p["t_per"]).sum(axis=1)
+        self.shard_rows = obs_bucket(int(per_shard.max()) if per_shard.size
+                                     else 1)
+        # per-shard CAPTURE-row budget: each shard groups its slots by
+        # capture; sized for the heaviest shard
+        b_shard = p["b_shard"]
+        ci_new = cap_idx[p["row_gather"]]
+        worst = 1
+        for s in range(self.n_dev):
+            sl = slice(s * b_shard, (s + 1) * b_shard)
+            m = p["row_mask"][sl]
+            if m.any():
+                cc = np.bincount(ci_new[sl][m])
+                worst = max(worst, int((-(-cc // self.row_slots)).sum()))
+        self.shard_cap_rows = obs_bucket(worst)
+        self.t_per = p["t_per"]
+        self.t_new = p["t_new"]
+        self.b_shard = b_shard
+        rg = p["row_gather"]
+        # host copies of the repacked table: the wave seeds read anchor
+        # corners and tag ids from any shard
+        self.corners_host = corners[rg]
+        self.tag_idx_host = p["new_tag_idx"]
+        self.cap_idx = self.put_blocks(cap_idx[rg])
+        self.tag_idx = self.put_blocks(p["new_tag_idx"])
+        self.corners = self.put_blocks(self.corners_host)
+        self.base_mask = p["row_mask"]
+
+    def put_blocks(self, arr) -> Sharded:
+        return put_global(arr, self.mesh, dtype=self.dtype)
+
+    def put_tags(self, arr) -> Sharded:
+        """Permute an old-tag-indexed array into shard order and place it.
+        Padding slots (which gather old tag 0's row) are zeroed so they
+        contribute nothing to norms/costs."""
+        out = _numpy(arr)[self.prep["tag_perm"]].copy()
+        invalid = ~self.prep["tag_slot_valid"]
+        if invalid.any():
+            out[invalid] = 0
+        return put_global(out, self.mesh, dtype=self.dtype)
+
+    def put_tag_mask(self, mask_old) -> Sharded:
+        """Permute an activity mask, forcing padding tag slots inactive
+        (they alias old tag 0's row and must not become parameters)."""
+        m = _numpy(mask_old)[self.prep["tag_perm"]]
+        return put_global(m & self.prep["tag_slot_valid"], self.mesh)
+
+    def put_rep(self, *arrs):
+        return replicate(self.mesh, *map(_numpy, arrs), dtype=self.dtype)
+
+    def block_mask(self, active_old) -> Sharded:
+        """Map an old-row activity mask into the repacked layout."""
+        m = _numpy(active_old)[self.prep["row_gather"]] & self.base_mask
+        return self.put_blocks(m)
+
+    def tags_to_old(self, arr_new, n_old) -> np.ndarray:
+        """Inverse-permute a tag-indexed result back to old numbering (all
+        of it on every process: ``multihost.fetch`` all-gathers)."""
+        return fetch(arr_new, self.mesh)[self.prep["tag_inv"][:n_old]]
+
+    def row_of_block(self, old_row) -> int:
+        return int(self.prep["row_of_block"][old_row])
+
+
+def _numpy(a):
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a)
+
+
+def _lm_sharded(prob: TagShardedProblem, aruco_size, config: LMConfig,
+                camera, cap_poses, tag_poses, block_mask, cam_active,
+                cap_active, tag_active, enabled=True, iter_budget=None):
+    """lm_core over the tag-sharded hooks: placed state in, placed state
+    out (the tags ``Sharded`` in the renumbered order)."""
+    n_caps = cap_poses.shape[0]
+    make_group, make_lin, make_quality_lin, make_solve = (
+        make_tag_sharded_hooks(
+            prob.mesh, prob.t_per, n_caps, aruco_size, config.jacobi_scaling,
+            config.enable_distortion, prob.obs_per_tag, prob.obs_per_cap,
+            loss=config.loss, loss_scale=config.loss_scale,
+            linear_solver=config.linear_solver, cg_tol=config.cg_tolerance,
+            cg_iters=config.cg_max_iterations, row_slots=prob.row_slots,
+            shard_rows=prob.shard_rows, shard_cap_rows=prob.shard_cap_rows))
+    # per-shard regroup ONCE, outside the LM loop
+    grouped = make_group(prob.cap_idx, prob.tag_idx, prob.corners,
+                         block_mask)
+    solver_state0 = None
+    if config.linear_solver == "cg":
+        solver_state0 = torch.zeros(3 + 6 * n_caps, dtype=cap_poses.dtype,
+                                    device=cap_poses.device)
+    return lm_core(camera, cap_poses, tag_poses, cam_active, cap_active,
+                   tag_active, make_lin(grouped, tag_active), None, config,
+                   enabled=enabled,
+                   solve_fn=make_solve(cam_active, cap_active, tag_active,
+                                       grouped),
+                   iter_budget=iter_budget, solver_state0=solver_state0,
+                   quality_lin_fn=make_quality_lin(grouped, tag_active))
+
+
+def lm_solve_dist(mesh: Mesh, camera, cap_poses, tag_poses, cap_idx,
+                  tag_idx, corners, block_mask, cam_active, cap_active,
+                  tag_active, *, aruco_size: float,
+                  config: LMConfig = LMConfig()):
+    """Distributed lm_solve: the contract of solve.lm.lm_solve (arrays in
+    the original tag numbering, numpy or tensors); tags and their
+    observations are sharded internally, and the results come back in the
+    original numbering on the mesh's home device, in the dtype of
+    ``cap_poses``."""
+    dtype = (cap_poses.dtype if isinstance(cap_poses, torch.Tensor)
+             else torch.from_numpy(np.asarray(cap_poses)).dtype)
+    n_tags = tag_poses.shape[0]
+    prob = TagShardedProblem(mesh, _numpy(cap_idx), _numpy(tag_idx),
+                             _numpy(corners), _numpy(block_mask), n_tags,
+                             dtype=dtype)
+    camera_r, cap_poses_r, cam_a, cap_a = prob.put_rep(
+        camera, cap_poses, np.asarray(_numpy(cam_active), bool), cap_active)
+    cam, caps, tags, info = _lm_sharded(
+        prob, aruco_size, config, camera_r, cap_poses_r,
+        prob.put_tags(tag_poses), prob.block_mask(block_mask), cam_a, cap_a,
+        prob.put_tag_mask(tag_active))
+    tags_old = torch.as_tensor(prob.tags_to_old(tags, n_tags),
+                               device=mesh.home)
+    return cam, caps, tags_old, info
+
+
+class DistWaveSolver:
+    """The wave solver over a ``TagShardedProblem`` (seeding prologue and
+    LM, ≙ the JAX package's jitted ``make_dist_wave_solver``); the solve
+    drivers' ``_WaveRunner`` calls it for each flush.  Tag-indexed state
+    is ``Sharded`` in the renumbered order."""
+
+    def __init__(self, prob: TagShardedProblem, aruco_size: float,
+                 config: LMConfig, seed_mode: str):
+        self.prob = prob
+        self.aruco_size = aruco_size
+        self.config = config
+        self.seed_mode = seed_mode
+
+    def seed_waves(self, camera, cap_poses, tag_poses, waves):
+        """Apply the seeds of ``waves`` in order, as
+        ``solve.batch.apply_wave_seeds_multi`` does on one table (waves in
+        the store's block and tag numbering).  A capture seed reads its
+        anchor tags' poses from the shards that own them through one
+        reduction; each tag seed runs on its own shard.  Returns new
+        (cap_poses, tag_poses)."""
+        from ar_slam_tpu_torch.solve.batch import seed_capture, seed_tags
+
+        prob, mesh = self.prob, self.prob.mesh
+        t_per, b_shard = prob.t_per, prob.b_shard
+        row_of = prob.prep["row_of_block"]
+        tag_inv = prob.prep["tag_inv"]
+        cap_poses = cap_poses.clone()
+        tag_poses = Sharded(t.clone() for t in tag_poses)
+        shards = list(zip(mesh.shard_ids(), mesh.devices, tag_poses,
+                          prob.corners))
+        for seed_cap, seed_row, rows, tags, anchors in waves:
+            if seed_row >= 0 and anchors:
+                anc_rows = row_of[np.asarray(anchors)]
+                anc_tags = prob.tag_idx_host[anc_rows]
+                packs = []
+                for g, dev, tp, _ in shards:
+                    own = anc_tags // t_per == g
+                    local = torch.as_tensor(np.where(own, anc_tags - g * t_per,
+                                                     0), device=dev)
+                    keep = torch.as_tensor(own, device=dev)[:, None]
+                    packs.append([torch.where(keep, tp[local],
+                                              torch.zeros_like(tp[local]))])
+                (anc_poses,) = _psum_packed(mesh, packs)
+                anc_corners = torch.as_tensor(prob.corners_host[anc_rows],
+                                              dtype=cap_poses.dtype,
+                                              device=mesh.home)
+                seed_capture(camera, cap_poses, seed_cap, anc_corners,
+                             anc_poses, self.aruco_size, self.seed_mode)
+            if rows:
+                new_rows = row_of[np.asarray(rows)]
+                new_tags = tag_inv[np.asarray(tags)]
+                for g, dev, tp, crn in shards:
+                    own = new_tags // t_per == g
+                    if own.any():
+                        seed_tags(camera.to(dev), cap_poses[seed_cap].to(dev),
+                                  tp, crn, new_rows[own] - g * b_shard,
+                                  new_tags[own] - g * t_per,
+                                  self.aruco_size, self.seed_mode)
+        return cap_poses, tag_poses
+
+    def lm(self, camera, cap_poses, tag_poses, block_mask, cam_active,
+           cap_active, tag_active, enabled=True, iter_budget=None):
+        """The tag-sharded LM on placed state and masks."""
+        return _lm_sharded(self.prob, self.aruco_size, self.config, camera,
+                           cap_poses, tag_poses, block_mask, cam_active,
+                           cap_active, tag_active, enabled=enabled,
+                           iter_budget=iter_budget)
+
+
+def make_dist_wave_solver(prob: TagShardedProblem, *, aruco_size: float,
+                          config: LMConfig, seed_mode: str = "hybrid"):
+    """The distributed wave solver over ``prob``'s layout.  The JAX
+    package memoizes its jitted program; the port has nothing to
+    compile, so each call builds a new solver."""
+    return DistWaveSolver(prob, aruco_size, config, seed_mode)

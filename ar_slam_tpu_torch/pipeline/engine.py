@@ -80,13 +80,19 @@ class ArSlamEngine:
 
     ``device`` (default: the card; without one only ``"cpu"`` runs) runs
     detection and the solves; ``dtype`` (default: config.solver.dtype) is
-    the solver's working precision.
+    the solver's working precision.  ``detect_mesh`` (parallel.detect.
+    image_mesh) splits each detection batch over its devices;
+    ``use_device_detector=False`` detects with the NumPy oracle
+    (detect/reference.py) on the host instead, when the caller asks for it
+    (``--cpu-detector``).
     """
 
     def __init__(self, config: ArSlamConfig | None = None, device=None,
-                 dtype=None):
+                 dtype=None, detect_mesh=None, use_device_detector=True):
         self.config = config or ArSlamConfig()
         self.device = resolve_device(device)
+        self.detect_mesh = detect_mesh
+        self.use_device_detector = use_device_detector
         self.dtype = resolve_dtype(dtype if dtype is not None
                                    else self.config.solver.dtype)
         self.store = MapStore(initial_focal=self.config.camera.initial_focal)
@@ -175,11 +181,24 @@ class ArSlamEngine:
 
     def _run_detector(self, images, dict_names):
         """One dict per image: {"aruco_<dict>": [(tag_id, centered
-        corners), ...]}, from detect.detect_batch on the engine's device."""
+        corners), ...]}, from detect.detect_batch on the engine's device
+        (split over ``detect_mesh`` when set), or from the NumPy oracle."""
         from ar_slam_tpu_torch.detect.detect import DetectParams, detect_batch
 
         h, w = images.shape[1:]
         center = np.array([w / 2.0, h / 2.0])
+        per_image = [{f"aruco_{n}": [] for n in dict_names}
+                     for _ in range(len(images))]
+        if not self.use_device_detector:
+            from ar_slam_tpu_torch.detect.reference import detect_markers
+
+            for i, img in enumerate(images):
+                for d in detect_markers(img, dict_names=dict_names):
+                    # d.id = "aruco_<dict>_<n>" -> detector stream key
+                    det_type = d.id.rsplit("_", 1)[0]
+                    per_image[i].setdefault(det_type, []).append(
+                        (d.id, d.corners - center))
+            return per_image
         dcfg = self.config.detect
         params = DetectParams(
             win=dcfg.adaptive_thresh_win_sizes[0],
@@ -190,10 +209,14 @@ class ArSlamEngine:
             min_perimeter_rate=dcfg.min_marker_perimeter_rate,
             max_perimeter_rate=dcfg.max_marker_perimeter_rate,
         )
-        out = detect_batch(images, params=params, dict_names=dict_names,
-                           device=self.device)
-        per_image = [{f"aruco_{n}": [] for n in dict_names}
-                     for _ in range(len(images))]
+        if self.detect_mesh is not None:
+            from ar_slam_tpu_torch.parallel.detect import detect_batch_sharded
+
+            out = detect_batch_sharded(images, mesh=self.detect_mesh,
+                                       params=params, dict_names=dict_names)
+        else:
+            out = detect_batch(images, params=params, dict_names=dict_names,
+                               device=self.device)
         for name in dict_names:
             ids = out[name]["ids"].cpu().numpy()
             corners = out[name]["corners"].cpu().numpy()

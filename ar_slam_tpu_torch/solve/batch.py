@@ -18,7 +18,12 @@ With ``linear_solver="cg"`` every LM runs the implicit-Schur CG on the
 row-split slot packing, its row budgets sized from the whole store.  With
 ``minimizer_progress_to_stdout`` the joint LM of each flush runs one
 iteration per call and prints a ceres-style line per iteration.
-Single-device path only; the mesh path of the reference is not ported.
+
+With a ``mesh`` (or ``config.dist.num_devices > 1``) the tags are sharded
+over it and every LM runs the tag-sharded distributed solve
+(parallel/dist_lm.py) on the grouped hooks; the waves, seeds and warmups
+are the single-device path's.  Progress printing is single-device only,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -41,29 +46,54 @@ from ar_slam_tpu_torch.solve.residuals import total_cost
 logger = logging.getLogger(__name__)
 
 
-def apply_wave_seeds_multi(camera, cap_poses, tag_poses, tag_idx, corners,
-                           waves, aruco_size, seed_mode):
-    """Seed a sequence of waves in order.  Each wave is (seed_cap,
+def seed_capture(camera, cap_poses, seed_cap, anchor_corners,
+                 anchor_tag_poses, aruco_size, seed_mode):
+    """Seed capture ``seed_cap`` in place from its anchors: the corners of
+    its observations of already-initialized tags and those tags' poses."""
+    cap_poses[seed_cap] = seed_capture_pose_multi(
+        anchor_corners, camera, anchor_tag_poses,
+        torch.ones(anchor_corners.shape[0], dtype=torch.bool,
+                   device=anchor_corners.device), aruco_size, mode=seed_mode)
+
+
+def seed_tags(camera, cap_pose, tag_poses, corners, rows, tags, aruco_size,
+              seed_mode):
+    """Initialize ``tags`` in place, each from its block row of
+    ``rows``, through the capture pose that saw them."""
+    dev = corners.device
+    r = torch.as_tensor(rows, dtype=torch.int64, device=dev)
+    t = torch.as_tensor(tags, dtype=torch.int64, device=dev)
+    tag_poses[t] = seed_tag_pose(corners[r], camera, cap_pose, aruco_size,
+                                 mode=seed_mode)
+
+
+def apply_wave_seeds(camera, cap_poses, tag_poses, tag_idx, corners, wave,
+                     aruco_size, seed_mode):
+    """Seed one wave in place on one block table.  ``wave`` is (seed_cap,
     seed_row, tag_rows, tags, anchor_rows): with seed_row >= 0 the capture
     is seeded from its anchors (block rows of already-initialized tags),
-    then each tag first seen in the wave is initialized through the wave's
-    capture from its block row.  Returns new (cap_poses, tag_poses)."""
+    then each tag first seen in the wave is initialized through the
+    wave's capture from its block row."""
+    seed_cap, seed_row, rows, tags, anchors = wave
+    if seed_row >= 0 and anchors:
+        anc = torch.as_tensor(anchors, dtype=torch.int64,
+                              device=corners.device)
+        seed_capture(camera, cap_poses, seed_cap, corners[anc],
+                     tag_poses[tag_idx[anc]], aruco_size, seed_mode)
+    if rows:
+        seed_tags(camera, cap_poses[seed_cap], tag_poses, corners, rows,
+                  tags, aruco_size, seed_mode)
+
+
+def apply_wave_seeds_multi(camera, cap_poses, tag_poses, tag_idx, corners,
+                           waves, aruco_size, seed_mode):
+    """Seed a sequence of waves in order (``apply_wave_seeds`` each).
+    Returns new (cap_poses, tag_poses)."""
     cap_poses = cap_poses.clone()
     tag_poses = tag_poses.clone()
-    dev = corners.device
-    for seed_cap, seed_row, rows, tags, anchors in waves:
-        if seed_row >= 0 and anchors:
-            anc = torch.as_tensor(anchors, dtype=torch.int64, device=dev)
-            cap_poses[seed_cap] = seed_capture_pose_multi(
-                corners[anc], camera, tag_poses[tag_idx[anc]],
-                torch.ones(len(anchors), dtype=torch.bool, device=dev),
-                aruco_size, mode=seed_mode)
-        if rows:
-            r = torch.as_tensor(rows, dtype=torch.int64, device=dev)
-            t = torch.as_tensor(tags, dtype=torch.int64, device=dev)
-            tag_poses[t] = seed_tag_pose(corners[r], camera,
-                                         cap_poses[seed_cap], aruco_size,
-                                         mode=seed_mode)
+    for wave in waves:
+        apply_wave_seeds(camera, cap_poses, tag_poses, tag_idx, corners,
+                         wave, aruco_size, seed_mode)
     return cap_poses, tag_poses
 
 
@@ -109,20 +139,19 @@ class _WaveRunner:
     """Device-resident pose state across the waves of one padded export."""
 
     def __init__(self, store: MapStore, solver_cfg, aruco_size, dtype,
-                 device, camera_cfg=None, assemble_fn=None):
+                 device, camera_cfg=None, assemble_fn=None, mesh=None):
         self.store = store
         self.aruco_size = aruco_size
         self.device = device
         self.assemble_fn = assemble_fn
         self.config = _lm_config(solver_cfg, camera_cfg)
-        self.progress = getattr(solver_cfg, "minimizer_progress_to_stdout",
-                                False)
+        self.progress = mesh is None and getattr(
+            solver_cfg, "minimizer_progress_to_stdout", False)
         self.seed_mode = getattr(solver_cfg, "seed_mode", "hybrid")
         self.seed_anchors = getattr(solver_cfg, "seed_anchors", "multi")
         self.warmup = getattr(solver_cfg, "warmup_new_captures", True)
         self.wave_budget = solver_cfg.max_iterations
         arrs = export_arrays(store, dtype=np.float64)
-        t = arrays_from_numpy(arrs, device, dtype)
         self.c_pad = arrs.cap_poses.shape[0]
         self.t_pad = arrs.tag_poses.shape[0]
         self.obs_per_tag = obs_bucket(
@@ -141,10 +170,29 @@ class _WaveRunner:
             self.cap_rows = obs_bucket(sum(
                 -(-max(len(c.blocks), 1) // self.row_slots)
                 for c in store.captures) or 1)
-        self.camera, self.cap_poses, self.tag_poses = (
-            t["camera"], t["cap_poses"], t["tag_poses"])
-        self.cap_idx, self.tag_idx, self.corners = (
-            t["cap_idx"], t["tag_idx"], t["corners"])
+        self.arrs = arrs
+        self._dist = None
+        if mesh is None:
+            t = arrays_from_numpy(arrs, device, dtype)
+            self.camera, self.cap_poses, self.tag_poses = (
+                t["camera"], t["cap_poses"], t["tag_poses"])
+            self.cap_idx, self.tag_idx, self.corners = (
+                t["cap_idx"], t["tag_idx"], t["corners"])
+        else:
+            from ar_slam_tpu_torch.parallel.dist_lm import (
+                TagShardedProblem, make_dist_wave_solver)
+
+            # tag state lives sharded, in the renumbered order
+            prob = TagShardedProblem(mesh, arrs.cap_idx, arrs.tag_idx,
+                                     arrs.corners, arrs.block_mask,
+                                     self.t_pad, dtype=dtype)
+            self._prob = prob
+            self.tag_poses = prob.put_tags(arrs.tag_poses)
+            self.camera, self.cap_poses = prob.put_rep(arrs.camera,
+                                                       arrs.cap_poses)
+            self._dist = make_dist_wave_solver(
+                prob, aruco_size=aruco_size, config=self.config,
+                seed_mode=self.seed_mode)
         self.active_caps: set[int] = set()
         self.active_blocks = np.zeros_like(arrs.block_mask)
         self.tag_initialized = np.zeros(self.t_pad, dtype=bool)
@@ -158,6 +206,16 @@ class _WaveRunner:
 
     def _lm(self, cam_active, cap_active, tag_active, enabled, budget,
             lam0=None, nu0=None):
+        if self._dist is not None:
+            prob = self._prob
+            cam_a, cap_a = prob.put_rep(np.asarray(cam_active), cap_active)
+            (self.camera, self.cap_poses, self.tag_poses,
+             info) = self._dist.lm(
+                self.camera, self.cap_poses, self.tag_poses,
+                prob.block_mask(self.active_blocks), cam_a, cap_a,
+                prob.put_tag_mask(tag_active), enabled=enabled,
+                iter_budget=budget)
+            return info
         (self.camera, self.cap_poses, self.tag_poses, info) = lm_solve(
             self.camera, self.cap_poses, self.tag_poses, self.cap_idx,
             self.tag_idx, self.corners, self._mask(self.active_blocks),
@@ -218,9 +276,13 @@ class _WaveRunner:
         cap_active = np.zeros(self.c_pad, dtype=bool)
         cap_active[list(self.active_caps)] = True
 
-        self.cap_poses, self.tag_poses = apply_wave_seeds_multi(
-            self.camera, self.cap_poses, self.tag_poses, self.tag_idx,
-            self.corners, waves, self.aruco_size, self.seed_mode)
+        if self._dist is not None:
+            self.cap_poses, self.tag_poses = self._dist.seed_waves(
+                self.camera, self.cap_poses, self.tag_poses, waves)
+        else:
+            self.cap_poses, self.tag_poses = apply_wave_seeds_multi(
+                self.camera, self.cap_poses, self.tag_poses, self.tag_idx,
+                self.corners, waves, self.aruco_size, self.seed_mode)
         # register-then-refine: solve only the flush's new captures + tags
         # against the frozen established map first (skipped for a brand-new
         # map, where nothing established exists, for polish passes and
@@ -269,8 +331,23 @@ class _WaveRunner:
             info = {**info, "iterations": it + 1}
         return info
 
+    def _tags_old(self) -> np.ndarray:
+        """The tag poses in the store's numbering, on the host (the mesh
+        path all-gathers them)."""
+        if self._dist is not None:
+            return self._prob.tags_to_old(self.tag_poses, self.t_pad)
+        return self.tag_poses.cpu().numpy()
+
     def true_sq_cost(self) -> float:
         """0.5 * sum of RAW squared residuals on the current state."""
+        if self._dist is not None:
+            t = arrays_from_numpy(self.arrs._replace(
+                tag_poses=self._tags_old()), self._prob.mesh.home,
+                self.cap_poses.dtype)
+            return float(total_cost(
+                self.camera, self.cap_poses, t["tag_poses"], t["cap_idx"],
+                t["tag_idx"], t["corners"], self._mask(self.active_blocks),
+                self.aruco_size, self.config.enable_distortion))
         return float(total_cost(
             self.camera, self.cap_poses, self.tag_poses, self.cap_idx,
             self.tag_idx, self.corners, self._mask(self.active_blocks),
@@ -279,32 +356,45 @@ class _WaveRunner:
     def finish(self):
         self._flush(lm_enabled=False)
         write_back(self.store, self.camera.cpu().numpy(),
-                   self.cap_poses.cpu().numpy(), self.tag_poses.cpu().numpy())
+                   self.cap_poses.cpu().numpy(), self._tags_old())
         if self.last_info is not None:
             logger.info("solve done: cost=%s iters(last wave)=%s",
                         float(self.last_info["cost"]),
                         int(self.last_info["iterations"]))
 
 
-def _resolve(config, dtype, device):
-    """(config, dtype, device) of a solve, refusing what is not ported."""
+def _resolve(config, dtype, device, mesh, assemble_fn):
+    """(config, dtype, device, mesh) of a solve.  ``mesh`` wins; else
+    ``config.dist.num_devices > 1`` builds a block mesh of that many
+    shards on ``device``'s kind (repeated CPU shards, or CUDA cards); a
+    mesh's home device is the solve's device."""
     from ar_slam_tpu_torch.config import ArSlamConfig
 
     config = config or ArSlamConfig()
-    device = resolve_device(device)
     dtype = resolve_dtype(dtype if dtype is not None else config.solver.dtype)
-    if getattr(getattr(config, "dist", None), "num_devices", 0) > 1:
-        raise NotImplementedError("the distributed solve is not ported")
-    return config, dtype, device
+    n = getattr(getattr(config, "dist", None), "num_devices", 0)
+    if mesh is None and n and n > 1:
+        from ar_slam_tpu_torch.parallel.mesh import device_mesh
+
+        mesh = device_mesh(n, resolve_device(device))
+    if mesh is not None:
+        if assemble_fn is not None:
+            raise ValueError("assemble_fn overrides the single-device flat "
+                             "hooks; the mesh path assembles grouped")
+        device = mesh.home
+    return config, dtype, resolve_device(device), mesh
 
 
 def solve(store: MapStore, config=None, dtype=None, device=None,
-          assemble_fn=None) -> dict:
+          assemble_fn=None, mesh=None) -> dict:
     """Batch BFS solve (≙ ArSlamSolver::solve) on ``device`` (default: the
     card when present) in ``dtype`` (default: config.solver.dtype).
     ``assemble_fn`` overrides the normal-equation assembly (the flat
-    hooks then run; see lm.lm_solve).  Returns {"waves", "cost", "rmse"}."""
-    config, dtype, device = _resolve(config, dtype, device)
+    hooks then run; see lm.lm_solve).  With ``mesh`` (or
+    config.dist.num_devices > 1) each LM runs tag-sharded over it.
+    Returns {"waves", "cost", "rmse"}."""
+    config, dtype, device, mesh = _resolve(config, dtype, device, mesh,
+                                           assemble_fn)
     if not store.captures:
         return {"waves": 0}
     _maybe_calibrate_focal(store, config)
@@ -319,7 +409,7 @@ def solve(store: MapStore, config=None, dtype=None, device=None,
 
     runner = _WaveRunner(store, config.solver, config.aruco_size, dtype,
                          device, camera_cfg=config.camera,
-                         assemble_fn=assemble_fn)
+                         assemble_fn=assemble_fn, mesh=mesh)
     every = max(getattr(config.solver, "optimize_every", 1), 1)
     growth = float(getattr(config.solver, "optimize_growth", 0.0) or 0.0)
     geo_marks: set[int] = set()
@@ -345,20 +435,22 @@ def solve(store: MapStore, config=None, dtype=None, device=None,
 
 
 def solve_incremental(store: MapStore, config=None, dtype=None,
-                      device=None, assemble_fn=None) -> dict:
+                      device=None, assemble_fn=None, mesh=None) -> dict:
     """Incremental solve (≙ ArSlamSolver::solveIncremental) on ``device``
-    in ``dtype`` with ``assemble_fn``, as ``solve``: repeatedly attach an
-    unsolved capture that shares an initialized tag with the solved set;
-    each attachment re-optimizes the whole active problem.  Returns
-    {"waves", "unsolved"}, plus "cost" and "rmse" when a wave ran."""
-    config, dtype, device = _resolve(config, dtype, device)
+    in ``dtype`` with ``assemble_fn`` or ``mesh``, as ``solve``:
+    repeatedly attach an unsolved capture that shares an initialized tag
+    with the solved set; each attachment re-optimizes the whole active
+    problem.  Returns {"waves", "unsolved"}, plus "cost" and "rmse" when a
+    wave ran."""
+    config, dtype, device, mesh = _resolve(config, dtype, device, mesh,
+                                           assemble_fn)
     if not store.captures:
         return {"waves": 0}
     _maybe_calibrate_focal(store, config)
 
     runner = _WaveRunner(store, config.solver, config.aruco_size, dtype,
                          device, camera_cfg=config.camera,
-                         assemble_fn=assemble_fn)
+                         assemble_fn=assemble_fn, mesh=mesh)
     # the solved captures re-enter the active problem without an LM pass:
     # their poses came with the export
     for cap in store.captures:

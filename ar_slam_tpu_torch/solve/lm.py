@@ -76,13 +76,18 @@ TERMINATION_REASONS = {
 
 
 def _grad_inf_norm(eqs, cam_active, cap_active, tag_active):
-    """||J^T r||_inf over the ACTIVE parameters (ceres' gradient test)."""
-    dt = eqs.g_p.dtype
-    cam = torch.as_tensor(cam_active, device=eqs.g_c.device)
-    gc = torch.where(cam, torch.max(torch.abs(eqs.g_c)),
-                     torch.zeros((), dtype=dt, device=eqs.g_c.device))
-    gp = torch.max(torch.abs(eqs.g_p) * cap_active[:, None].to(dt))
-    gt = torch.max(torch.abs(eqs.g_t) * tag_active[:, None].to(dt))
+    """||J^T r||_inf over the ACTIVE parameters (ceres' gradient test).
+    Takes the field-named eqs, or the distributed hooks' ``ShardedEqs``,
+    whose tag part the hooks reduced already (``g_t_max``)."""
+    gt = getattr(eqs, "g_t_max", None)
+    cap = eqs if gt is None else eqs.cap
+    dt = cap.g_p.dtype
+    cam = torch.as_tensor(cam_active, device=cap.g_c.device)
+    gc = torch.where(cam, torch.max(torch.abs(cap.g_c)),
+                     torch.zeros((), dtype=dt, device=cap.g_c.device))
+    gp = torch.max(torch.abs(cap.g_p) * cap_active[:, None].to(dt))
+    if gt is None:
+        gt = torch.max(torch.abs(eqs.g_t) * tag_active[:, None].to(dt))
     return torch.maximum(gc, torch.maximum(gp, gt))
 
 
@@ -171,8 +176,8 @@ def make_grouped_hooks(cap_idx, tag_idx, corners, block_mask, aruco_size,
 
 def lm_core(camera, cap_poses, tag_poses, cam_active, cap_active, tag_active,
             lin_fn, quality_fn, config: LMConfig, enabled=True,
-            solve_fn=None, iter_budget=None, solver_state0=None, lam0=None,
-            nu0=None):
+            solve_fn=None, iter_budget=None, solver_state0=None,
+            quality_lin_fn=None, lam0=None, nu0=None):
     """Generic LM loop over the hooks.  Returns (camera, cap_poses,
     tag_poses, info).
 
@@ -182,7 +187,19 @@ def lm_core(camera, cap_poses, tag_poses, cam_active, cap_active, tag_active,
     path threads its reduced solution through as the next warm start,
     zeroed after an accepted step (the next optimal step is near zero).
     ``enabled=False`` runs zero iterations (seed-only waves); ``lam0`` /
-    ``nu0`` resume the damping schedule across host-stepped calls."""
+    ``nu0`` resume the damping schedule across host-stepped calls.
+
+    ``quality_lin_fn(eqs, new_camera, new_caps, new_tags, d_cam, d_cap,
+    d_tag) -> (new_cost, g_dot_d, jd_sq, eqs_new)`` replaces quality_fn
+    and the accept-path lin_fn: it relinearizes speculatively at the
+    proposed parameters, so the tag-sharded hooks pack the step quality
+    and the new capture-side blocks into one reduction (two reductions an
+    iteration: the solve's and this one); an accepted step keeps
+    ``eqs_new``, a rejected one drops it.  Its eqs carry the tag-side sums
+    the loop needs, reduced in the same packs: ``tag_sq`` (sum of the
+    squared tag poses they were linearized at), ``step_sq`` (sum of the
+    squared tag step that proposed them) and ``g_t_max``
+    (``_grad_inf_norm``).  The tags may then be ``Sharded``."""
     dtype = cap_poses.dtype
     dev = cap_poses.device
     stateful = solver_state0 is not None
@@ -217,8 +234,15 @@ def lm_core(camera, cap_poses, tag_poses, cam_active, cap_active, tag_active,
         new_camera = state.camera + d_cam
         new_caps = state.cap_poses + d_cap
         new_tags = state.tag_poses + d_tag
-        new_cost, g_dot_d, jd_sq = quality_fn(
-            eqs, new_camera, new_caps, new_tags, d_cam, d_cap, d_tag)
+        if quality_lin_fn is not None:
+            new_cost, g_dot_d, jd_sq, eqs_prop = quality_lin_fn(
+                eqs, new_camera, new_caps, new_tags, d_cam, d_cap, d_tag)
+            tag_step_sq, tag_x_sq = eqs_prop.step_sq, eqs.tag_sq
+        else:
+            new_cost, g_dot_d, jd_sq = quality_fn(
+                eqs, new_camera, new_caps, new_tags, d_cam, d_cap, d_tag)
+            tag_step_sq = torch.sum(d_tag ** 2)
+            tag_x_sq = torch.sum(state.tag_poses ** 2)
 
         model_decrease = torch.clamp(-g_dot_d - 0.5 * jd_sq, min=1e-30)
         rho = (state.cost - new_cost) / model_decrease
@@ -231,10 +255,9 @@ def lm_core(camera, cap_poses, tag_poses, cam_active, cap_active, tag_active,
         f_conv = (torch.abs(state.cost - new_cost)
                   <= config.function_tolerance * state.cost)
         step_norm = torch.sqrt(torch.sum(d_cam ** 2) + torch.sum(d_cap ** 2)
-                               + torch.sum(d_tag ** 2))
+                               + tag_step_sq)
         x_norm = torch.sqrt(torch.sum(state.camera ** 2)
-                            + torch.sum(state.cap_poses ** 2)
-                            + torch.sum(state.tag_poses ** 2))
+                            + torch.sum(state.cap_poses ** 2) + tag_x_sq)
         p_conv = step_norm <= config.parameter_tolerance * (
             x_norm + config.parameter_tolerance)
         stalled = ~accept & (state.lam >= config.stall_lambda)
@@ -242,20 +265,24 @@ def lm_core(camera, cap_poses, tag_poses, cam_active, cap_active, tag_active,
 
         accepted, done_fp = torch.stack([accept, converged_fp]).tolist()
         g_conv = torch.zeros((), dtype=torch.bool, device=dev)
-        if accepted and not done_fp:  # relinearize only when it is needed
+        if quality_lin_fn is not None:
+            # the speculative relinearization: kept on accept
+            eqs = eqs_prop if accepted else eqs
+        elif accepted and not done_fp:  # relinearize only when it is needed
             eqs, _ = lin_fn(new_camera, new_caps, new_tags)
+        if accepted and not done_fp:
             g_conv = _grad_inf_norm(eqs, cam_active, cap_active,
                                     tag_active) <= config.gradient_tolerance
         term = torch.where(
             stalled, 4, torch.where(g_conv, 3, torch.where(
                 accept & f_conv, 1, torch.where(accept & p_conv, 2, 0))))
         state = LMState(
-            camera=torch.where(accept, new_camera, state.camera),
-            cap_poses=torch.where(accept, new_caps, state.cap_poses),
-            tag_poses=torch.where(accept, new_tags, state.tag_poses),
-            lam=torch.where(accept, lam_acc, lam_rej),
-            nu=torch.where(accept, scalar(2.0), state.nu * 2.0),
-            cost=torch.where(accept, new_cost, state.cost),
+            camera=new_camera if accepted else state.camera,
+            cap_poses=new_caps if accepted else state.cap_poses,
+            tag_poses=new_tags if accepted else state.tag_poses,
+            lam=lam_acc if accepted else lam_rej,
+            nu=scalar(2.0) if accepted else state.nu * 2.0,
+            cost=new_cost if accepted else state.cost,
             iteration=state.iteration + 1,
             converged=converged_fp | g_conv,
             term=term,

@@ -16,6 +16,8 @@ Three solvers share the scaling and damping conventions:
   implicit Schur complement; nothing dense in tags x captures is built, so
   a 10k-tag / 4k-capture map fits.  CG runs a fixed number of steps with
   the converged state frozen on the device, so it reads nothing back.
+  ``schur_solve_sharded_cg`` runs it with the tags split into shards
+  (the tag-sharded distributed solve, parallel/dist_lm.py).
 - flat (``assemble`` / ``schur_solve``): segment sums over the block
   table and a dense (6C, 6T) coupling; for ``lm_solve`` without
   observation bounds and custom ``assemble_fn`` hooks.
@@ -631,42 +633,38 @@ def preconditioned_cg(matvec, b, x0, precond, tol: float, maxiter: int):
     return x
 
 
-def schur_solve_grouped_cg(eqs: GroupedEqs, slot_cap, cap_gather, cap_gmask,
-                           lam, cam_active, cap_active, tag_active,
-                           jacobi_scaling: bool = True,
-                           min_diag: float = 1e-6, max_diag: float = 1e32,
-                           cg_tol: float = 1e-2, cg_iters: int = 100,
-                           x0=None, reduce_fn=None,
-                           rows: TagRows | None = None,
-                           cap_rows: TagRows | None = None):
-    """ITERATIVE_SCHUR: preconditioned CG on the reduced camera system with
-    an implicit, capture-sparse Schur complement.  Returns (d_cam, d_cap,
-    d_tag, delta_r); ``x0`` warm-starts CG from a previous reduced
-    solution.
+class CgShard(NamedTuple):
+    """One shard's tag side for ``schur_solve_sharded_cg``: its grouped
+    tag blocks, slot tables and tag activity (a single-device solve is
+    one shard holding every tag)."""
 
-    Each CG step applies S v = A v - W (V^-1 (W^T v)) against the per-slot
-    6x6 blocks: W^T v gathers capture rows by ``slot_cap`` and sums per
-    tag, W z routes per-slot products back through the capture-grouped
-    permutation.  Memory is O(blocks).  Preconditioner: SCHUR_JACOBI, the
-    exact block diagonal of S (damped camera/capture blocks minus the
-    per-slot tag corrections), inverted by LU like the reference's
-    ``jnp.linalg.inv``: those blocks are a near-cancelling difference and
-    can be indefinite, where a Cholesky would distort CG.  ``reduce_fn``
-    (list -> list) all-reduces the shard-additive values of a tag-sharded
-    solve; identity when None.  Nothing in the setup or the steps reads a
-    value back to the host.
-    """
-    dtype = eqs.hcc.dtype
-    dev = eqs.hcc.device
-    c = eqs.hpp.shape[0]
-    lead, s_max = eqs.wt_s.shape[:2]  # (T, S_max) or row-split (R, S_row)
-    if reduce_fn is None:
-        def reduce_fn(arrs):
-            return arrs
-    s_c, s_p = cap_scale_vectors(eqs, cam_active, cap_active, jacobi_scaling)
+    hct: torch.Tensor
+    wt_s: torch.Tensor
+    htt: torch.Tensor
+    g_t: torch.Tensor
+    slot_cap: torch.Tensor
+    cap_gather: torch.Tensor
+    cap_gmask: torch.Tensor
+    tag_active: torch.Tensor
+    rows: TagRows | None = None
+    cap_rows: TagRows | None = None
+
+
+def _cg_shard_ops(sh: CgShard, s_c, s_p, lam, c: int, jacobi_scaling,
+                  min_diag, max_diag):
+    """One shard's part of the implicit Schur complement, on its device:
+    (downdate, setup, backsub) with downdate(v) = W V^-1 W^T v (3 + 6C,)
+    for this shard's tags, setup = [W V^-1 g_t (cam, cap), the
+    preconditioner's diagonal corrections (cam, cap)] and backsub(delta_r)
+    this shard's tag steps.  The first two are additive over shards."""
+    dev = sh.hct.device
+    s_c, s_p = s_c.to(dev), s_p.to(dev)
+    lam = lam.to(dev) if isinstance(lam, torch.Tensor) else lam
+    rows, cap_rows = sh.rows, sh.cap_rows
+    lead, s_max = sh.wt_s.shape[:2]  # (T, S_max) or row-split (R, S_row)
     hct_s, wt_ss, v_inv, g_t_s, s_t = _scale_and_damp_tags(
-        eqs.hct, eqs.wt_s, slot_cap, eqs.htt, eqs.g_t, s_c, s_p, tag_active,
-        lam, jacobi_scaling, min_diag, max_diag, rows=rows)
+        sh.hct, sh.wt_s, sh.slot_cap, sh.htt, sh.g_t, s_c, s_p,
+        sh.tag_active, lam, jacobi_scaling, min_diag, max_diag, rows=rows)
     wt_flat = wt_ss.reshape(lead * s_max, 6, 6)
 
     def per_tag_sum(per_row):
@@ -679,21 +677,66 @@ def schur_solve_grouped_cg(eqs: GroupedEqs, slot_cap, cap_gather, cap_gmask,
         return x[:, None].expand((lead, s_max) + x.shape[1:]).reshape(
             (lead * s_max,) + x.shape[1:])
 
-    hcc, hcp, hpp, g_c, g_p, cam_m, cap_m, m_r = _reduced_blocks(
-        eqs, s_c, s_p, cam_active, cap_active, lam, min_diag, max_diag)
-
     def wt_v(vc, vp):
         """W^T v per tag: (T, 6) = hct^T vc + sum_s wt^T vp[cap(slot)]."""
         u = torch.einsum("tik,i->tk", hct_s, vc)
-        u_slots = (wt_flat * vp[slot_cap][:, :, None]).sum(dim=1)
+        u_slots = (wt_flat * vp[sh.slot_cap][:, :, None]).sum(dim=1)
         return u + per_tag_sum(u_slots.reshape(lead, s_max, 6).sum(dim=1))
 
     def w_z(z):
         """W z as (cam (3,), cap (C, 6))."""
         out_c = torch.einsum("tik,tk->i", hct_s, z)
         per_slot = (wt_flat * per_slot_of_tag(z)[:, None, :]).sum(dim=2)
-        return out_c, _cap_scatter(per_slot, cap_gather, cap_gmask, c,
+        return out_c, _cap_scatter(per_slot, sh.cap_gather, sh.cap_gmask, c,
                                    cap_rows)
+
+    def downdate(vm):
+        vm = vm.to(dev)
+        z = torch.einsum("tkj,tj->tk", v_inv,
+                         wt_v(vm[:3], vm[3:].reshape(c, 6)))
+        down_c, down_p = w_z(z)
+        return torch.cat([down_c, down_p.reshape(-1)])
+
+    # the rhs downdate W V^-1 g_t and the preconditioner's diagonal
+    # corrections
+    wvg_c, wvg_p = w_z(torch.einsum("tkj,tj->tk", v_inv, g_t_s))
+    dg_c = torch.einsum("tik,tkl,tjl->ij", hct_s, v_inv, hct_s)
+    v_inv_slot = per_slot_of_tag(v_inv)
+    # wt . v_inv . wt^T per slot, as two broadcast-reduces
+    a_slot = (wt_flat[:, :, :, None] * v_inv_slot[:, None, :, :]).sum(dim=2)
+    dg_slot = (a_slot[:, :, None, :] * wt_flat[:, None, :, :]).sum(dim=3)
+    dg_p = _cap_scatter(dg_slot, sh.cap_gather, sh.cap_gmask, c, cap_rows)
+
+    def backsub(delta_r):
+        return backsub_tags_sparse(v_inv, hct_s, wt_ss, sh.slot_cap, g_t_s,
+                                   s_t, sh.tag_active, delta_r.to(dev),
+                                   rows=rows)
+
+    return downdate, [wvg_c, wvg_p, dg_c, dg_p], backsub
+
+
+def schur_solve_sharded_cg(cap_eqs: CapEqs, shards, lam, cam_active,
+                           cap_active, reduce_fn,
+                           jacobi_scaling: bool = True,
+                           min_diag: float = 1e-6, max_diag: float = 1e32,
+                           cg_tol: float = 1e-2, cg_iters: int = 100,
+                           x0=None):
+    """ITERATIVE_SCHUR over tags split into ``shards`` (``CgShard``s):
+    the camera/capture side and the CG vectors are replicated on the
+    device of ``cap_eqs``, each shard applies its tags' part of the
+    implicit Schur complement on its own device, and
+    ``reduce_fn(per_shard_lists) -> list`` sums the shards' additive
+    values: once at setup, once per matvec.  Returns (d_cam, d_cap,
+    [d_tag of each shard], delta_r).  Nothing reads a value back to the
+    host."""
+    c = cap_eqs.hpp.shape[0]
+    dtype, dev = cap_eqs.hcc.dtype, cap_eqs.hcc.device
+    s_c, s_p = cap_scale_vectors(cap_eqs, cam_active, cap_active,
+                                 jacobi_scaling)
+    ops = [_cg_shard_ops(sh, s_c, s_p, lam, c, jacobi_scaling, min_diag,
+                         max_diag) for sh in shards]
+    hcc, hcp, hpp, g_c, g_p, cam_m, cap_m, m_r = _reduced_blocks(
+        cap_eqs, s_c, s_p, cam_active, cap_active, lam, min_diag, max_diag)
 
     def s_mv(v):
         vm = v * m_r
@@ -702,23 +745,11 @@ def schur_solve_grouped_cg(eqs: GroupedEqs, slot_cap, cap_gather, cap_gmask,
         out_c = hcc @ vc + torch.einsum("cij,cj->i", hcp, vp)
         out_p = (torch.einsum("cij,i->cj", hcp, vc)
                  + torch.einsum("cij,cj->ci", hpp, vp))
-        z = torch.einsum("tkj,tj->tk", v_inv, wt_v(vc, vp))
-        down_c, down_p = w_z(z)
-        (down,) = reduce_fn([torch.cat([down_c, down_p.reshape(-1)])])
+        (down,) = reduce_fn([[downdate(vm)] for downdate, _, _ in ops])
         av = torch.cat([out_c, out_p.reshape(-1)]) - down
         return av * m_r + (1.0 - m_r) * v
 
-    # the rhs downdate W V^-1 g_t and the preconditioner's diagonal
-    # corrections, reduced together
-    wvg_c, wvg_p = w_z(torch.einsum("tkj,tj->tk", v_inv, g_t_s))
-    dg_c = torch.einsum("tik,tkl,tjl->ij", hct_s, v_inv, hct_s)
-    v_inv_slot = per_slot_of_tag(v_inv)
-    # wt . v_inv . wt^T per slot, as two broadcast-reduces
-    a_slot = (wt_flat[:, :, :, None] * v_inv_slot[:, None, :, :]).sum(dim=2)
-    dg_slot = (a_slot[:, :, None, :] * wt_flat[:, None, :, :]).sum(dim=3)
-    dg_p = _cap_scatter(dg_slot, cap_gather, cap_gmask, c, cap_rows)
-    wvg_c, wvg_p, dg_c, dg_p = reduce_fn([wvg_c, wvg_p, dg_c, dg_p])
-
+    wvg_c, wvg_p, dg_c, dg_p = reduce_fn([setup for _, setup, _ in ops])
     g_r = torch.cat([g_c, g_p.reshape(-1)])
     rhs = (-g_r + torch.cat([wvg_c, wvg_p.reshape(-1)])) * m_r
 
@@ -739,6 +770,38 @@ def schur_solve_grouped_cg(eqs: GroupedEqs, slot_cap, cap_gather, cap_gmask,
     delta_r = delta_r * m_r
     delta_cam = delta_r[0:3] * s_c
     delta_cap = delta_r[3:].reshape(c, 6) * s_p
-    delta_tag = backsub_tags_sparse(v_inv, hct_s, wt_ss, slot_cap, g_t_s,
-                                    s_t, tag_active, delta_r, rows=rows)
-    return delta_cam, delta_cap, delta_tag, delta_r
+    return delta_cam, delta_cap, [backsub(delta_r) for _, _, backsub in ops], \
+        delta_r
+
+
+def schur_solve_grouped_cg(eqs: GroupedEqs, slot_cap, cap_gather, cap_gmask,
+                           lam, cam_active, cap_active, tag_active,
+                           jacobi_scaling: bool = True,
+                           min_diag: float = 1e-6, max_diag: float = 1e32,
+                           cg_tol: float = 1e-2, cg_iters: int = 100,
+                           x0=None, rows: TagRows | None = None,
+                           cap_rows: TagRows | None = None):
+    """ITERATIVE_SCHUR: preconditioned CG on the reduced camera system with
+    an implicit, capture-sparse Schur complement.  Returns (d_cam, d_cap,
+    d_tag, delta_r); ``x0`` warm-starts CG from a previous reduced
+    solution.
+
+    Each CG step applies S v = A v - W (V^-1 (W^T v)) against the per-slot
+    6x6 blocks: W^T v gathers capture rows by ``slot_cap`` and sums per
+    tag, W z routes per-slot products back through the capture-grouped
+    permutation.  Memory is O(blocks).  Preconditioner: SCHUR_JACOBI, the
+    exact block diagonal of S (damped camera/capture blocks minus the
+    per-slot tag corrections), inverted by LU like the reference's
+    ``jnp.linalg.inv``: those blocks are a near-cancelling difference and
+    can be indefinite, where a Cholesky would distort CG.  The solve is
+    ``schur_solve_sharded_cg`` over one shard; nothing in the setup or the
+    steps reads a value back to the host.
+    """
+    shard = CgShard(eqs.hct, eqs.wt_s, eqs.htt, eqs.g_t, slot_cap,
+                    cap_gather, cap_gmask, tag_active, rows, cap_rows)
+    d_cam, d_cap, (d_tag,), delta_r = schur_solve_sharded_cg(
+        CapEqs(eqs.hcc, eqs.hcp, eqs.hpp, eqs.g_c, eqs.g_p), [shard], lam,
+        cam_active, cap_active, lambda per_shard: per_shard[0],
+        jacobi_scaling=jacobi_scaling, min_diag=min_diag, max_diag=max_diag,
+        cg_tol=cg_tol, cg_iters=cg_iters, x0=x0)
+    return d_cam, d_cap, d_tag, delta_r

@@ -70,7 +70,33 @@ Phases (each prints one JSON line; any failure exits non-zero):
    linear_solver="cg": rmse < 1 px, every tag in the map;
 12. progress — room-16's first 4 captures solved with
    minimizer_progress_to_stdout, in float64: >= 2 iteration lines and a
-   terminating line, rmse within 1e-3 px of the ordinary solve.
+   terminating line, rmse within 1e-3 px of the ordinary solve;
+13. mesh_detect — room-16's 16 frames and phone_12mp's 8 frames through
+   parallel.detect.detect_batch_sharded over three shards of the card
+   (neither batch divides by 3: padding); every output bit for bit the
+   unsharded batch's; K1 (both uses), K2 or K3, and K4 must launch, each
+   shard's launches printed;
+14. mesh_solver_500 — the 500-tag problem through the tag-sharded
+   lm_solve_dist over 1, 2 and 4 shards of the card: final cost within
+   1e-3 of 3771.57, exactly 1 + 2 x iterations reductions, LM
+   iterations/s beside the single-device rate;
+15. mesh_cg_10k — the 10k map of phase 8 (not generated again), CG over
+   two shards for 12 LM iterations: cost finite and below the initial
+   one, rmse within 1e-2 px of phase 8's, one sharded CG solve with no
+   synchronising call, peak memory and LM iterations/s;
+16. mesh_map_room16 — room-16's detections mapped again through
+   solve(store, mesh=block_mesh(devices=[cuda:0] * 2)): rmse within 1e-3
+   px of the dense map's, every tag;
+17. multihost_1 — ``arslam-torch map`` of phone_12mp's saved map with
+   ``--multihost 127.0.0.1:<port>,1,0`` in a subprocess (one NCCL
+   process): rmse equal to the in-process solve's within 1e-3 px (and two
+   NCCL processes where the machine has two cards).
+
+A mesh of k shards puts shard i on card i mod the card count: on one
+card all shards share it and run one after another on its stream (their
+times are what they are, not a speedup); on a machine with several cards
+the same phases spread over them, mesh_cg_10k also runs 4 shards and
+multihost_1 also 2 (and 4) NCCL processes.
 
 Last, where the time goes in one CG LM iteration at 10k (the CG solve,
 the step quality, the relinearization): wall ms on the host clock (taken
@@ -121,6 +147,11 @@ SERVE_RMSE_TOL_PX, SERVE_FOCAL_TOL = 1e-3, 1e-4
 # halfway between map frames 0-1, 2-3, 4-5 and 6-7 (photos taken inside
 # the mapped stretch of the room)
 PHONE_ARC = [i / 7 for i in range(8)] + [(i + 0.5) / 7 for i in (0, 2, 4, 6)]
+
+
+MESH_RMSE_TOL_PX = 1e-3  # mesh_map_room16, multihost_1 vs the dense map
+MESH_CG_RMSE_TOL_PX = 1e-2  # mesh_cg_10k vs phase 8 (CG follows rounding)
+MULTIHOST_TIMEOUT_S = 180
 
 
 # the launch counter (read_counts key) behind each kernel row
@@ -1071,7 +1102,8 @@ def phase_solver_cg_10k():
     problem): LM iterations/s from budgets 3 and 12, one CG solve under
     set_sync_debug_mode("error"), and the host ms of one LM iteration's
     parts.  Returns (the parts, their ms, the CG steps) for their profile,
-    taken last (phase_cg_profile)."""
+    taken last (phase_cg_profile), and (the map's numpy arrays, its rmse
+    after 12 iterations) for mesh_cg_10k."""
     import torch
 
     from ar_slam_tpu_torch.solve.batch import rmse_from_cost
@@ -1139,7 +1171,8 @@ def phase_solver_cg_10k():
     if not (np.isfinite(cost) and cost < cost0 and sol_finite):
         fail(f"solver_cg_10k: final cost {cost} from {cost0}, CG solution "
              f"finite: {sol_finite}")
-    return parts, wall, config.cg_max_iterations
+    return ((parts, wall, config.cg_max_iterations),
+            (arrs, rmse_from_cost(cost, arrs.n_blocks)))
 
 
 def phase_cg_profile(fns, wall, steps) -> None:
@@ -1284,6 +1317,310 @@ def phase_progress(store16) -> None:
              f"{stepped['rmse']} vs {plain['rmse']}")
 
 
+def _shard_devices(k: int) -> list:
+    """Shard i of k on card i mod the card count."""
+    import torch
+
+    return [f"cuda:{i % torch.cuda.device_count()}" for i in range(k)]
+
+
+def phase_mesh_detect(frames16, frames12):
+    """Both cells' detection batches split over three shards of the card:
+    bit for bit the unsharded batch, and each shard's kernel launches.
+    Returns each cell's launch counts of the sharded run."""
+    import torch
+
+    from ar_slam_tpu_torch.detect.detect import detect_batch
+    from ar_slam_tpu_torch.parallel import detect as pdet
+
+    mesh = pdet.image_mesh(devices=_shard_devices(3))
+    plain = pdet.detect_batch
+    out = {}
+    for cell, frames, k_ccl, k_unused in (
+            ("room-16", frames16, "ccl", "ccl_strip"),
+            ("phone_12mp", frames12[:8], "ccl_strip", "ccl")):
+        per_shard = []
+
+        def counted(*a, **kw):
+            before = read_counts()
+            res = plain(*a, **kw)
+            after = read_counts()
+            per_shard.append({k: after[k] - before[k] for k in after})
+            return res
+
+        pdet.detect_batch = counted
+        try:
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            got = pdet.detect_batch_sharded(frames, mesh=mesh)
+            torch.cuda.synchronize()
+            t_sharded = time.perf_counter() - t0
+            launches = read_counts()
+        finally:
+            pdet.detect_batch = plain
+        check_launches(f"mesh_detect {cell}", launches,
+                       ("box", "box_threshold", k_ccl, "extract"),
+                       (k_unused,))
+        t0 = time.perf_counter()
+        ref = detect_batch(frames, device=DEVICE)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        same = all(torch.equal(got[n][k], ref[n][k])
+                   for n in ref for k in ref[n])
+        n_found = int(sum(int(ref[n]["valid"].sum()) for n in ref))
+        per = -(-len(frames) // 3)
+        emit("mesh_detect", cell=cell, frames=len(frames), shards=3,
+             devices=[str(d) for d in mesh.devices],
+             frames_per_shard=[min(per, len(frames) - i * per)
+                               for i in range(3)],
+             padding_frames=3 * per - len(frames), equal_to_unsharded=same, detections=n_found, launches=launches,
+             launches_per_shard=per_shard, sharded_seconds=t_sharded,
+             unsharded_seconds=t_plain)
+        if not same:
+            fail(f"mesh_detect {cell}: sharded outputs differ from the "
+                 "unsharded batch")
+        out[cell] = launches
+    return out
+
+
+def _dist_run(mesh, arrs, config):
+    """One lm_solve_dist of the synthetic arrays: (seconds, info)."""
+    import torch
+
+    from ar_slam_tpu_torch.parallel import lm_solve_dist
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = lm_solve_dist(
+        mesh, arrs.camera, arrs.cap_poses, arrs.tag_poses, arrs.cap_idx,
+        arrs.tag_idx, arrs.corners, arrs.block_mask, True, arrs.cap_mask,
+        arrs.tag_mask, aruco_size=0.0635, config=config)
+    float(out[3]["cost"])  # waits for the card
+    return time.perf_counter() - t0, out[3]
+
+
+def _dist_rate(shards, arrs, config, lo, hi):
+    """LM iterations/s of lm_solve_dist over ``shards`` shards of the card
+    between budgets ``lo`` and ``hi`` (the host prep of each call cancels):
+    (rate, seconds at hi, info at hi, reductions at hi, the mesh)."""
+    from ar_slam_tpu_torch.parallel import block_mesh
+
+    mesh = block_mesh(devices=_shard_devices(shards))
+    _dist_run(mesh, arrs, config._replace(max_iterations=2))
+    t_lo, info_lo = _dist_run(mesh, arrs, config._replace(max_iterations=lo))
+    before = mesh.reductions
+    t_hi, info_hi = _dist_run(mesh, arrs, config._replace(max_iterations=hi))
+    rate = (info_hi["iterations"] - info_lo["iterations"]) / max(
+        t_hi - t_lo, 1e-9)
+    return rate, t_hi, info_hi, mesh.reductions - before, mesh
+
+
+def phase_mesh_solver_500(grouped_rate: float) -> None:
+    """The 500-tag problem through the tag-sharded LM over 1, 2 and 4
+    shards of the card, float32."""
+    from ar_slam_tpu_torch.solve.lm import LMConfig
+
+    _, arrs, gen_s = _synthetic(500, 200)
+    config = LMConfig(max_iterations=32, function_tolerance=0.0,
+                      parameter_tolerance=0.0)
+    runs = {}
+    for shards in (1, 2, 4):
+        rate, t_hi, info, reductions, _ = _dist_rate(shards, arrs, config,
+                                                     8, 32)
+        cost = float(info["cost"])
+        runs[shards] = dict(
+            final_cost=cost, iterations=info["iterations"],
+            rel_err=abs(cost - F64_OPTIMUM_500) / F64_OPTIMUM_500,
+            reductions=reductions,
+            reductions_per_iteration=(reductions - 1) / info["iterations"],
+            lm_iterations_per_s=rate, seconds_32=t_hi,
+            devices=_shard_devices(shards))
+    emit("mesh_solver_500", tags=arrs.n_tags, captures=arrs.n_caps,
+         blocks=arrs.n_blocks, dtype="float32", f64_optimum=F64_OPTIMUM_500,
+         single_device_lm_iterations_per_s=grouped_rate, shards=runs,
+         problem_gen_s=gen_s)
+    for shards, r in runs.items():
+        if not (r["rel_err"] <= 1e-3
+                and r["reductions"] == 1 + 2 * r["iterations"]):
+            fail(f"mesh_solver_500 at {shards} shards: {r}")
+
+
+def phase_mesh_cg_10k(arrs, single_rmse: float) -> None:
+    """The 10k map of phase 8 through the tag-sharded CG over two shards
+    (and four on a machine of four cards or more): 12 LM iterations, their
+    rate and the peak memory of each card, and one sharded CG solve under
+    set_sync_debug_mode("error")."""
+    import torch
+
+    for shards in (2, 4) if torch.cuda.device_count() >= 4 else (2,):
+        _mesh_cg_10k(arrs, single_rmse, shards)
+
+
+def _mesh_cg_10k(arrs, single_rmse: float, shards: int) -> None:
+    import torch
+
+    from ar_slam_tpu_torch.parallel import (TagShardedProblem,
+                                            make_tag_sharded_hooks)
+    from ar_slam_tpu_torch.solve.batch import rmse_from_cost
+    from ar_slam_tpu_torch.solve.lm import LMConfig
+
+    config = LMConfig(max_iterations=12, function_tolerance=0.0,
+                      parameter_tolerance=0.0, linear_solver="cg")
+    cards = sorted(set(_shard_devices(shards)))
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    rate, t_hi, info, reductions, mesh = _dist_rate(shards, arrs, config, 3,
+                                                    12)
+    peak_gb = {d: torch.cuda.max_memory_allocated(d) / 1e9 for d in cards}
+    cost0, cost = float(info["initial_cost"]), float(info["cost"])
+    rmse = rmse_from_cost(cost, arrs.n_blocks)
+
+    # one sharded CG solve with no host read: its inputs placed first
+    t0 = time.perf_counter()
+    prob = TagShardedProblem(mesh, arrs.cap_idx, arrs.tag_idx, arrs.corners,
+                             arrs.block_mask, arrs.tag_poses.shape[0],
+                             dtype=torch.float32)
+    prep_s = time.perf_counter() - t0
+    make_group, make_lin, _, make_solve = make_tag_sharded_hooks(
+        mesh, prob.t_per, arrs.cap_poses.shape[0], 0.0635,
+        obs_per_tag=prob.obs_per_tag, obs_per_cap=prob.obs_per_cap,
+        linear_solver="cg", cg_tol=config.cg_tolerance,
+        cg_iters=config.cg_max_iterations, row_slots=prob.row_slots,
+        shard_rows=prob.shard_rows, shard_cap_rows=prob.shard_cap_rows)
+    grouped = make_group(prob.cap_idx, prob.tag_idx, prob.corners,
+                         prob.block_mask(arrs.block_mask))
+    tag_act = prob.put_tag_mask(arrs.tag_mask)
+    cam, caps, cap_act = prob.put_rep(arrs.camera, arrs.cap_poses,
+                                      arrs.cap_mask)
+    eqs, _ = make_lin(grouped, tag_act)(cam, caps, prob.put_tags(
+        arrs.tag_poses))
+    solve_fn = make_solve(True, cap_act, tag_act, grouped)
+    lam = torch.full((), config.initial_lambda, device=mesh.home)
+    x0 = torch.zeros(3 + 6 * arrs.cap_poses.shape[0], device=mesh.home)
+    for d in cards:
+        torch.cuda.synchronize(d)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sol = solve_fn(eqs, lam, x0)
+    except RuntimeError as e:
+        traceback.print_exc()
+        fail(f"mesh_cg_10k: the sharded CG solve synchronised the card: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sol_finite = all(bool(torch.isfinite(x).all())
+                     for x in (sol[0], sol[1], *sol[2], sol[3]))
+    emit("mesh_cg_10k", tags=arrs.n_tags, captures=arrs.n_caps,
+         blocks=arrs.n_blocks, shards=shards,
+         devices=[str(d) for d in mesh.devices], dtype="float32",
+         shard_rows=prob.shard_rows, shard_cap_rows=prob.shard_cap_rows,
+         initial_cost=cost0, final_cost=cost, final_rmse_px=rmse,
+         single_device_rmse_px=single_rmse,
+         rmse_diff_px=abs(rmse - single_rmse),
+         tolerance_px=MESH_CG_RMSE_TOL_PX, iterations=info["iterations"],
+         reductions_12=reductions, lm_iterations_per_s=rate,
+         seconds_12=t_hi, peak_memory_gb=peak_gb, host_prep_s=prep_s,
+         sync_debug_cg_solve="no synchronising call",
+         sync_debug_solution_finite=sol_finite)
+    if not (np.isfinite(cost) and cost < cost0 and sol_finite
+            and abs(rmse - single_rmse) <= MESH_CG_RMSE_TOL_PX):
+        fail(f"mesh_cg_10k at {shards} shards: cost {cost0} -> {cost}, rmse "
+             f"{rmse} against {single_rmse}, CG solution finite: "
+             f"{sol_finite}")
+
+
+def phase_mesh_map_room16(store16, dense_rmse: float, truth) -> None:
+    """room-16's detections mapped again with the tags sharded over two
+    shards of the card."""
+    from ar_slam_tpu_torch.config import ArSlamConfig
+    from ar_slam_tpu_torch.parallel import block_mesh
+    from ar_slam_tpu_torch.solve.batch import solve
+
+    store = _store_from(store16, store16.captures)
+    mesh = block_mesh(devices=_shard_devices(2))
+    t0 = time.perf_counter()
+    summary = solve(store, ArSlamConfig(), mesh=mesh)
+    seconds = time.perf_counter() - t0
+    rmse = summary.get("rmse", float("nan"))
+    n_req = check_tags("mesh_map_room16", _ids_in(store), truth["frames"],
+                       [c.uid for c in store.captures], 40.0)
+    tags = sorted(a.id for a in store.arucos)
+    emit("mesh_map_room16", shards=2,
+         devices=[str(d) for d in mesh.devices], waves=summary.get("waves"),
+         rmse_px=rmse, dense_rmse_px=dense_rmse,
+         rmse_diff_px=abs(rmse - dense_rmse), tolerance_px=MESH_RMSE_TOL_PX,
+         tags_in_map=len(tags), tags_required=n_req,
+         reductions=mesh.reductions, focal=float(store.camera.params[0]),
+         solve_seconds=seconds)
+    if not (abs(rmse - dense_rmse) <= MESH_RMSE_TOL_PX
+            and summary.get("waves") == len(store16.captures)
+            and tags == sorted(a.id for a in store16.arucos)):
+        fail(f"mesh_map_room16: rmse {rmse} px against {dense_rmse}, "
+             f"{summary.get('waves')} waves, {len(tags)} tags")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_multihost_1() -> None:
+    """``arslam-torch map`` of phone_12mp's saved map (8 captures: room-16's
+    takes 3x as long to solve) with --multihost, one NCCL process (two and
+    four where there are as many cards, one card and one shard each),
+    against the in-process solve of the same map with the command's
+    default config."""
+    import torch
+
+    from ar_slam_tpu_torch.config import ArSlamConfig
+    from ar_slam_tpu_torch.graph.store import MapStore
+    from ar_slam_tpu_torch.graph.yamlio import load_yaml
+    from ar_slam_tpu_torch.solve.batch import solve
+
+    src = os.path.join(OUT_DIR, "phone_map.yaml")
+    store = MapStore()
+    load_yaml(store, src)
+    ref = solve(store, ArSlamConfig(), device=DEVICE)["rmse"]
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    runs = {}
+    count = torch.cuda.device_count()
+    for world in [w for w in (1, 2, 4) if w <= count]:
+        port = _free_port()
+        out = os.path.join(OUT_DIR, f"multihost_{world}.yaml")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "ar_slam_tpu_torch.cli", "map", src, "-o",
+             out, "--multihost", f"127.0.0.1:{port},{world},{rank}"],
+            cwd=REPO, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for rank in range(world)]
+        try:
+            res = [p.communicate(timeout=MULTIHOST_TIMEOUT_S) for p in procs]
+        except subprocess.TimeoutExpired:
+            fail(f"multihost_{world}: no answer in {MULTIHOST_TIMEOUT_S} s")
+        finally:
+            for p in procs:
+                p.kill()
+        seconds = time.perf_counter() - t0
+        for p, (o, e) in zip(procs, res):
+            if p.returncode != 0:
+                fail(f"multihost_{world}: exit {p.returncode}\n{o}\n{e}")
+        printed = res[0][0]
+        rmse = float(printed.split("rmse ")[1].split(" px")[0])
+        costs = sorted({ln.split("cost=")[1].split()[0] for _, e in res
+                        for ln in e.splitlines() if "solve done: cost=" in ln})
+        runs[world] = dict(rmse_px=rmse, costs=costs, seconds=seconds,
+                           backend="nccl")
+        if not (abs(rmse - ref) <= MESH_RMSE_TOL_PX and len(costs) == 1):
+            fail(f"multihost_{world}: rmse {rmse} against {ref}, costs "
+                 f"{costs}")
+    emit("multihost", in_process_rmse_px=ref, tolerance_px=MESH_RMSE_TOL_PX,
+         cards=torch.cuda.device_count(), processes=runs)
+
+
 def _device_ms(fn, names) -> dict:
     """Device ms, by torch.profiler, of the kernels whose names hold each
     of ``names`` over one run of fn."""
@@ -1404,11 +1741,18 @@ def main() -> int:
                 "phone_12mp": phase_phone_12mp(frames12, truth12, tag_m)}
     phase_serve_12mp(frames12, truth12, tag_m)
     grouped_rate = timed("solver", phase_solver)
-    cg_10k = timed("solver_cg_10k", phase_solver_cg_10k)
+    cg_10k, (arrs10k, rmse10k) = timed("solver_cg_10k", phase_solver_cg_10k)
     timed("solver_cg_vs_dense_2000", phase_solver_cg_vs_dense_2000)
     timed("solver_flat_500", phase_solver_flat_500, grouped_rate)
     timed("map_cg_room16", phase_map_cg_room16, store16, rmse16, truth16)
     timed("progress", phase_progress, store16)
+    mesh_launches = timed("mesh_detect", phase_mesh_detect, frames16,
+                          frames12)
+    timed("mesh_solver_500", phase_mesh_solver_500, grouped_rate)
+    timed("mesh_cg_10k", phase_mesh_cg_10k, arrs10k, rmse10k)
+    del arrs10k
+    timed("mesh_map_room16", phase_mesh_map_room16, store16, rmse16, truth16)
+    timed("multihost_1", phase_multihost_1)
     if args.profile:
         phase_profile(frames16, frames12, tag_m)
     phase_kernel_profiles(jobs)
@@ -1416,6 +1760,8 @@ def main() -> int:
     del cg_10k
     for row in rows:
         row["launches"] = launches[row["cell"]][COUNTERS[row["name"]]]
+        row["mesh_detect_launches"] = mesh_launches[row["cell"]][
+            COUNTERS[row["name"]]]
     # K3's wrapper enqueues 1 + 2 x iters kernels a call and reads no flag
     for row in rows:
         if COUNTERS[row["name"]] == "ccl_strip":

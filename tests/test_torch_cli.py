@@ -68,3 +68,40 @@ def test_cli_localize_on_pngs(tmp_path, capsys):
     store = MapStore()
     load_yaml(store, out)
     assert [c.uid for c in store.captures] == [f"img{k}" for k in range(5)]
+
+
+def test_cli_detect_devices_splits_the_batch(tmp_path, capsys):
+    """``detect --devices 3`` on four images (three CPU shards, one of
+    them padding) prints what the unsplit batch prints."""
+    from PIL import Image
+
+    from ar_slam_tpu_torch.cli import main
+
+    frames, _ = room_scene(n_frames=4, width=640, height=480, focal=565.0)
+    paths = []
+    for k in range(4):
+        p = str(tmp_path / f"img{k}.png")
+        Image.fromarray(frames[k]).save(p)
+        paths.append(p)
+    assert main(["detect", *paths, "--device", "cpu"]) == 0
+    plain = capsys.readouterr().out
+    assert main(["detect", *paths, "--device", "cpu", "--devices", "3"]) == 0
+    assert capsys.readouterr().out == plain
+    assert len(plain.splitlines()) == 4
+
+
+def test_cli_accepts_the_mesh_flags():
+    """map, localize, detect and serve take --devices, --multihost,
+    --platform and --cpu-detector; gen, audit and scene exist."""
+    from ar_slam_tpu_torch.cli import build_parser
+
+    p = build_parser()
+    flags = ["--devices", "2", "--multihost", "127.0.0.1:1234,2,0",
+             "--platform", "cpu", "--cpu-detector"]
+    for argv in (["map", "a.png"], ["localize", "m.yaml", "a.png"],
+                 ["detect", "a.png"], ["serve"]):
+        args = p.parse_args(argv + flags)
+        assert (args.devices, args.multihost, args.platform,
+                args.cpu_detector) == (2, "127.0.0.1:1234,2,0", "cpu", True)
+    for argv in (["gen"], ["audit", "m.yaml"], ["scene", "m.yaml"]):
+        assert p.parse_args(argv).fn.__name__ == f"cmd_{argv[0]}"

@@ -278,3 +278,67 @@ def test_cg_solve_no_sync_matches_cpu(dev, tol, iters):
         assert torch.equal(a.cpu(), b)
     for a, b in zip(sol_d, sol_c):
         assert ((a.cpu() - b).abs().max() / b.abs().max()).item() <= 1e-8
+
+
+@pytest.mark.parametrize("tol,iters", [(0.3, 25), (1e-10, 100)])
+def test_sharded_cg_solve_no_sync_matches_cpu(dev, tol, iters):
+    """The tag-sharded CG solve over two shards of one card (its packed
+    reductions included) reads nothing back to the host, and equals the
+    same solve over two CPU shards in float64 within 1e-8 relative."""
+    from ar_slam_tpu_torch.parallel import (TagShardedProblem, block_mesh,
+                                            make_tag_sharded_hooks)
+    from torch_cases import synthetic_arrays
+
+    a = synthetic_arrays(seed=4)
+    cap_act = a.cap_mask.copy()
+    cap_act[0] = False
+    out = {}
+    for d in ("cpu", dev):
+        mesh = block_mesh(devices=[d] * 2)
+        prob = TagShardedProblem(mesh, a.cap_idx, a.tag_idx, a.corners,
+                                 a.block_mask, a.tag_poses.shape[0],
+                                 dtype=torch.float64)
+        make_group, make_lin, _, make_solve = make_tag_sharded_hooks(
+            mesh, prob.t_per, a.cap_poses.shape[0], 0.0635,
+            obs_per_tag=prob.obs_per_tag, obs_per_cap=prob.obs_per_cap,
+            linear_solver="cg", cg_tol=tol, cg_iters=iters,
+            row_slots=prob.row_slots, shard_rows=prob.shard_rows,
+            shard_cap_rows=prob.shard_cap_rows)
+        grouped = make_group(prob.cap_idx, prob.tag_idx, prob.corners,
+                             prob.block_mask(a.block_mask))
+        tag_act = prob.put_tag_mask(a.tag_mask)
+        cam, caps, cap_a = prob.put_rep(a.camera, a.cap_poses, cap_act)
+        eqs, _ = make_lin(grouped, tag_act)(cam, caps,
+                                            prob.put_tags(a.tag_poses))
+        solve_fn = make_solve(True, cap_a, tag_act, grouped)
+        lam = torch.full((), 1e-4, dtype=torch.float64, device=mesh.home)
+        x0 = torch.zeros(3 + 6 * a.cap_poses.shape[0], dtype=torch.float64,
+                         device=mesh.home)
+        if d == dev:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            before = mesh.reductions
+            d_cam, d_cap, d_tag, delta_r = solve_fn(eqs, lam, x0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert mesh.reductions - before == iters + 2
+        out[str(d)] = [d_cam, d_cap, torch.cat(list(d_tag)), delta_r]
+    for got, ref in zip(out[str(dev)], out["cpu"]):
+        assert ((got.cpu() - ref).abs().max() / ref.abs().max()).item() <= 1e-8
+
+
+def test_sharded_detection_equals_unsharded(dev):
+    """Five rendered frames over three shards of one card (the last one
+    padding): every output equal to the unsharded batch's."""
+    from ar_slam_tpu_torch.detect.detect import detect_batch
+    from ar_slam_tpu_torch.parallel.detect import (detect_batch_sharded,
+                                                   image_mesh)
+    from ar_slam_tpu_torch.utils.render import room_scene
+
+    frames, _ = room_scene(n_frames=5, width=640, height=480, focal=565.0)
+    got = detect_batch_sharded(frames, mesh=image_mesh(devices=[dev] * 3))
+    ref = detect_batch(frames, device=dev)
+    for name in ref:
+        for key in ref[name]:
+            assert torch.equal(got[name][key], ref[name][key])

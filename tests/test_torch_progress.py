@@ -77,8 +77,10 @@ def test_host_stepped_progress_matches(capsys, caplog):
 
 def test_cli_map_iterative_schur_progress(tmp_path, capsys):
     """``map --iterative-schur --progress`` re-solves a saved map with CG,
-    printing the per-iteration lines; --cpu-detector and --devices 2 stay
-    refused."""
+    printing the per-iteration lines; with --devices 2 the same re-solve
+    runs tag-sharded over two CPU shards (no progress lines: progress is
+    single-device only, as in the reference); a --platform that
+    contradicts --device is refused."""
     from ar_slam_tpu_torch.cli import main
     from ar_slam_tpu_torch.graph.yamlio import save_yaml
     from ar_slam_tpu_torch.utils.synthetic import make_synthetic_map as tmap
@@ -93,6 +95,12 @@ def test_cli_map_iterative_schur_progress(tmp_path, capsys):
     assert printed.count("iter      cost") == 3  # one header per wave
     assert "terminating: " in printed
     assert float(printed.split("rmse ")[1].split(" px")[0]) < 1.0
-    for flags in (["--cpu-detector"], ["--devices", "2"]):
-        with pytest.raises(SystemExit, match="not ported"):
-            main(["map", src, "-o", out, "--device", "cpu", *flags])
+    assert main(["map", src, "-o", out, "--device", "cpu",
+                 "--iterative-schur", "--progress", "--cpu-detector",
+                 "--devices", "2", "--platform", "cpu"]) == 0
+    printed = capsys.readouterr().out
+    assert "iter      cost" not in printed
+    assert "solved 3 captures" in printed
+    assert float(printed.split("rmse ")[1].split(" px")[0]) < 1.0
+    with pytest.raises(SystemExit, match="contradicts"):
+        main(["map", src, "-o", out, "--device", "cpu", "--platform", "gpu"])

@@ -86,6 +86,12 @@ PORT_MODULES = [
     "ar_slam_tpu_torch.pipeline.ingest", "ar_slam_tpu_torch.pipeline.merge",
     "ar_slam_tpu_torch.pipeline.messages",
     "ar_slam_tpu_torch.pipeline.service", "ar_slam_tpu_torch.pipeline.stream",
+    "ar_slam_tpu_torch.parallel", "ar_slam_tpu_torch.parallel.detect",
+    "ar_slam_tpu_torch.parallel.dist_lm", "ar_slam_tpu_torch.parallel.mesh",
+    "ar_slam_tpu_torch.parallel.multihost",
+    "ar_slam_tpu_torch.parallel.partition",
+    "ar_slam_tpu_torch.detect.gen", "ar_slam_tpu_torch.detect.reference",
+    "ar_slam_tpu_torch.utils.audit", "ar_slam_tpu_torch.viz.scene",
     "ar_slam_tpu_torch.solve.batch",
     "ar_slam_tpu_torch.solve.localize", "ar_slam_tpu_torch.solve.lm",
     "ar_slam_tpu_torch.solve.residuals",
@@ -120,7 +126,8 @@ COPIES = ["config.py", "graph/store.py", "graph/arrays.py", "graph/native.py",
           "pipeline/merge.py", "pipeline/messages.py", "pipeline/stream.py",
           "pipeline/service.py", "viz/export.py",
           "utils/synthetic.py", "utils/ate.py", "core/calib.py",
-          "detect/dictionaries.py"]
+          "detect/dictionaries.py", "parallel/partition.py",
+          "viz/scene.py", "detect/gen.py", "detect/reference.py"]
 
 
 def _source(pkg, rel):
