@@ -184,15 +184,10 @@ def cmd_gen(args) -> int:
 def cmd_detect(args) -> int:
     mesh = None
     if args.devices and args.devices > 1:
-        import torch
-
         from ar_slam_tpu_torch.parallel.detect import image_mesh
 
-        device = _device(args)
-        if device and torch.device(device).type != "cuda":
-            mesh = image_mesh(devices=[device] * args.devices)
-        else:
-            mesh = image_mesh(args.devices)
+        # under --multihost the shards span the processes
+        mesh = image_mesh(args.devices, device=_device(args) or "cuda")
     engine = _engine(args, detect_mesh=mesh)
     for uid, dets, size, _path in engine.detect_images(args.inputs):
         print(json.dumps({

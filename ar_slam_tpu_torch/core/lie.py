@@ -99,6 +99,11 @@ def compose_axis_angle(rot1, rot2):
     return quaternion_to_axis_angle(quaternion_product(q1, q2))
 
 
+def invert_axis_angle(aa):
+    """The inverse rotation: the negated axis-angle."""
+    return -aa
+
+
 def axis_angle_to_matrix(aa):
     """(..., 3) axis-angle -> (..., 3, 3) rotation matrix."""
     eye = torch.eye(3, dtype=aa.dtype, device=aa.device)

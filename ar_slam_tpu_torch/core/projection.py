@@ -19,7 +19,12 @@ ARUCO_DIRECTIONS = ((-1.0, -1.0), (1.0, -1.0), (1.0, 1.0), (-1.0, 1.0))
 
 
 def aruco_directions(dtype=torch.float64, device=None) -> torch.Tensor:
-    return torch.tensor(ARUCO_DIRECTIONS, dtype=dtype, device=device)
+    """(4, 2) ``ARUCO_DIRECTIONS`` made by fills on ``device``: no copy
+    from the host, so the solver's CUDA graphs can capture it."""
+    d = torch.full((4, 2), -1.0, dtype=dtype, device=device)
+    d[1:3, 0].fill_(1.0)
+    d[2:4, 1].fill_(1.0)
+    return d
 
 
 def tag_corners_local(aruco_size, dtype=torch.float32, device=None):
@@ -60,3 +65,14 @@ def block_residual(camera, inv_cap_pose, tag_pose, observed, aruco_size,
     projected = project_corners(camera, inv_cap_pose, tag_pose, aruco_size,
                                 distortion)
     return (projected - observed).reshape(projected.shape[:-2] + (8,))
+
+
+def reprojection_residuals(camera, inv_cap_poses, tag_poses, blocks,
+                           aruco_size):
+    """(B, 8) residuals over a padded block table: ``blocks`` holds
+    ``cap_idx`` (B,), ``tag_idx`` (B,), ``corners`` (B, 4, 2) and ``mask``
+    (B,) bool; rows with mask False are zeroed."""
+    r = block_residual(camera, inv_cap_poses[blocks["cap_idx"]],
+                       tag_poses[blocks["tag_idx"]], blocks["corners"],
+                       aruco_size)
+    return r * blocks["mask"][:, None].to(r.dtype)

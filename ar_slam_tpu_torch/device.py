@@ -4,7 +4,9 @@ Full float32 everywhere on the card: TF32 is switched off for matmuls and
 convolutions at import, because pixel-coordinate products and damped-then-
 inverted Gram blocks need the full mantissa (the reference learned this on
 the TPU's bf16 default, CLAUDE.md "numeric traps").  The working dtype is
-float32 on the card; the CPU parity tests pass float64 explicitly.
+float32 on the card; the CPU parity tests pass float64 explicitly.  Linear
+algebra goes to cuSOLVER and cuBLAS, never MAGMA (solve/graphs.py
+captures it).
 """
 
 from __future__ import annotations
@@ -13,6 +15,11 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+if torch.backends.cuda.is_built():
+    # cuSOLVER / cuBLAS for every linear-algebra call: the default picks
+    # MAGMA for some batched ones (the 6x6 LU inverses and solves), whose
+    # queue synchronises the stream, which a CUDA graph cannot capture
+    torch.backends.cuda.preferred_linalg_library("cusolver")
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 

@@ -3,9 +3,12 @@ ar_slam_tpu/parallel/detect.py).
 
 The whole detector is one batched device program (detect/detect.py), so
 the scaling axis is the IMAGE axis: the batch splits over the mesh's
-devices and each runs the unchanged ``detect_batch`` (K1-K4 at its
-shard's local shapes) on its slice.  Detection is embarrassingly
-data-parallel: no reduction, no process group.
+shards and each runs the unchanged ``detect_batch`` (K1-K4 at its
+shard's local shapes) on its contiguous slice.  Under a process group
+(``--multihost``) the mesh spans every process's shards, as the
+reference's image mesh spans every process's devices: each process
+detects its own shards' slices, and one all-gather gives every process
+the whole batch's detections.
 """
 
 from __future__ import annotations
@@ -13,23 +16,36 @@ from __future__ import annotations
 import torch
 
 from ar_slam_tpu_torch.detect.detect import DetectParams, detect_batch
-from ar_slam_tpu_torch.parallel.mesh import Mesh
+from ar_slam_tpu_torch.parallel.mesh import Mesh, block_mesh, device_mesh
 
 IMAGE_AXIS = "images"
 
 
-def image_mesh(n_devices: int | None = None, *, devices=None) -> Mesh:
-    """1-D mesh over the image (batch) axis: ``devices`` (repeats allowed)
-    or the first ``n_devices`` CUDA cards (default: all); more cards than
-    there are raise."""
-    if devices is None:
-        count = torch.cuda.device_count()
-        n = count if n_devices is None else n_devices
-        if not 0 < n <= count:
-            raise ValueError(f"an image mesh of {n} devices: "
-                             f"torch.cuda.device_count() is {count}")
-        devices = [torch.device("cuda", i) for i in range(n)]
-    return Mesh(devices, axis_name=IMAGE_AXIS)
+def image_mesh(n_devices: int | None = None, *, devices=None,
+               device="cuda") -> Mesh:
+    """1-D mesh over the image (batch) axis, placed as ``block_mesh``
+    places its shards: ``devices`` (this process's, repeats allowed), or
+    ``n_devices`` global shards on ``device``'s kind: CUDA cards (default:
+    all; more than there are build the mesh of them all, as the
+    reference's ``devices[:n]`` does), or the one CPU repeated, ``n /
+    world`` shards a process.  Under a process group the mesh spans every
+    process."""
+    if devices is None and torch.device(device).type != "cuda":
+        mesh = device_mesh(n_devices or 1, device)
+    else:
+        mesh = block_mesh(n_devices, devices=devices)
+    mesh.axis_name = IMAGE_AXIS
+    return mesh
+
+
+def _all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The processes' ``x`` (equal shapes) concatenated in rank order."""
+    import torch.distributed as dist
+
+    wire = x.to(torch.uint8) if x.dtype == torch.bool else x
+    parts = [torch.empty_like(wire) for _ in range(mesh.world)]
+    dist.all_gather(parts, wire.contiguous(), group=mesh.group)
+    return torch.cat(parts).to(x.dtype)
 
 
 def detect_batch_sharded(images, *, mesh: Mesh,
@@ -39,32 +55,37 @@ def detect_batch_sharded(images, *, mesh: Mesh,
     """detect_batch with the image axis split over ``mesh``.
 
     Args:
-      images: (N, H, W) grayscale, numpy or torch.  N is padded up to a
-        multiple of the shard count with zero images (their detections
-        are all invalid), and the padding is stripped from every output.
+      images: (N, H, W) grayscale, numpy or torch, the whole batch (every
+        process of a process group passes the same).  N is padded up to a
+        multiple of the global shard count with zero images (their
+        detections are all invalid), and the padding is stripped from
+        every output.
       gather: concatenate the shards' outputs on the mesh's first device
-        (the same dict as detect_batch, leading axis N); False keeps them
-        per shard, on each shard's device: a list of dicts whose leading
-        axes sum to N.
+        (the same dict as detect_batch, leading axis N), over every
+        process of a process group; False keeps this process's shards'
+        outputs, on each shard's device: a list of dicts, leading axes
+        each shard's share of the N images.
     """
     frames = torch.as_tensor(images)
     n = frames.shape[0]
-    k = mesh.n_local
-    per = -(-n // k)
-    pad = per * k - n
+    per = -(-n // mesh.n_shards)
+    pad = per * mesh.n_shards - n
     if pad:
         frames = torch.cat([frames, frames.new_zeros((pad,)
                                                      + frames.shape[1:])])
-    outs = []
-    for i, dev in enumerate(mesh.devices):
-        out = detect_batch(frames[i * per:(i + 1) * per], params=params,
-                           dict_names=dict_names, device=dev)
-        keep = min(per, max(n - i * per, 0))
-        outs.append({name: {key: v[:keep] for key, v in d.items()}
-                     for name, d in out.items()})
+    outs = [detect_batch(frames[g * per:(g + 1) * per], params=params,
+                         dict_names=dict_names, device=dev)
+            for g, dev in zip(mesh.shard_ids(), mesh.devices)]
     if not gather:
-        return outs
-    return {name: {key: torch.cat([o[name][key].to(mesh.home)
-                                   for o in outs])
-                   for key in outs[0][name]}
-            for name in dict_names}
+        keep = [min(per, max(n - g * per, 0)) for g in mesh.shard_ids()]
+        return [{name: {key: v[:k] for key, v in d.items()}
+                 for name, d in out.items()} for out, k in zip(outs, keep)]
+    out = {}
+    for name in dict_names:
+        out[name] = {}
+        for key in outs[0][name]:
+            x = torch.cat([o[name][key].to(mesh.home) for o in outs])
+            if mesh.world > 1:
+                x = _all_gather(x, mesh)
+            out[name][key] = x[:n]
+    return out

@@ -100,15 +100,16 @@ def block_mesh(n_devices: int | None = None, *, devices=None) -> Mesh:
     Otherwise ``n_devices`` global shards go on CUDA devices: with one
     process the first ``n_devices`` cards, with a process group
     ``n_devices / world`` cards a process, each process taking its own
-    consecutive cards.  Asking for more cards than there are raises (the
-    JAX package shrinks the mesh instead).  Default: every card, or with a
-    process group each process's share of its host's cards."""
+    consecutive cards.  Asking for more cards than there are builds the
+    mesh of them all, as the reference's ``devices[:n]`` does.  Default:
+    every card, or with a process group each process's share of its
+    host's cards."""
     group = _group()
     if devices is not None:
         return Mesh(devices, group=group)
     world = 1 if group is None else group.size()
     lr, per_process = local_shards(group)
-    if n_devices is None:
+    if n_devices is None or n_devices > per_process * world:
         n_devices = per_process * world
     if n_devices % world:
         raise ValueError(f"{n_devices} shards do not divide over {world} "

@@ -17,7 +17,13 @@ optimizing wave per attachment, until none is left that can be.
 With ``linear_solver="cg"`` every LM runs the implicit-Schur CG on the
 row-split slot packing, its row budgets sized from the whole store.  With
 ``minimizer_progress_to_stdout`` the joint LM of each flush runs one
-iteration per call and prints a ceres-style line per iteration.
+iteration per call, eagerly, and prints a ceres-style line per iteration.
+
+On a CUDA device every single-device LM (the waves, the warmups, the
+polish) replays CUDA graphs (solve/graphs.py), one capture serving every
+LM of a runner; ``graphs=False`` runs the eager loop, bit for bit the
+same.  A flush uploads its seed tables in one copy (``pack_waves``) and
+its activity masks in another (``_WaveRunner._masks``).
 
 With a ``mesh`` (or ``config.dist.num_devices > 1``) the tags are sharded
 over it and every LM runs the tag-sharded distributed solve
@@ -67,33 +73,50 @@ def seed_tags(camera, cap_pose, tag_poses, corners, rows, tags, aruco_size,
                                  mode=seed_mode)
 
 
+def pack_waves(waves, device) -> list:
+    """A flush's seed tables uploaded in one copy (≙ the (W, S) slot
+    tables of the reference's ``apply_wave_seeds_multi``): per wave
+    (seed_cap, seed_row, tag rows, tags, anchor rows), the three row lists
+    as int64 views on ``device`` cut to their lengths on the host."""
+    lists = [list(w[k]) for w in waves for k in (2, 3, 4)]
+    flat = torch.as_tensor(np.fromiter((x for ls in lists for x in ls),
+                                       dtype=np.int64), device=device)
+    out, at = [], 0
+    for i, (seed_cap, seed_row, *_) in enumerate(waves):
+        views = []
+        for ls in lists[3 * i:3 * i + 3]:
+            views.append(flat[at:at + len(ls)])
+            at += len(ls)
+        out.append((seed_cap, seed_row, *views))
+    return out
+
+
 def apply_wave_seeds(camera, cap_poses, tag_poses, tag_idx, corners, wave,
                      aruco_size, seed_mode):
-    """Seed one wave in place on one block table.  ``wave`` is (seed_cap,
-    seed_row, tag_rows, tags, anchor_rows): with seed_row >= 0 the capture
-    is seeded from its anchors (block rows of already-initialized tags),
-    then each tag first seen in the wave is initialized through the
-    wave's capture from its block row."""
-    seed_cap, seed_row, rows, tags, anchors = wave
-    if seed_row >= 0 and anchors:
-        anc = torch.as_tensor(anchors, dtype=torch.int64,
-                              device=corners.device)
-        seed_capture(camera, cap_poses, seed_cap, corners[anc],
-                     tag_poses[tag_idx[anc]], aruco_size, seed_mode)
-    if rows:
-        seed_tags(camera, cap_poses[seed_cap], tag_poses, corners, rows,
-                  tags, aruco_size, seed_mode)
+    """Seed one wave: ``apply_wave_seeds_multi`` of ``[wave]``.  Returns
+    new (cap_poses, tag_poses)."""
+    return apply_wave_seeds_multi(camera, cap_poses, tag_poses, tag_idx,
+                                  corners, [wave], aruco_size, seed_mode)
 
 
 def apply_wave_seeds_multi(camera, cap_poses, tag_poses, tag_idx, corners,
                            waves, aruco_size, seed_mode):
-    """Seed a sequence of waves in order (``apply_wave_seeds`` each).
-    Returns new (cap_poses, tag_poses)."""
+    """Seed a sequence of waves in order, from one upload of their tables
+    (``pack_waves``).  A wave is (seed_cap, seed_row, tag_rows, tags,
+    anchor_rows): with seed_row >= 0 the capture is seeded from its
+    anchors (block rows of already-initialized tags), then each tag first
+    seen in the wave is initialized through the wave's capture from its
+    block row.  Returns new (cap_poses, tag_poses)."""
     cap_poses = cap_poses.clone()
     tag_poses = tag_poses.clone()
-    for wave in waves:
-        apply_wave_seeds(camera, cap_poses, tag_poses, tag_idx, corners,
-                         wave, aruco_size, seed_mode)
+    for seed_cap, seed_row, rows, tags, anc in pack_waves(waves,
+                                                          corners.device):
+        if seed_row >= 0 and anc.shape[0]:
+            seed_capture(camera, cap_poses, seed_cap, corners[anc],
+                         tag_poses[tag_idx[anc]], aruco_size, seed_mode)
+        if rows.shape[0]:
+            seed_tags(camera, cap_poses[seed_cap], tag_poses, corners, rows,
+                      tags, aruco_size, seed_mode)
     return cap_poses, tag_poses
 
 
@@ -139,8 +162,10 @@ class _WaveRunner:
     """Device-resident pose state across the waves of one padded export."""
 
     def __init__(self, store: MapStore, solver_cfg, aruco_size, dtype,
-                 device, camera_cfg=None, assemble_fn=None, mesh=None):
+                 device, camera_cfg=None, assemble_fn=None, mesh=None,
+                 graphs=True):
         self.store = store
+        self.graphs = graphs
         self.aruco_size = aruco_size
         self.device = device
         self.assemble_fn = assemble_fn
@@ -204,8 +229,19 @@ class _WaveRunner:
     def _mask(self, a) -> torch.Tensor:
         return torch.as_tensor(np.array(a, dtype=bool), device=self.device)
 
+    def _masks(self, *arrays) -> list:
+        """Host bool arrays on the device in one upload (views of one
+        buffer).  The first is the camera's flag pair (True, False)."""
+        arrays = [np.array([True, False])] + [np.asarray(a, dtype=bool)
+                                              for a in arrays]
+        flat = torch.as_tensor(np.concatenate(arrays), device=self.device)
+        return list(torch.split(flat, [a.size for a in arrays]))
+
     def _lm(self, cam_active, cap_active, tag_active, enabled, budget,
-            lam0=None, nu0=None):
+            block_mask=None, lam0=None, nu0=None, graphs=None):
+        """One LM over the active sets: numpy masks on the mesh path, else
+        device masks (``block_mask`` the active blocks' one, ``cam_active``
+        a bool tensor) from one ``_masks`` upload a flush."""
         if self._dist is not None:
             prob = self._prob
             cam_a, cap_a = prob.put_rep(np.asarray(cam_active), cap_active)
@@ -218,14 +254,13 @@ class _WaveRunner:
             return info
         (self.camera, self.cap_poses, self.tag_poses, info) = lm_solve(
             self.camera, self.cap_poses, self.tag_poses, self.cap_idx,
-            self.tag_idx, self.corners, self._mask(self.active_blocks),
-            cam_active, self._mask(cap_active), self._mask(tag_active),
-            aruco_size=self.aruco_size, config=self.config,
+            self.tag_idx, self.corners, block_mask, cam_active, cap_active,
+            tag_active, aruco_size=self.aruco_size, config=self.config,
             assemble_fn=self.assemble_fn, enabled=enabled,
             iter_budget=budget, obs_per_tag=self.obs_per_tag,
             obs_per_cap=self.obs_per_cap, row_slots=self.row_slots,
             tag_rows=self.tag_rows, cap_rows=self.cap_rows, lam0=lam0,
-            nu0=nu0)
+            nu0=nu0, graphs=self.graphs if graphs is None else graphs)
         return info
 
     def polish(self, budget: int):
@@ -279,10 +314,17 @@ class _WaveRunner:
         if self._dist is not None:
             self.cap_poses, self.tag_poses = self._dist.seed_waves(
                 self.camera, self.cap_poses, self.tag_poses, waves)
+            cam_on, cam_off, blocks = True, False, None
+            caps, tags = cap_active, self.active_tags.copy()
+            warm_c, warm_t = warm_caps, warm_tags
         else:
             self.cap_poses, self.tag_poses = apply_wave_seeds_multi(
                 self.camera, self.cap_poses, self.tag_poses, self.tag_idx,
                 self.corners, waves, self.aruco_size, self.seed_mode)
+            (cam, blocks, caps, tags, warm_c,
+             warm_t) = self._masks(self.active_blocks, cap_active,
+                                   self.active_tags, warm_caps, warm_tags)
+            cam_on, cam_off = cam[0], cam[1]
         # register-then-refine: solve only the flush's new captures + tags
         # against the frozen established map first (skipped for a brand-new
         # map, where nothing established exists, for polish passes and
@@ -290,20 +332,22 @@ class _WaveRunner:
         if (lm_enabled and self.warmup and iter_budget is None
                 and warm_caps.any() and (cap_active & ~warm_caps).any()
                 and not self.progress):
-            self._lm(False, warm_caps, warm_tags, True, budget)
+            self._lm(cam_off, warm_c, warm_t, True, budget, blocks)
         if lm_enabled and self.progress:
-            self.last_info = self._lm_host_stepped(cap_active, budget)
+            self.last_info = self._lm_host_stepped(cam_on, caps, tags, blocks,
+                                                   budget)
             return self.last_info
-        info = self._lm(True, cap_active, self.active_tags.copy(),
-                        lm_enabled, budget)
+        info = self._lm(cam_on, caps, tags, lm_enabled, budget, blocks)
         self.last_info = info
         return info
 
-    def _lm_host_stepped(self, cap_active, budget: int):
+    def _lm_host_stepped(self, cam_active, cap_active, tag_active,
+                         block_mask, budget: int):
         """One LM iteration per call, printing ceres-style progress lines
         (≙ minimizer_progress_to_stdout, ar_slam_util.cpp:1012).  lam and
         nu carry over through lam0 / nu0, so the damping schedule is the
-        one-call solve's.  ``budget`` is the wave's iteration budget."""
+        one-call solve's.  ``budget`` is the wave's iteration budget.  The
+        reference's own host-stepped mode: eager, not graphed."""
         lam, nu = self.config.initial_lambda, 2.0
         prev_cost = None
         t_start = time.time()
@@ -312,8 +356,8 @@ class _WaveRunner:
         info = None
         for it in range(min(budget, self.config.max_iterations)):
             t0 = time.time()
-            info = self._lm(True, cap_active, self.active_tags.copy(), True,
-                            1, lam0=lam, nu0=nu)
+            info = self._lm(cam_active, cap_active, tag_active, True, 1,
+                            block_mask, lam0=lam, nu0=nu, graphs=False)
             cost = float(info["cost"])
             lam, nu = float(info["lambda"]), float(info["nu"])
             dcost = 0.0 if prev_cost is None else prev_cost - cost
@@ -363,11 +407,12 @@ class _WaveRunner:
                         int(self.last_info["iterations"]))
 
 
-def _resolve(config, dtype, device, mesh, assemble_fn):
+def _resolve(config, dtype, device, mesh):
     """(config, dtype, device, mesh) of a solve.  ``mesh`` wins; else
     ``config.dist.num_devices > 1`` builds a block mesh of that many
     shards on ``device``'s kind (repeated CPU shards, or CUDA cards); a
-    mesh's home device is the solve's device."""
+    mesh's home device is the solve's device.  The mesh path assembles
+    grouped and ignores an ``assemble_fn``, as the reference's does."""
     from ar_slam_tpu_torch.config import ArSlamConfig
 
     config = config or ArSlamConfig()
@@ -378,23 +423,21 @@ def _resolve(config, dtype, device, mesh, assemble_fn):
 
         mesh = device_mesh(n, resolve_device(device))
     if mesh is not None:
-        if assemble_fn is not None:
-            raise ValueError("assemble_fn overrides the single-device flat "
-                             "hooks; the mesh path assembles grouped")
         device = mesh.home
     return config, dtype, resolve_device(device), mesh
 
 
 def solve(store: MapStore, config=None, dtype=None, device=None,
-          assemble_fn=None, mesh=None) -> dict:
+          assemble_fn=None, mesh=None, graphs: bool = True) -> dict:
     """Batch BFS solve (≙ ArSlamSolver::solve) on ``device`` (default: the
     card when present) in ``dtype`` (default: config.solver.dtype).
     ``assemble_fn`` overrides the normal-equation assembly (the flat
-    hooks then run; see lm.lm_solve).  With ``mesh`` (or
-    config.dist.num_devices > 1) each LM runs tag-sharded over it.
-    Returns {"waves", "cost", "rmse"}."""
-    config, dtype, device, mesh = _resolve(config, dtype, device, mesh,
-                                           assemble_fn)
+    hooks then run; see lm.lm_solve; the mesh path ignores it).  With
+    ``mesh`` (or config.dist.num_devices > 1) each LM runs tag-sharded
+    over it.  On a CUDA device the single-device grouped LM replays CUDA graphs
+    (solve/graphs.py); ``graphs=False`` runs the eager loop instead, bit
+    for bit the same.  Returns {"waves", "cost", "rmse"}."""
+    config, dtype, device, mesh = _resolve(config, dtype, device, mesh)
     if not store.captures:
         return {"waves": 0}
     _maybe_calibrate_focal(store, config)
@@ -409,7 +452,8 @@ def solve(store: MapStore, config=None, dtype=None, device=None,
 
     runner = _WaveRunner(store, config.solver, config.aruco_size, dtype,
                          device, camera_cfg=config.camera,
-                         assemble_fn=assemble_fn, mesh=mesh)
+                         assemble_fn=assemble_fn, mesh=mesh,
+                         graphs=graphs)
     every = max(getattr(config.solver, "optimize_every", 1), 1)
     growth = float(getattr(config.solver, "optimize_growth", 0.0) or 0.0)
     geo_marks: set[int] = set()
@@ -435,22 +479,23 @@ def solve(store: MapStore, config=None, dtype=None, device=None,
 
 
 def solve_incremental(store: MapStore, config=None, dtype=None,
-                      device=None, assemble_fn=None, mesh=None) -> dict:
+                      device=None, assemble_fn=None, mesh=None,
+                      graphs: bool = True) -> dict:
     """Incremental solve (≙ ArSlamSolver::solveIncremental) on ``device``
-    in ``dtype`` with ``assemble_fn`` or ``mesh``, as ``solve``:
+    in ``dtype`` with ``assemble_fn``, ``mesh`` or ``graphs``, as ``solve``:
     repeatedly attach an unsolved capture that shares an initialized tag
     with the solved set; each attachment re-optimizes the whole active
     problem.  Returns {"waves", "unsolved"}, plus "cost" and "rmse" when a
     wave ran."""
-    config, dtype, device, mesh = _resolve(config, dtype, device, mesh,
-                                           assemble_fn)
+    config, dtype, device, mesh = _resolve(config, dtype, device, mesh)
     if not store.captures:
         return {"waves": 0}
     _maybe_calibrate_focal(store, config)
 
     runner = _WaveRunner(store, config.solver, config.aruco_size, dtype,
                          device, camera_cfg=config.camera,
-                         assemble_fn=assemble_fn, mesh=mesh)
+                         assemble_fn=assemble_fn, mesh=mesh,
+                         graphs=graphs)
     # the solved captures re-enter the active problem without an LM pass:
     # their poses came with the export
     for cap in store.captures:

@@ -1,0 +1,350 @@
+"""CUDA graphs of the solver's loops: capture, cache and replay.
+
+The port's counterpart of the JAX package's compiled solve programs: the
+wave's LM ``lax.while_loop`` with its ``lax.cond`` relinearization
+(ar_slam_tpu/solve/lm.py:378, :424) and localize's ``while_loop``
+(ar_slam_tpu/solve/localize.py:134).  PyTorch runs eagerly, so an LM
+iteration was some 980 small launches from Python; here it is at most two
+graph replays and one host read, with the results of the eager loop bit
+for bit (the same kernels on the same values, in the same order).
+
+A ``Program`` holds a loop's stage functions and one dict of the tensors
+they read and write.  Graphed, the stages are captured once, in their
+order, into one memory pool, after two warm-up rounds on the capture
+stream (cuBLAS and cuSOLVER set up their workspaces outside the capture);
+a replay then writes the same tensors in place, and the caller's inputs
+are copied into the program's own before each call.  Eagerly (the CPU
+tests' mode) each stage's outputs replace the dict's entries.
+
+- LM (``lm_solve_graphed``): stages ``setup`` (the regroup of the block
+  table, the first linearization, the gradient test, the initial state),
+  ``step`` (the damped solve, the proposal, its quality and the tests),
+  ``accept`` (relinearize at an accepted proposal, the gradient test, the
+  state update) and ``reject`` (the state update of any other step).  An
+  iteration replays ``step``, reads its three flags (converged before the
+  step, accept, converged_fp) in one copy to the host, and replays
+  ``accept`` or ``reject``: the eager loop's lazy relinearization.  A
+  step run after a convergence the flags then show is dropped, which
+  leaves the state as the eager loop leaves it.
+- localize (``localize_graphed``): the seeding stays eager; each
+  iteration replays ``iterate`` and reads one flag (any query active).
+
+The cache (``CACHE``) holds one captured program per kind (``"lm"``,
+``"localize"``) and device, as ``jax.jit`` caches its compiles: a
+solve's waves, its warmups and its polish share one capture, and
+``serve``'s per-batch solves reuse it while their bucketed shapes repeat.
+A call with another static signature (dtype, padded shapes, slot bounds,
+``LMConfig``, tag size) replaces the kind's program: the old graphs and
+tensors are freed into the kind's memory pool, which the new capture
+reuses, so a map that grows through its buckets holds one pool of about
+its largest signature's size, not one per bucket.  Capturing runs on the
+kind's own stream with ``capture_error_mode="thread_local"`` and no
+device-wide synchronisation, so the detect thread of ``serve`` may
+launch kernels meanwhile.  One thread solves at a time.  A capture or
+replay error raises; there is no eager fallback on the card.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from ar_slam_tpu_torch.solve.lm import (LMConfig, LMState, _grad_inf_norm,
+                                        grouped_solver, lm_accept, lm_init,
+                                        lm_reject, lm_step)
+from ar_slam_tpu_torch.solve.localize import localize_init, localize_iteration
+
+WARMUP_ROUNDS = 2
+
+
+class GraphCache:
+    """The captured programs, one per (kind, device), with counts:
+    captures, replays, and per capture the host milliseconds of each
+    warm-up round's stages and of the graphs' recording."""
+
+    def __init__(self):
+        self._programs: dict = {}
+        self._pools: dict = {}  # (kind, device) -> (MemPool, capture stream)
+        self.captures = 0
+        self.replays = 0
+        self.capture_ms: list = []  # per capture: {"warmup", "record"}
+
+    def get(self, kind: str, device, signature, make) -> "Program":
+        """The kind's program on ``device`` for ``signature``; another
+        signature's program is dropped first, into the kind's pool."""
+        key = (kind, str(device))
+        prog = self._programs.get(key)
+        if prog is None or prog.signature != signature:
+            self._programs.pop(key, None)
+            del prog
+            prog = self._programs[key] = make()
+            prog.key, prog.signature = key, signature
+        return prog
+
+    def pool(self, key, device) -> tuple:
+        """The (memory pool, capture stream) of a (kind, device)."""
+        if key not in self._pools:
+            with torch.cuda.device(device):
+                self._pools[key] = (torch.cuda.MemPool(),
+                                    torch.cuda.Stream(device))
+        return self._pools[key]
+
+    def stats(self) -> dict:
+        """The counts, the programs held and their pools' reserved bytes
+        (the allocator's segments of those pools)."""
+        ids = {tuple(p.id) for p, _ in self._pools.values()}
+        pool_bytes = sum(
+            s["total_size"] for s in torch.cuda.memory_snapshot()
+            if tuple(s.get("segment_pool_id", ())) in ids) if ids else 0
+        return {"captures": self.captures, "replays": self.replays,
+                "capture_ms": sum(sum(sum(r.values()) for r in c["warmup"])
+                                  + c["record"] for c in self.capture_ms),
+                "capture_split_ms": [dict(c) for c in self.capture_ms],
+                "programs": len(self._programs), "pool_bytes": pool_bytes}
+
+    def clear(self) -> None:
+        self._programs.clear()
+        self._pools.clear()
+        self.captures = self.replays = 0
+        self.capture_ms = []
+
+
+CACHE = GraphCache()
+
+
+def _write(t: dict, out: dict) -> None:
+    """Store stage outputs: in place into tensors ``t`` already holds (a
+    replayed graph writes the same memory), else as new entries."""
+    for k, v in out.items():
+        old = t.get(k)
+        if old is None:
+            t[k] = v
+        elif isinstance(old, torch.Tensor):
+            old.copy_(v)
+        else:  # a NamedTuple of tensors
+            for o, n in zip(old, v):
+                if o is not None:
+                    o.copy_(n)
+
+
+class Program:
+    """A loop's stages over one dict of tensors ``t``, run eagerly or as
+    CUDA graphs (``graphed``, held by ``CACHE``; see the module
+    docstring)."""
+
+    def __init__(self, stages: dict, graphed: bool):
+        self.stages = stages  # in capture order
+        self.graphed = graphed
+        self.key = self.signature = None
+        self.t: dict = {}
+        self.graphs: dict = {}
+
+    def load(self, **inputs) -> None:
+        """The call's inputs: copied into the program's own tensors when
+        graphed (captured at the first call), taken as they are eagerly."""
+        if not self.graphed:
+            self.t.update(inputs)
+            return
+        for k, v in inputs.items():
+            if k in self.t:
+                self.t[k].copy_(v)
+            else:
+                self.t[k] = v.clone(memory_format=torch.contiguous_format)
+        if not self.graphs:
+            self._capture()
+
+    def run(self, name: str) -> None:
+        if self.graphed:
+            self.graphs[name].replay()
+            CACHE.replays += 1
+        else:
+            self.t.update(self.stages[name](self.t))
+
+    def _capture(self) -> None:
+        dev = next(iter(self.t.values())).device
+        pool, stream = CACHE.pool(self.key, dev)
+        # the inputs were copied in on the current stream; the replays run
+        # there too, after the capture
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        warmup = []
+        with torch.cuda.stream(stream):
+            for _ in range(WARMUP_ROUNDS):
+                scratch, ms = dict(self.t), {}
+                for name, fn in self.stages.items():
+                    t0 = time.perf_counter()
+                    scratch.update(fn(scratch))
+                    ms[name] = (time.perf_counter() - t0) * 1e3
+                warmup.append(ms)
+                del scratch
+        t0 = time.perf_counter()
+        for name, fn in self.stages.items():
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, pool=pool.id, stream=stream,
+                                  capture_error_mode="thread_local"):
+                _write(self.t, fn(self.t))
+            self.graphs[name] = g
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        CACHE.captures += 1
+        CACHE.capture_ms.append({"warmup": warmup, "record": (
+            time.perf_counter() - t0) * 1e3})
+
+    def out(self, x):
+        """A result that outlives the next replay: a copy when graphed."""
+        return x.clone() if self.graphed else x
+
+
+_STATE = ("camera", "cap_poses", "tag_poses", "lam", "nu", "cost",
+          "converged", "term")
+
+
+def _lm_stages(aruco_size: float, config: LMConfig, n_caps: int, n_tags: int,
+               bounds: dict) -> dict:
+    """The LM loop's stages over the tensors ``setup`` makes from the
+    inputs; the hooks built by ``setup`` (its regroup tables) serve the
+    later stages."""
+    hooks = {}
+
+    def state_of(t):
+        return LMState(**{k: t[k] for k in _STATE}, iteration=0)
+
+    def fields(state):
+        return {k: getattr(state, k) for k in _STATE}
+
+    def setup(t):
+        lin_fn, quality_fn, solve_fn, sol = grouped_solver(
+            t["cap_idx"], t["tag_idx"], t["corners"], t["block_mask"],
+            t["cam_active"], t["cap_active"], t["tag_active"],
+            aruco_size=aruco_size, config=config, n_caps=n_caps,
+            n_tags=n_tags, **bounds)
+        hooks.update(lin=lin_fn, quality=quality_fn, solve=solve_fn)
+        state, eqs = lm_init(t["in_camera"], t["in_cap_poses"],
+                             t["in_tag_poses"], t["cam_active"],
+                             t["cap_active"], t["tag_active"], lin_fn, config)
+        # cost0 apart from the cost that the iterations overwrite in place
+        return {**fields(state), "cost0": state.cost.clone(), "eqs": eqs,
+                "sol": sol}
+
+    def step(t):
+        return {"step": lm_step(state_of(t), t["eqs"], t["sol"],
+                                hooks["solve"], hooks["quality"], config)}
+
+    def accept(t):
+        state, eqs, sol = lm_accept(state_of(t), t["step"], hooks["lin"],
+                                    t["cam_active"], t["cap_active"],
+                                    t["tag_active"], config)
+        return {**fields(state), "eqs": eqs, "sol": sol}
+
+    def reject(t):
+        state, sol = lm_reject(state_of(t), t["step"])
+        return {**fields(state), "sol": sol}
+
+    return {"setup": setup, "step": step, "accept": accept, "reject": reject}
+
+
+def lm_solve_graphed(camera, cap_poses, tag_poses, cap_idx, tag_idx, corners,
+                     block_mask, cam_active, cap_active, tag_active, *,
+                     aruco_size: float, config: LMConfig, obs_per_tag: int,
+                     obs_per_cap: int, row_slots=None, tag_rows=None,
+                     cap_rows=None, enabled=True, iter_budget=None, lam0=None,
+                     nu0=None, graphed: bool = True):
+    """``lm_solve``'s grouped LM through the split stages: replayed CUDA
+    graphs (``graphed``, a CUDA device), or the same stages run eagerly.
+    Bounds as ``lm.grouped_bounds`` gives them.  Returns (camera,
+    cap_poses, tag_poses, info) as ``lm_core`` does, bit for bit."""
+    dev = cap_poses.device
+    if graphed and dev.type != "cuda":
+        raise ValueError(f"CUDA graphs need a CUDA device, not {dev}")
+    n_caps, n_tags = cap_poses.shape[0], tag_poses.shape[0]
+    bounds = dict(obs_per_tag=obs_per_tag, obs_per_cap=obs_per_cap,
+                  row_slots=row_slots, tag_rows=tag_rows, cap_rows=cap_rows)
+    if not isinstance(cam_active, torch.Tensor):
+        cam_active = torch.full((), bool(cam_active), dtype=torch.bool,
+                                device=dev)
+
+    def make():
+        return Program(_lm_stages(aruco_size, config, n_caps, n_tags, bounds),
+                       graphed)
+
+    if graphed:
+        prog = CACHE.get("lm", dev, (cap_poses.dtype, n_caps, n_tags,
+                                     cap_idx.shape[0], tuple(bounds.items()),
+                                     config, float(aruco_size)), make)
+    else:
+        prog = make()
+    prog.load(in_camera=camera, in_cap_poses=cap_poses,
+              in_tag_poses=tag_poses, cap_idx=cap_idx, tag_idx=tag_idx,
+              corners=corners, block_mask=block_mask, cam_active=cam_active,
+              cap_active=cap_active, tag_active=tag_active)
+    t = prog.t
+    prog.run("setup")
+    if lam0 is not None:
+        t["lam"].fill_(lam0)
+    if nu0 is not None:
+        t["nu"].fill_(nu0)
+    if not enabled:
+        t["converged"].fill_(True)
+        t["term"].fill_(5)
+    budget = min(config.max_iterations if iter_budget is None
+                 else int(iter_budget), config.max_iterations)
+    iteration = 0
+    while enabled and iteration < budget:
+        prog.run("step")
+        converged, accepted, done_fp = t["step"].flags.tolist()
+        if converged:
+            break
+        prog.run("accept" if accepted and not done_fp else "reject")
+        iteration += 1
+    info = {"cost": prog.out(t["cost"]), "iterations": iteration,
+            "lambda": prog.out(t["lam"]),
+            "converged": prog.out(t["converged"]),
+            "initial_cost": prog.out(t["cost0"]),
+            "termination": prog.out(t["term"]), "nu": prog.out(t["nu"]),
+            "grad_max": _grad_inf_norm(t["eqs"], t["cam_active"],
+                                       t["cap_active"], t["tag_active"])}
+    return (prog.out(t["camera"]), prog.out(t["cap_poses"]),
+            prog.out(t["tag_poses"]), info)
+
+
+_LOC_STATE = ("pose", "lam", "nu", "cost", "it", "conv")
+
+
+def localize_graphed(camera, tag_poses, q_tag_idx, q_corners, q_block_mask,
+                     q_seed_slot, *, aruco_size: float, config: LMConfig,
+                     seed_mode: str = "hybrid", graphed: bool = True):
+    """``localize_batch`` with each iteration a replayed CUDA graph
+    (``graphed``, a CUDA device) or the same stage run eagerly; the seeds
+    stay eager.  Returns (poses, costs, iterations), bit for bit
+    ``localize_batch``'s."""
+    dev = camera.device
+    if graphed and dev.type != "cuda":
+        raise ValueError(f"CUDA graphs need a CUDA device, not {dev}")
+    s = localize_init(camera, tag_poses, q_tag_idx, q_corners, q_block_mask,
+                      q_seed_slot, aruco_size=aruco_size, config=config,
+                      seed_mode=seed_mode)
+
+    def iterate(t):
+        new = localize_iteration(
+            t["camera"], t["q_corners"], t["tps"], t["maskf"],
+            *(t[k] for k in _LOC_STATE), aruco_size=aruco_size,
+            config=config)
+        return {**new, "any_active": (~new["conv"]).any()}
+
+    def make():
+        return Program({"iterate": iterate}, graphed)
+
+    if graphed:
+        prog = CACHE.get("localize", dev, (camera.dtype,
+                                           tuple(q_tag_idx.shape), config,
+                                           float(aruco_size)), make)
+    else:
+        prog = make()
+    prog.load(camera=camera, q_corners=q_corners, **s)
+    t = prog.t
+    active = bool((~t["conv"]).any())
+    for _ in range(config.max_iterations):
+        if not active:
+            break
+        prog.run("iterate")
+        active = bool(t["any_active"])
+    return prog.out(t["pose"]), prog.out(t["cost"]), prog.out(t["it"])

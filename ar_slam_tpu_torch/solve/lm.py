@@ -1,8 +1,12 @@
 """Levenberg–Marquardt trust-region loop (port of ar_slam_tpu/solve/lm.py).
 
-The loop runs in Python with its state on the device; each iteration reads
-back two flags (accept / converged).  The accept/reject rule, the lambda
-schedule and the three termination tests are ``lm_core``'s exactly:
+The loop runs in Python with its state on the device.  ``lm_core`` is the
+eager loop (two host reads an iteration); ``lm_step`` / ``lm_accept`` /
+``lm_reject`` split its body into functions with no host read, which
+solve/graphs.py replays as CUDA graphs with one read an iteration (the
+counterpart of the reference's ``lax.while_loop``).  The accept/reject
+rule, the lambda schedule and the three termination tests are the
+reference's ``lm_core``'s exactly:
 accept when rho = actual / model decrease > min_relative_decrease; on
 accept lam *= max(1/3, 1 - (2 rho - 1)^3) and nu = 2, on reject lam *= nu
 and nu doubles; stop on the function, parameter or gradient tolerance, or
@@ -82,7 +86,11 @@ def _grad_inf_norm(eqs, cam_active, cap_active, tag_active):
     gt = getattr(eqs, "g_t_max", None)
     cap = eqs if gt is None else eqs.cap
     dt = cap.g_p.dtype
-    cam = torch.as_tensor(cam_active, device=cap.g_c.device)
+    if isinstance(cam_active, torch.Tensor):
+        cam = cam_active.to(cap.g_c.device)
+    else:  # a fill, not a host-to-device copy
+        cam = torch.full((), bool(cam_active), dtype=torch.bool,
+                         device=cap.g_c.device)
     gc = torch.where(cam, torch.max(torch.abs(cap.g_c)),
                      torch.zeros((), dtype=dt, device=cap.g_c.device))
     gp = torch.max(torch.abs(cap.g_p) * cap_active[:, None].to(dt))
@@ -174,12 +182,70 @@ def make_grouped_hooks(cap_idx, tag_idx, corners, block_mask, aruco_size,
                                 cap_rows)
 
 
+
+
+def lm_init(camera, cap_poses, tag_poses, cam_active, cap_active, tag_active,
+            lin_fn, config: LMConfig, enabled=True, lam0=None, nu0=None):
+    """The loop's start: the first linearization, the gradient test and
+    the initial state.  Returns (state, eqs).  Every scalar is a fill on
+    the tensors' device, none a host-to-device copy."""
+    dtype = cap_poses.dtype
+    dev = cap_poses.device
+    eqs, cost0 = lin_fn(camera, cap_poses, tag_poses)
+    g_conv0 = _grad_inf_norm(eqs, cam_active, cap_active, tag_active) <= (
+        config.gradient_tolerance)
+    enabled = bool(enabled)
+    converged = g_conv0 | (not enabled)
+    term = (torch.where(g_conv0, 3, 0) if enabled
+            else torch.full((), 5, dtype=torch.int64, device=dev))
+    state = LMState(
+        camera=camera.to(dtype), cap_poses=cap_poses, tag_poses=tag_poses,
+        lam=torch.full((), config.initial_lambda if lam0 is None else lam0,
+                       dtype=dtype, device=dev),
+        nu=torch.full((), 2.0 if nu0 is None else nu0, dtype=dtype,
+                      device=dev),
+        cost=cost0, iteration=0, converged=converged, term=term)
+    return state, eqs
+
+
+def _decide(state: LMState, new_cost, g_dot_d, jd_sq, d_cam, d_cap,
+            tag_step_sq, tag_x_sq, config: LMConfig):
+    """The step's quality and tests: (accept, lam_acc, lam_rej, f_conv,
+    p_conv, stalled, converged_fp)."""
+    model_decrease = torch.clamp(-g_dot_d - 0.5 * jd_sq, min=1e-30)
+    rho = (state.cost - new_cost) / model_decrease
+    accept = rho > config.min_relative_decrease
+    lam_acc = state.lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3,
+                                      min=1.0 / 3.0)
+    lam_acc = torch.clamp(lam_acc, config.min_lambda, config.max_lambda)
+    lam_rej = torch.clamp(state.lam * state.nu, max=config.max_lambda)
+
+    f_conv = (torch.abs(state.cost - new_cost)
+              <= config.function_tolerance * state.cost)
+    step_norm = torch.sqrt(torch.sum(d_cam ** 2) + torch.sum(d_cap ** 2)
+                           + tag_step_sq)
+    x_norm = torch.sqrt(torch.sum(state.camera ** 2)
+                        + torch.sum(state.cap_poses ** 2) + tag_x_sq)
+    p_conv = step_norm <= config.parameter_tolerance * (
+        x_norm + config.parameter_tolerance)
+    stalled = ~accept & (state.lam >= config.stall_lambda)
+    converged_fp = (accept & (f_conv | p_conv)) | stalled
+    return accept, lam_acc, lam_rej, f_conv, p_conv, stalled, converged_fp
+
+
+def _term(stalled, g_conv, accept, f_conv, p_conv):
+    """The termination code of TERMINATION_REASONS."""
+    return torch.where(
+        stalled, 4, torch.where(g_conv, 3, torch.where(
+            accept & f_conv, 1, torch.where(accept & p_conv, 2, 0))))
+
+
 def lm_core(camera, cap_poses, tag_poses, cam_active, cap_active, tag_active,
             lin_fn, quality_fn, config: LMConfig, enabled=True,
             solve_fn=None, iter_budget=None, solver_state0=None,
             quality_lin_fn=None, lam0=None, nu0=None):
-    """Generic LM loop over the hooks.  Returns (camera, cap_poses,
-    tag_poses, info).
+    """Generic LM loop over the hooks, eagerly, with two host reads an
+    iteration.  Returns (camera, cap_poses, tag_poses, info).
 
     ``solve_fn(eqs, lam) -> (d_cam, d_cap, d_tag)`` is the damped solve
     (default: the flat ``schur_solve``).  With ``solver_state0`` set it is
@@ -199,9 +265,11 @@ def lm_core(camera, cap_poses, tag_poses, cam_active, cap_active, tag_active,
     the loop needs, reduced in the same packs: ``tag_sq`` (sum of the
     squared tag poses they were linearized at), ``step_sq`` (sum of the
     squared tag step that proposed them) and ``g_t_max``
-    (``_grad_inf_norm``).  The tags may then be ``Sharded``."""
-    dtype = cap_poses.dtype
-    dev = cap_poses.device
+    (``_grad_inf_norm``).  The tags may then be ``Sharded``.
+
+    This is the plain version of the split iteration (``lm_step``,
+    ``lm_accept``, ``lm_reject``) that solve/graphs.py replays as CUDA
+    graphs: the same operations in the same order."""
     stateful = solver_state0 is not None
     sol = solver_state0
     if solve_fn is None:
@@ -209,21 +277,10 @@ def lm_core(camera, cap_poses, tag_poses, cam_active, cap_active, tag_active,
             return schur_solve(eqs, lam, cam_active, cap_active, tag_active,
                                jacobi_scaling=config.jacobi_scaling)
 
-    def scalar(v):
-        return torch.as_tensor(v, dtype=dtype, device=dev)
-
-    eqs, cost0 = lin_fn(camera, cap_poses, tag_poses)
-    g_conv0 = _grad_inf_norm(eqs, cam_active, cap_active, tag_active) <= (
-        config.gradient_tolerance)
-    enabled = bool(enabled)
-    converged = g_conv0 | (not enabled)
-    term = torch.where(g_conv0, 3, 0) if enabled else torch.tensor(5)
-    state = LMState(
-        camera=camera.to(dtype), cap_poses=cap_poses, tag_poses=tag_poses,
-        lam=scalar(config.initial_lambda if lam0 is None else lam0),
-        nu=scalar(2.0 if nu0 is None else nu0), cost=cost0, iteration=0,
-        converged=converged, term=torch.as_tensor(term, device=dev))
-
+    state, eqs = lm_init(camera, cap_poses, tag_poses, cam_active,
+                         cap_active, tag_active, lin_fn, config,
+                         enabled=enabled, lam0=lam0, nu0=nu0)
+    cost0 = state.cost
     budget = min(config.max_iterations if iter_budget is None
                  else int(iter_budget), config.max_iterations)
     while state.iteration < budget and not bool(state.converged):
@@ -243,28 +300,12 @@ def lm_core(camera, cap_poses, tag_poses, cam_active, cap_active, tag_active,
                 eqs, new_camera, new_caps, new_tags, d_cam, d_cap, d_tag)
             tag_step_sq = torch.sum(d_tag ** 2)
             tag_x_sq = torch.sum(state.tag_poses ** 2)
-
-        model_decrease = torch.clamp(-g_dot_d - 0.5 * jd_sq, min=1e-30)
-        rho = (state.cost - new_cost) / model_decrease
-        accept = rho > config.min_relative_decrease
-        lam_acc = state.lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3,
-                                          min=1.0 / 3.0)
-        lam_acc = torch.clamp(lam_acc, config.min_lambda, config.max_lambda)
-        lam_rej = torch.clamp(state.lam * state.nu, max=config.max_lambda)
-
-        f_conv = (torch.abs(state.cost - new_cost)
-                  <= config.function_tolerance * state.cost)
-        step_norm = torch.sqrt(torch.sum(d_cam ** 2) + torch.sum(d_cap ** 2)
-                               + tag_step_sq)
-        x_norm = torch.sqrt(torch.sum(state.camera ** 2)
-                            + torch.sum(state.cap_poses ** 2) + tag_x_sq)
-        p_conv = step_norm <= config.parameter_tolerance * (
-            x_norm + config.parameter_tolerance)
-        stalled = ~accept & (state.lam >= config.stall_lambda)
-        converged_fp = (accept & (f_conv | p_conv)) | stalled
+        (accept, lam_acc, lam_rej, f_conv, p_conv, stalled,
+         converged_fp) = _decide(state, new_cost, g_dot_d, jd_sq, d_cam,
+                                 d_cap, tag_step_sq, tag_x_sq, config)
 
         accepted, done_fp = torch.stack([accept, converged_fp]).tolist()
-        g_conv = torch.zeros((), dtype=torch.bool, device=dev)
+        g_conv = torch.zeros((), dtype=torch.bool, device=accept.device)
         if quality_lin_fn is not None:
             # the speculative relinearization: kept on accept
             eqs = eqs_prop if accepted else eqs
@@ -273,19 +314,17 @@ def lm_core(camera, cap_poses, tag_poses, cam_active, cap_active, tag_active,
         if accepted and not done_fp:
             g_conv = _grad_inf_norm(eqs, cam_active, cap_active,
                                     tag_active) <= config.gradient_tolerance
-        term = torch.where(
-            stalled, 4, torch.where(g_conv, 3, torch.where(
-                accept & f_conv, 1, torch.where(accept & p_conv, 2, 0))))
         state = LMState(
             camera=new_camera if accepted else state.camera,
             cap_poses=new_caps if accepted else state.cap_poses,
             tag_poses=new_tags if accepted else state.tag_poses,
             lam=lam_acc if accepted else lam_rej,
-            nu=scalar(2.0) if accepted else state.nu * 2.0,
+            nu=torch.full_like(state.nu, 2.0) if accepted
+            else state.nu * 2.0,
             cost=new_cost if accepted else state.cost,
             iteration=state.iteration + 1,
             converged=converged_fp | g_conv,
-            term=term,
+            term=_term(stalled, g_conv, accept, f_conv, p_conv),
         )
         if stateful and accepted:
             sol = torch.zeros_like(sol)
@@ -302,13 +341,154 @@ def lm_core(camera, cap_poses, tag_poses, cam_active, cap_active, tag_active,
     return state.camera, state.cap_poses, state.tag_poses, info
 
 
+class LMStep(NamedTuple):
+    """One step's proposal and decision (``lm_step``).  ``flags`` is
+    [converged before the step, accept, converged_fp]: the host's one
+    read an iteration, which picks ``lm_accept`` or ``lm_reject`` next (or
+    ends the loop, dropping the proposal)."""
+
+    camera: torch.Tensor
+    cap_poses: torch.Tensor
+    tag_poses: torch.Tensor
+    cost: torch.Tensor
+    lam_acc: torch.Tensor
+    lam_rej: torch.Tensor
+    accept: torch.Tensor
+    f_conv: torch.Tensor
+    p_conv: torch.Tensor
+    stalled: torch.Tensor
+    converged_fp: torch.Tensor
+    sol: torch.Tensor | None  # the CG solve's reduced solution
+    flags: torch.Tensor  # (3,) bool
+
+
+def lm_step(state: LMState, eqs, sol, solve_fn, quality_fn,
+            config: LMConfig) -> LMStep:
+    """The damped solve, the proposal, its quality and the tests of one
+    iteration, with no host read: ``lm_core``'s loop body up to its read.
+    ``sol`` is the CG warm start (None for a stateless ``solve_fn``)."""
+    if sol is None:
+        d_cam, d_cap, d_tag = solve_fn(eqs, state.lam)
+    else:
+        d_cam, d_cap, d_tag, sol = solve_fn(eqs, state.lam, sol)
+    new_camera = state.camera + d_cam
+    new_caps = state.cap_poses + d_cap
+    new_tags = state.tag_poses + d_tag
+    new_cost, g_dot_d, jd_sq = quality_fn(
+        eqs, new_camera, new_caps, new_tags, d_cam, d_cap, d_tag)
+    (accept, lam_acc, lam_rej, f_conv, p_conv, stalled,
+     converged_fp) = _decide(state, new_cost, g_dot_d, jd_sq, d_cam, d_cap,
+                             torch.sum(d_tag ** 2),
+                             torch.sum(state.tag_poses ** 2), config)
+    return LMStep(new_camera, new_caps, new_tags, new_cost, lam_acc, lam_rej,
+                  accept, f_conv, p_conv, stalled, converged_fp, sol,
+                  torch.stack([state.converged, accept, converged_fp]))
+
+
+def _lm_update(state: LMState, step: LMStep, g_conv):
+    """The state after ``step``: selects on its accept flag where
+    ``lm_core`` branches on the host (the same values bit for bit), and
+    the CG warm start zeroed after an accepted step.  Returns (state,
+    sol)."""
+    acc = step.accept
+
+    def pick(new, old):
+        return torch.where(acc, new, old)
+
+    state = LMState(
+        camera=pick(step.camera, state.camera),
+        cap_poses=pick(step.cap_poses, state.cap_poses),
+        tag_poses=pick(step.tag_poses, state.tag_poses),
+        lam=pick(step.lam_acc, step.lam_rej),
+        nu=pick(torch.full_like(state.nu, 2.0), state.nu * 2.0),
+        cost=pick(step.cost, state.cost),
+        iteration=state.iteration + 1,
+        converged=step.converged_fp | g_conv,
+        term=_term(step.stalled, g_conv, acc, step.f_conv, step.p_conv))
+    sol = None if step.sol is None else pick(torch.zeros_like(step.sol),
+                                             step.sol)
+    return state, sol
+
+
+def lm_accept(state: LMState, step: LMStep, lin_fn, cam_active, cap_active,
+              tag_active, config: LMConfig):
+    """An accepted step that does not end the loop: the relinearization at
+    the proposal, the gradient test and the state update.  Returns
+    (state, eqs, sol)."""
+    eqs, _ = lin_fn(step.camera, step.cap_poses, step.tag_poses)
+    g_conv = _grad_inf_norm(eqs, cam_active, cap_active,
+                            tag_active) <= config.gradient_tolerance
+    state, sol = _lm_update(state, step, g_conv)
+    return state, eqs, sol
+
+
+def lm_reject(state: LMState, step: LMStep):
+    """A rejected step, or an accepted one that ends the loop (neither
+    relinearizes): the state update.  Returns (state, sol)."""
+    g_conv = torch.zeros((), dtype=torch.bool, device=step.accept.device)
+    return _lm_update(state, step, g_conv)
+
+
+def grouped_bounds(n_tags: int, config: LMConfig, obs_per_tag: int,
+                   obs_per_cap: int | None = None,
+                   row_slots: int | None = None, tag_rows: int | None = None,
+                   cap_rows: int | None = None) -> dict:
+    """The grouped hooks' static slot bounds as ``lm_solve`` takes them:
+    ``obs_per_cap`` defaults to n_tags * obs_per_tag (safe but wasteful);
+    the dense solve drops the row-split budgets."""
+    if obs_per_cap is None:
+        obs_per_cap = n_tags * obs_per_tag
+    if config.linear_solver != "cg":
+        # the dense grouped elimination consumes the (T, S_max) form
+        row_slots = tag_rows = cap_rows = None
+    return dict(obs_per_tag=obs_per_tag, obs_per_cap=obs_per_cap,
+                row_slots=row_slots, tag_rows=tag_rows, cap_rows=cap_rows)
+
+
+def grouped_solver(cap_idx, tag_idx, corners, block_mask, cam_active,
+                   cap_active, tag_active, *, aruco_size: float,
+                   config: LMConfig, n_caps: int, n_tags: int,
+                   obs_per_tag: int, obs_per_cap: int, row_slots=None,
+                   tag_rows=None, cap_rows=None):
+    """The tag-grouped hooks and their damped solve (bounds from
+    ``grouped_bounds``): (lin_fn, quality_fn, solve_fn, sol0) with sol0
+    the CG warm start (None for the dense solve)."""
+    lin_fn, quality_fn, group_ctx = make_grouped_hooks(
+        cap_idx, tag_idx, corners, block_mask, aruco_size, n_caps,
+        n_tags, obs_per_tag, obs_per_cap,
+        distortion=config.enable_distortion, loss=config.loss,
+        loss_scale=config.loss_scale, row_slots=row_slots,
+        n_rows=tag_rows, n_cap_rows=cap_rows)
+    slot_cap, cap_gather, cap_gmask, rows, cap_rows_ctx = group_ctx
+
+    if config.linear_solver != "cg":
+        def solve_fn(eqs, lam):
+            return schur_solve_grouped(
+                eqs, slot_cap, lam, cam_active, cap_active, tag_active,
+                jacobi_scaling=config.jacobi_scaling)
+
+        return lin_fn, quality_fn, solve_fn, None
+
+    def solve_fn(eqs, lam, x0):  # noqa: F811
+        return schur_solve_grouped_cg(
+            eqs, slot_cap, cap_gather, cap_gmask, lam, cam_active,
+            cap_active, tag_active, jacobi_scaling=config.jacobi_scaling,
+            cg_tol=config.cg_tolerance, cg_iters=config.cg_max_iterations,
+            x0=x0, rows=rows, cap_rows=cap_rows_ctx)
+
+    sol0 = torch.zeros(3 + 6 * n_caps, dtype=corners.dtype,
+                       device=corners.device)
+    return lin_fn, quality_fn, solve_fn, sol0
+
+
 def lm_solve(camera, cap_poses, tag_poses, cap_idx, tag_idx, corners,
              block_mask, cam_active, cap_active, tag_active, *,
              aruco_size: float, config: LMConfig = LMConfig(),
              assemble_fn=None, enabled=True, iter_budget=None,
              obs_per_tag: int | None = None, obs_per_cap: int | None = None,
              row_slots: int | None = None, tag_rows: int | None = None,
-             cap_rows: int | None = None, lam0=None, nu0=None):
+             cap_rows: int | None = None, lam0=None, nu0=None,
+             graphs: bool = True):
     """Run LM on the (masked, padded) problem on the tensors' device.
 
     With ``obs_per_tag`` (a true upper bound on the observations per tag;
@@ -319,52 +499,37 @@ def lm_solve(camera, cap_poses, tag_poses, cap_idx, tag_idx, corners,
     obs_per_tag: safe but wasteful).  ``row_slots`` / ``tag_rows`` /
     ``cap_rows`` switch the CG solve to the row-split packing (callers
     size tag_rows >= sum_t ceil(obs_t / row_slots), cap_rows likewise);
-    the dense solve ignores them.
+    the dense solve ignores them.  On a CUDA device the grouped LM replays
+    CUDA graphs (solve/graphs.py), bit for bit the eager loop
+    (``lm_core``), which ``graphs=False`` runs instead.
 
     Without ``obs_per_tag``, or with ``assemble_fn(r, jc, jp, jt, cap_idx,
     tag_idx, n_caps, n_tags) -> NormalEqs`` overriding the assembly, the
-    flat block hooks and the flat dense Schur solve run.  ``lam0`` / ``nu0``
-    resume the damping schedule (host-stepped progress printing).
+    flat block hooks and the flat dense Schur solve run, eagerly.  ``lam0``
+    / ``nu0`` resume the damping schedule (host-stepped progress
+    printing).
     """
     n_caps = cap_poses.shape[0]
     n_tags = tag_poses.shape[0]
     if obs_per_tag is not None and assemble_fn is None:
-        if obs_per_cap is None:
-            obs_per_cap = n_tags * obs_per_tag
-        if config.linear_solver != "cg":
-            # the dense grouped elimination consumes the (T, S_max) form
-            row_slots = tag_rows = cap_rows = None
-        lin_fn, quality_fn, group_ctx = make_grouped_hooks(
-            cap_idx, tag_idx, corners, block_mask, aruco_size, n_caps,
-            n_tags, obs_per_tag, obs_per_cap,
-            distortion=config.enable_distortion, loss=config.loss,
-            loss_scale=config.loss_scale, row_slots=row_slots,
-            n_rows=tag_rows, n_cap_rows=cap_rows)
-        slot_cap, cap_gather, cap_gmask, rows, cap_rows_ctx = group_ctx
+        bounds = grouped_bounds(n_tags, config, obs_per_tag, obs_per_cap,
+                                row_slots, tag_rows, cap_rows)
+        if graphs and cap_poses.device.type == "cuda":
+            from ar_slam_tpu_torch.solve.graphs import lm_solve_graphed
 
-        solver_state0 = None
-        if config.linear_solver == "cg":
-            solver_state0 = torch.zeros(3 + 6 * n_caps, dtype=cap_poses.dtype,
-                                        device=cap_poses.device)
-
-            def solve_fn(eqs, lam, x0):
-                return schur_solve_grouped_cg(
-                    eqs, slot_cap, cap_gather, cap_gmask, lam, cam_active,
-                    cap_active, tag_active,
-                    jacobi_scaling=config.jacobi_scaling,
-                    cg_tol=config.cg_tolerance,
-                    cg_iters=config.cg_max_iterations, x0=x0, rows=rows,
-                    cap_rows=cap_rows_ctx)
-        else:
-            def solve_fn(eqs, lam):
-                return schur_solve_grouped(
-                    eqs, slot_cap, lam, cam_active, cap_active, tag_active,
-                    jacobi_scaling=config.jacobi_scaling)
-
+            return lm_solve_graphed(
+                camera, cap_poses, tag_poses, cap_idx, tag_idx, corners,
+                block_mask, cam_active, cap_active, tag_active,
+                aruco_size=aruco_size, config=config, enabled=enabled,
+                iter_budget=iter_budget, lam0=lam0, nu0=nu0, **bounds)
+        lin_fn, quality_fn, solve_fn, sol0 = grouped_solver(
+            cap_idx, tag_idx, corners, block_mask, cam_active, cap_active,
+            tag_active, aruco_size=aruco_size, config=config, n_caps=n_caps,
+            n_tags=n_tags, **bounds)
         return lm_core(camera, cap_poses, tag_poses, cam_active, cap_active,
                        tag_active, lin_fn, quality_fn, config,
                        enabled=enabled, solve_fn=solve_fn,
-                       iter_budget=iter_budget, solver_state0=solver_state0,
+                       iter_budget=iter_budget, solver_state0=sol0,
                        lam0=lam0, nu0=nu0)
     lin_fn, quality_fn = make_block_hooks(
         cap_idx, tag_idx, corners, block_mask, aruco_size, n_caps, n_tags,

@@ -8,7 +8,9 @@ camera intrinsics constant.  Every query is an independent 6-unknown
 problem, so all of them run at once: one Python loop of at most
 ``max_iterations`` LM iterations over the (Q, ...) batch, each query with
 its own lambda, acceptance and convergence, and one host read per
-iteration to stop when every query has converged.
+iteration to stop when every query has converged.  ``localize_iteration``
+is one iteration with no host read; on the card it is replayed as a CUDA
+graph.
 """
 
 from __future__ import annotations
@@ -28,10 +30,100 @@ from ar_slam_tpu_torch.solve.lm import LMConfig
 logger = logging.getLogger(__name__)
 
 
+def _localize_fns(camera, aruco_size: float, config: LMConfig):
+    """(jac, residuals): the queries' vmapped Jacobian-and-residual and
+    residual functions of (pose, tag poses, corners, block mask)."""
+    zero = torch.zeros((), dtype=camera.dtype, device=camera.device)
+
+    def residual_fn(pose, tp, corners, m):
+        r = block_residual(camera, pose, tp, corners, aruco_size,
+                           config.enable_distortion)  # (K, 8)
+        return torch.where(m[:, None] > 0, r, zero).reshape(-1)
+
+    def with_aux(pose, tp, corners, m):
+        r = residual_fn(pose, tp, corners, m)
+        return r, r
+
+    return vmap(jacfwd(with_aux, has_aux=True)), vmap(residual_fn)
+
+
+def localize_init(camera, tag_poses, q_tag_idx, q_corners, q_block_mask,
+                  q_seed_slot, *, aruco_size: float, config: LMConfig,
+                  seed_mode: str = "hybrid") -> dict:
+    """The loop's start: each query's seed pose and cost, its damping and
+    its flags.  Returns the loop's tensors: tps (Q, K, 6) the blocks' tag
+    poses, maskf, pose, lam, nu, cost, it, conv."""
+    dtype = camera.dtype
+    q = q_tag_idx.shape[0]
+    ar = torch.arange(q, device=camera.device)
+    tps = tag_poses[q_tag_idx]  # (Q, K, 6)
+    maskf = q_block_mask.to(dtype)
+    _, residuals = _localize_fns(camera, aruco_size, config)
+    seed = q_seed_slot.to(torch.int64)
+    pose = seed_capture_pose(q_corners[ar, seed], camera, tps[ar, seed],
+                             aruco_size, mode=seed_mode)
+    lam = torch.full((q,), config.initial_lambda, dtype=dtype,
+                     device=camera.device)
+    r = residuals(pose, tps, q_corners, maskf)
+    return dict(
+        tps=tps, maskf=maskf, pose=pose, lam=lam, nu=torch.full_like(lam, 2.0),
+        cost=0.5 * torch.sum(r * r, dim=1),
+        it=torch.zeros(q, dtype=torch.int64, device=camera.device),
+        # queries without blocks start converged (zero residuals never
+        # accept)
+        conv=~q_block_mask.any(dim=1))
+
+
+def localize_iteration(camera, q_corners, tps, maskf, pose, lam, nu, cost,
+                       it, conv, *, aruco_size: float,
+                       config: LMConfig) -> dict:
+    """One LM iteration of every query still active, with no host read:
+    the new (pose, lam, nu, cost, it, conv)."""
+    jac, residuals = _localize_fns(camera, aruco_size, config)
+    active = ~conv
+    j, r = jac(pose, tps, q_corners, maskf)  # (Q, K8, 6), (Q, K8)
+    h = j.transpose(1, 2) @ j
+    g = (j.transpose(1, 2) @ r[..., None])[..., 0]
+    d = torch.clamp(torch.diagonal(h, dim1=1, dim2=2), 1e-6, 1e32)
+    step = -torch.linalg.solve_ex(
+        h + lam[:, None, None] * torch.diag_embed(d),
+        g[..., None]).result[..., 0]
+    new_pose = pose + step
+    r_new = residuals(new_pose, tps, q_corners, maskf)
+    new_cost = 0.5 * torch.sum(r_new * r_new, dim=1)
+    js = (j @ step[..., None])[..., 0]
+    model = -(g * step).sum(1) - 0.5 * torch.sum(js * js, dim=1)
+    rho = (cost - new_cost) / torch.clamp(model, min=1e-30)
+    accept = rho > config.min_relative_decrease
+    lam_acc = torch.clamp(
+        lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0),
+        config.min_lambda, config.max_lambda)
+    lam_rej = torch.clamp(lam * nu, max=config.max_lambda)
+    # the reference's three-way exit: function or parameter tolerance
+    # on an accepted step, stall-lambda on a rejected one
+    f_conv = torch.abs(cost - new_cost) <= config.function_tolerance * cost
+    step_norm = torch.sqrt(torch.sum(step * step, dim=1))
+    x_norm = torch.sqrt(torch.sum(pose * pose, dim=1))
+    p_conv = step_norm <= config.parameter_tolerance * (
+        x_norm + config.parameter_tolerance)
+    stalled = ~accept & (lam >= config.stall_lambda)
+    new_conv = (accept & (f_conv | p_conv)) | stalled
+    take = active & accept
+    return dict(
+        pose=torch.where(take[:, None], new_pose, pose),
+        cost=torch.where(take, new_cost, cost),
+        lam=torch.where(active, torch.where(accept, lam_acc, lam_rej), lam),
+        nu=torch.where(active, torch.where(accept, torch.full_like(nu, 2.0),
+                                           nu * 2.0), nu),
+        it=it + active.to(torch.int64),
+        conv=torch.where(active, new_conv, conv))
+
+
 def localize_batch(camera, tag_poses, q_tag_idx, q_corners, q_block_mask,
                    q_seed_slot, *, aruco_size: float, config: LMConfig,
                    seed_mode: str = "hybrid"):
-    """Batched pose-only LM (the reference's vmapped ``localize_kernel``).
+    """Batched pose-only LM (the reference's vmapped ``localize_kernel``),
+    eagerly: the plain version of the graphed loop (solve/graphs.py).
 
     Args:
       camera: (3,) frozen intrinsics.
@@ -44,85 +136,24 @@ def localize_batch(camera, tag_poses, q_tag_idx, q_corners, q_block_mask,
     Returns ((Q, 6) optimized inverse capture poses, (Q,) final costs,
     (Q,) int64 iteration counts).
     """
-    dtype = camera.dtype
-    q = q_tag_idx.shape[0]
-    ar = torch.arange(q, device=camera.device)
-    tps = tag_poses[q_tag_idx]  # (Q, K, 6)
-    maskf = q_block_mask.to(dtype)
-    zero = torch.zeros((), dtype=dtype, device=camera.device)
-
-    def residual_fn(pose, tp, corners, m):
-        r = block_residual(camera, pose, tp, corners, aruco_size,
-                           config.enable_distortion)  # (K, 8)
-        return torch.where(m[:, None] > 0, r, zero).reshape(-1)
-
-    def with_aux(pose, tp, corners, m):
-        r = residual_fn(pose, tp, corners, m)
-        return r, r
-
-    jac = vmap(jacfwd(with_aux, has_aux=True))
-    residuals = vmap(residual_fn)
-
-    def cost_of(pose):
-        r = residuals(pose, tps, q_corners, maskf)
-        return 0.5 * torch.sum(r * r, dim=1)
-
-    seed = q_seed_slot.to(torch.int64)
-    pose = seed_capture_pose(q_corners[ar, seed], camera, tps[ar, seed],
-                             aruco_size, mode=seed_mode)
-    lam = torch.full((q,), config.initial_lambda, dtype=dtype,
-                     device=camera.device)
-    nu = torch.full_like(lam, 2.0)
-    cost = cost_of(pose)
-    it = torch.zeros(q, dtype=torch.int64, device=camera.device)
-    # queries without blocks start converged (zero residuals never accept)
-    conv = ~q_block_mask.any(dim=1)
+    s = localize_init(camera, tag_poses, q_tag_idx, q_corners, q_block_mask,
+                      q_seed_slot, aruco_size=aruco_size, config=config,
+                      seed_mode=seed_mode)
     for _ in range(config.max_iterations):
-        active = ~conv
-        if not bool(active.any()):
+        if not bool((~s["conv"]).any()):
             break
-        j, r = jac(pose, tps, q_corners, maskf)  # (Q, K8, 6), (Q, K8)
-        h = j.transpose(1, 2) @ j
-        g = (j.transpose(1, 2) @ r[..., None])[..., 0]
-        d = torch.clamp(torch.diagonal(h, dim1=1, dim2=2), 1e-6, 1e32)
-        step = -torch.linalg.solve_ex(
-            h + lam[:, None, None] * torch.diag_embed(d),
-            g[..., None]).result[..., 0]
-        new_pose = pose + step
-        new_cost = cost_of(new_pose)
-        js = (j @ step[..., None])[..., 0]
-        model = -(g * step).sum(1) - 0.5 * torch.sum(js * js, dim=1)
-        rho = (cost - new_cost) / torch.clamp(model, min=1e-30)
-        accept = rho > config.min_relative_decrease
-        lam_acc = torch.clamp(
-            lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0),
-            config.min_lambda, config.max_lambda)
-        lam_rej = torch.clamp(lam * nu, max=config.max_lambda)
-        # the reference's three-way exit: function or parameter tolerance
-        # on an accepted step, stall-lambda on a rejected one
-        f_conv = torch.abs(cost - new_cost) <= config.function_tolerance * cost
-        step_norm = torch.sqrt(torch.sum(step * step, dim=1))
-        x_norm = torch.sqrt(torch.sum(pose * pose, dim=1))
-        p_conv = step_norm <= config.parameter_tolerance * (
-            x_norm + config.parameter_tolerance)
-        stalled = ~accept & (lam >= config.stall_lambda)
-        new_conv = (accept & (f_conv | p_conv)) | stalled
-        take = active & accept
-        pose = torch.where(take[:, None], new_pose, pose)
-        cost = torch.where(take, new_cost, cost)
-        lam = torch.where(active, torch.where(accept, lam_acc, lam_rej), lam)
-        nu = torch.where(active, torch.where(accept, torch.full_like(nu, 2.0),
-                                             nu * 2.0), nu)
-        it = it + active.to(torch.int64)
-        conv = torch.where(active, new_conv, conv)
-    return pose, cost, it
+        s.update(localize_iteration(camera, q_corners, **s,
+                                    aruco_size=aruco_size, config=config))
+    return s["pose"], s["cost"], s["it"]
 
 
 def localize_many(store: MapStore, first_loc_cap_idx: int, config=None,
-                  dtype=None, device=None) -> dict:
+                  dtype=None, device=None, graphs: bool = True) -> dict:
     """Localize every capture with index >= first_loc_cap_idx against the
     frozen map built from earlier captures, on ``device`` (default: the
-    card) in ``dtype`` (default: config.solver.dtype).
+    card) in ``dtype`` (default: config.solver.dtype).  On a CUDA device
+    each LM iteration replays a CUDA graph (solve/graphs.py), bit for bit
+    the eager ``localize_batch``, which ``graphs=False`` runs instead.
 
     Mutates the query captures' poses in the store.  Returns a summary with
     per-capture status ("localized" / "disconnected").
@@ -191,7 +222,10 @@ def localize_many(store: MapStore, first_loc_cap_idx: int, config=None,
     def dev(a, dt=None):
         return torch.as_tensor(a, device=device, dtype=dt)
 
-    poses, costs, iters = localize_batch(
+    run = localize_batch
+    if graphs and device.type == "cuda":
+        from ar_slam_tpu_torch.solve.graphs import localize_graphed as run
+    poses, costs, iters = run(
         dev(store.camera.params, dtype), dev(tag_poses, dtype),
         dev(q_tag_idx), dev(q_corners, dtype), dev(q_mask), dev(q_seed),
         aruco_size=config.aruco_size,

@@ -2,6 +2,8 @@
 
     python3 chip_smoke.py [--profile] [--tag-mm 50]
 
+(``--one-shot-map MODE SRC OUT`` runs one process of phase 19.)
+
 Phases (each prints one JSON line; any failure exits non-zero):
 
 1. device  — requires CUDA; prints the card's name and power limit;
@@ -90,7 +92,28 @@ Phases (each prints one JSON line; any failure exits non-zero):
 17. multihost_1 — ``arslam-torch map`` of phone_12mp's saved map with
    ``--multihost 127.0.0.1:<port>,1,0`` in a subprocess (one NCCL
    process): rmse equal to the in-process solve's within 1e-3 px (and two
-   NCCL processes where the machine has two cards).
+   NCCL processes where the machine has two cards);
+18. solve_graphs — the single-device LM and localize through their CUDA
+   graphs (solve/graphs.py) against the eager loops (``graphs=False``):
+   synthetic-500 dense (budgets 8 and 32), room-16's LM over its 16
+   captures (poses moved by N(0, 0.005); budgets 4 and 16), room-16's
+   whole map solve, the 10k CG map of phase 8 (budgets 3 and 12) and
+   phone_12mp's localize of its 4 queries (budgets 4 and 16, and the
+   default config); every result bit for bit the eager one's, host ms per
+   LM iteration between the budgets, capture ms, graph-pool and peak
+   memory.  Phases 4-6 also require the solve and localize to replay
+   graphs;
+19. one_shot_map — ``arslam-torch map`` of room-16's saved map in two
+   fresh processes, eager then graphed (the eager loop through
+   ``solve(graphs=False)``, which no flag of the command reaches): each
+   process's wall, import, CUDA start, command and solve seconds and the
+   first capture's warm-up (by stage) and recording ms; the two maps
+   written must be the same text;
+20. serve_growth — solve_incremental, one call per batch of 8 captures
+   as serve runs it, over make_synthetic_map(200, 64) growing through its
+   padding buckets: after each call the captures made, the programs held
+   (one), the graph pool's and the reserved memory; rmse < 1 px and no
+   capture unsolved at the end.
 
 A mesh of k shards puts shard i on card i mod the card count: on one
 card all shards share it and run one after another on its stream (their
@@ -101,7 +124,11 @@ multihost_1 also 2 (and 4) NCCL processes.
 Last, where the time goes in one CG LM iteration at 10k (the CG solve,
 the step quality, the relinearization): wall ms on the host clock (taken
 in phase 8, before any profiler attaches), device ms and items from
-torch.profiler, and both per CG step.  With --profile, one detection batch of each cell and phone_12mp's
+torch.profiler, and both per CG step; then solve_graphs' launches (the
+runtime calls that enqueue work, graph launches among them), device items
+and device ms per LM iteration, eager and graphed, from torch.profiler
+runs at budgets 2 and 4.
+With --profile, one detection batch of each cell and phone_12mp's
 localization then run under torch.profiler (device time, idle share, the
 host-to-device bytes and ms, the largest device items).  Then the kernel
 table as one JSON line, and last {"ok": true, "device": {...}}.  Uses no
@@ -152,6 +179,7 @@ PHONE_ARC = [i / 7 for i in range(8)] + [(i + 0.5) / 7 for i in (0, 2, 4, 6)]
 MESH_RMSE_TOL_PX = 1e-3  # mesh_map_room16, multihost_1 vs the dense map
 MESH_CG_RMSE_TOL_PX = 1e-2  # mesh_cg_10k vs phase 8 (CG follows rounding)
 MULTIHOST_TIMEOUT_S = 180
+ONE_SHOT_TIMEOUT_S = 180
 
 
 # the launch counter (read_counts key) behind each kernel row
@@ -592,6 +620,12 @@ def check_launches(cell: str, launches: dict, used, unused) -> None:
              f"must not: {launches}")
 
 
+def check_graphs(cell: str, stats: dict) -> None:
+    """The single-device solve and localize replay CUDA graphs."""
+    if stats["replays"] <= 0:
+        fail(f"{cell}: no CUDA graph was replayed: {stats}")
+
+
 def check_tags(cell: str, found: dict, truth_frames, uids, min_side: float):
     """Every rendered tag of side >= min_side found with its true id in
     its frame, no id that is not rendered there.  Returns the count of
@@ -624,6 +658,7 @@ def phase_main_path(frames, truth):
     from ar_slam_tpu_torch.graph import yamlio
     from ar_slam_tpu_torch.pipeline.engine import ArSlamEngine
     from ar_slam_tpu_torch.pipeline.ingest import IngestedCapture
+    from ar_slam_tpu_torch.solve import graphs
 
     caps = [IngestedCapture(f"frame{k:02d}", f"frame{k:02d}.png", frames[k])
             for k in range(len(frames))]
@@ -637,9 +672,11 @@ def phase_main_path(frames, truth):
     for b in batches:
         engine.add_decoded(b)
     t_detect = time.perf_counter() - t0
+    graphs.CACHE.clear()
     t0 = time.perf_counter()
     summary = engine.solve()
     t_solve = time.perf_counter() - t0
+    solve_graphs = graphs.CACHE.stats()
     os.makedirs(OUT_DIR, exist_ok=True)
     map_path = os.path.join(OUT_DIR, "map.yaml")
     engine.save_map(map_path)
@@ -662,7 +699,9 @@ def phase_main_path(frames, truth):
          blocks=len(engine.store.blocks), waves=summary.get("waves"),
          rmse_px=rmse, focal=float(engine.store.camera.params[0]),
          detect_seconds=t_detect,
-         detect_frames_per_s=len(frames) / t_detect, solve_seconds=t_solve)
+         detect_frames_per_s=len(frames) / t_detect, solve_seconds=t_solve,
+         solve_graphs=solve_graphs)
+    check_graphs("room-16 solve", solve_graphs)
     return launches, engine.store, rmse
 
 
@@ -675,6 +714,7 @@ def phase_phone_12mp(frames, truth, tag_m: float):
     from ar_slam_tpu_torch.detect import ccl
     from ar_slam_tpu_torch.pipeline.engine import ArSlamEngine
     from ar_slam_tpu_torch.pipeline.ingest import IngestedCapture
+    from ar_slam_tpu_torch.solve import graphs
     from ar_slam_tpu_torch.solve.localize import localize_many
     from ar_slam_tpu_torch.utils.ate import camera_positions, umeyama_alignment
 
@@ -690,9 +730,11 @@ def phase_phone_12mp(frames, truth, tag_m: float):
     engine.add_decoded(caps[:8])
     t_detect = time.perf_counter() - t0
     detect_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    graphs.CACHE.clear()
     t0 = time.perf_counter()
     summary = engine.solve()
     t_solve = time.perf_counter() - t0
+    solve_graphs = graphs.CACHE.stats()
     os.makedirs(OUT_DIR, exist_ok=True)
     map_path = os.path.join(OUT_DIR, "phone_map.yaml")
     engine.save_map(map_path)
@@ -700,9 +742,11 @@ def phase_phone_12mp(frames, truth, tag_m: float):
     loc = ArSlamEngine(config, device=DEVICE)
     loc.load_map(map_path)
     first = loc.store.next_capture_index
+    graphs.CACHE.clear()
     t0 = time.perf_counter()
     result = loc.localize_decoded(caps[8:])
     t_loc_total = time.perf_counter() - t0
+    localize_graphs = graphs.CACHE.stats()
     t_loc = loc.metrics.timings["localize"][-1]
     launches = read_counts()
 
@@ -752,7 +796,10 @@ def phase_phone_12mp(frames, truth, tag_m: float):
          detect_seconds=t_detect, detect_frames_per_s=8 / t_detect,
          detect_peak_memory_gb=detect_peak_gb,
          solve_seconds=t_solve, localize_seconds=t_loc,
-         localize_with_detection_seconds=t_loc_total)
+         localize_with_detection_seconds=t_loc_total,
+         solve_graphs=solve_graphs, localize_graphs=localize_graphs)
+    check_graphs("phone_12mp solve", solve_graphs)
+    check_graphs("phone_12mp localize", localize_graphs)
 
     check_launches("phone_12mp", launches,
                    ("box", "box_threshold", "ccl_strip", "extract"),
@@ -776,7 +823,7 @@ def phase_phone_12mp(frames, truth, tag_m: float):
         fail(f"phone_12mp float32 localization differs from float64: pose "
              f"{d_pose} (bound {F32_POSE_TOL}), rmse {d_rmse} px (bound "
              f"{F32_RMSE_TOL_PX})")
-    return launches
+    return launches, (loc.store, first, config)
 
 
 def _align_errors(store, truth) -> np.ndarray:
@@ -811,6 +858,7 @@ def phase_serve_12mp(frames, truth, tag_m: float) -> None:
     from ar_slam_tpu_torch.pipeline import ingest
     from ar_slam_tpu_torch.pipeline.engine import ArSlamEngine
     from ar_slam_tpu_torch.pipeline.stream import StreamPipeline
+    from ar_slam_tpu_torch.solve import graphs
 
     serve_dir = os.path.join(OUT_DIR, "serve")
     shutil.rmtree(serve_dir, ignore_errors=True)
@@ -846,6 +894,7 @@ def phase_serve_12mp(frames, truth, tag_m: float) -> None:
         engine.detect_decoded = traced_detect
         waves = []
         reset_counts()
+        graphs.CACHE.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pipe = StreamPipeline(engine, on_solve=lambda summary, batch:
@@ -858,6 +907,7 @@ def phase_serve_12mp(frames, truth, tag_m: float) -> None:
         torch.cuda.synchronize()
         t_piped = time.perf_counter() - t0
         launches = read_counts()
+        solve_graphs = graphs.CACHE.stats()
         engine.close()
 
         seq = ArSlamEngine(ArSlamConfig(aruco_size=tag_m), device=DEVICE)
@@ -923,7 +973,8 @@ def phase_serve_12mp(frames, truth, tag_m: float) -> None:
          pipelined_vs_sequential={"rmse_px": d_rmse, "focal_rel": d_focal,
                                   "capture_pose": d_pose},
          replay_rmse_px=replay_rmse, replay_blocks=len(replayed.blocks),
-         replay_seconds=t_replay)
+         replay_seconds=t_replay, solve_graphs=solve_graphs)
+    check_graphs("serve_12mp solve_incremental", solve_graphs)
 
     if sum(s.get("waves", 0) for s in summaries) != len(frames) or (
             summaries[-1].get("unsolved") != 0):
@@ -1199,6 +1250,259 @@ def phase_cg_profile(fns, wall, steps) -> None:
          cg_step_device_items=(parts["cg_solve"]["device_items"]
                                - one["device_items"]) / (steps - 1),
          cg_setup_wall_ms=one["wall_ms"], cg_setup_device_ms=one["device_ms"])
+
+
+# the runtime calls that enqueue work on the card, as torch.profiler names
+# them (a graph replay is one cudaGraphLaunch)
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync",
+               "cudaGraphLaunch")
+
+
+def _launch_profile(fn) -> tuple:
+    """One run of fn under torch.profiler: (fn's result, {the runtime
+    calls that enqueue work (launches; graph launches apart), the device
+    items (kernels, copies) and their device ms})."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    out = dict(launches=0, graph_launches=0, device_items=0, device_ms=0.0)
+    for a in prof.key_averages():
+        if a.device_type == DeviceType.CUDA:
+            out["device_items"] += a.count
+            out["device_ms"] += a.self_device_time_total / 1e3
+        elif a.key in LAUNCH_APIS:
+            out["launches"] += a.count
+            if a.key == "cudaGraphLaunch":
+                out["graph_launches"] += a.count
+    return result, out
+
+
+def _same(a, b) -> bool:
+    """Bit for bit: tensors, arrays, numbers, and lists and dicts of them."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+PROFILE_BUDGETS = (2, 4)  # a profiled eager 10k CG iteration is ~2 900
+# device items; the profiler's cost grows with them
+
+
+def _graph_cell(name, run, lo: int, hi: int, reps: int = 3) -> tuple:
+    """One solve_graphs cell: ``run(budget, graphed)`` returns a function
+    whose call solves and returns (loop iterations, its results).  For the
+    eager loop and the graphs: the first calls at budgets lo and hi (the
+    graphs' capture), their results bit for bit, peak memory, and host ms
+    per LM iteration between the budgets.  Returns (the cell's line, the
+    profile jobs, at PROFILE_BUDGETS)."""
+    import torch
+
+    from ar_slam_tpu_torch.solve import graphs
+
+    cell, results, jobs = {"cell": name, "budgets": [lo, hi]}, {}, []
+    for graphed in (False, True):
+        mode = "graphed" if graphed else "eager"
+        graphs.CACHE.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = {b: run(b, graphed)() for b in (lo, hi)}
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        stats = graphs.CACHE.stats()
+        iters = {b: first[b][0] for b in (lo, hi)}
+        wall = {b: _wall_ms(run(b, graphed), reps) for b in (lo, hi)}
+        d_it = max(iters[hi] - iters[lo], 1)
+        cell[mode] = dict(
+            iterations=[iters[lo], iters[hi]],
+            wall_ms=[wall[lo], wall[hi]],
+            host_ms_per_iteration=(wall[hi] - wall[lo]) / d_it,
+            first_calls_s=first_s, peak_memory_gb=peak, **(
+                dict(captures=stats["captures"],
+                     capture_ms=stats["capture_ms"],
+                     capture_split_ms=stats["capture_split_ms"],
+                     pool_gb=stats["pool_bytes"] / 1e9,
+                     replays_first_calls=stats["replays"])
+                if graphed else {}))
+        results[mode] = first[hi][1]
+        jobs.append((name, mode, graphed,
+                     [run(b, graphed) for b in PROFILE_BUDGETS]))
+    cell["bit_for_bit"] = _same(results["eager"], results["graphed"])
+    cell["speedup_per_iteration"] = (cell["eager"]["host_ms_per_iteration"]
+                                     / cell["graphed"]["host_ms_per_iteration"])
+    emit("solve_graphs", **cell)
+    if not cell["bit_for_bit"]:
+        fail(f"solve_graphs {name}: graphed results differ from the eager "
+             "loop's")
+    return cell, jobs
+
+
+def _lm_tensors(arrs):
+    import torch
+
+    from ar_slam_tpu_torch.convert import arrays_from_numpy
+
+    return arrays_from_numpy(arrs, DEVICE, torch.float32)
+
+
+def _lm_runner(t, config, kw):
+    """run(budget, graphed) for _graph_cell over lm_solve on tensors t."""
+    from ar_slam_tpu_torch.solve.lm import lm_solve
+
+    def run(budget, graphed):
+        def fn():
+            out = lm_solve(
+                t["camera"], t["cap_poses"], t["tag_poses"], t["cap_idx"],
+                t["tag_idx"], t["corners"], t["block_mask"], True,
+                t["cap_mask"], t["tag_mask"], aruco_size=0.0635,
+                config=config, iter_budget=budget, graphs=graphed, **kw)
+            return out[3]["iterations"], list(out)
+        return fn
+    return run
+
+
+def _perturbed(arrs, seed: int = 1):
+    """``arrs`` with every pose moved by N(0, 0.005), as _synthetic does."""
+    rng = np.random.default_rng(seed)
+    return arrs._replace(
+        cap_poses=(arrs.cap_poses + rng.normal(
+            scale=0.005, size=arrs.cap_poses.shape)).astype(np.float32),
+        tag_poses=(arrs.tag_poses + rng.normal(
+            scale=0.005, size=arrs.tag_poses.shape)).astype(np.float32))
+
+
+def phase_solve_graphs(store16, phone, arrs10k):
+    """The solve through CUDA graphs against the eager loop, on the card:
+    per LM iteration host ms (here) and launches and device ms (profiled
+    last, ``phase_solve_graphs_profile``), bit-for-bit results, capture ms
+    and pool memory, for synthetic-500 (dense), room-16 (its map's LM at
+    16 captures, and its whole map solve), synthetic-10k CG and
+    phone_12mp's localize (its 4 queries).  Returns the profile jobs."""
+    import dataclasses
+
+    import torch
+
+    from ar_slam_tpu_torch.config import ArSlamConfig
+    from ar_slam_tpu_torch.graph.arrays import export_arrays
+    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch.solve.batch import solve
+    from ar_slam_tpu_torch.solve.lm import LMConfig
+    from ar_slam_tpu_torch.solve.localize import localize_many
+
+    jobs = []
+    zero_tol = dict(function_tolerance=0.0, parameter_tolerance=0.0)
+    t500, arrs500, _ = _synthetic(500, 200)
+    _, j = _graph_cell("synthetic-500", _lm_runner(
+        t500, LMConfig(max_iterations=32, **zero_tol),
+        _slot_bounds(arrs500, cg=False)), 8, 32)
+    jobs += j
+    del t500
+
+    arrs16 = _perturbed(export_arrays(store16, dtype=np.float32))
+    _, j = _graph_cell("room-16 LM (16 captures)", _lm_runner(
+        _lm_tensors(arrs16), LMConfig(max_iterations=16, **zero_tol),
+        _slot_bounds(arrs16, cg=False)), 4, 16)
+    jobs += j
+
+    # the whole room-16 map: solve's waves, warmups and polish
+    out = {}
+    for graphed in (False, True):
+        graphs.CACHE.clear()
+        store = _store_from(store16, store16.captures)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = solve(store, ArSlamConfig(), device=DEVICE, graphs=graphed)
+        out[graphed] = dict(
+            seconds=time.perf_counter() - t0, summary=summary,
+            graphs=graphs.CACHE.stats(),
+            poses=[c.inv_pose.copy() for c in store.captures]
+            + [a.pose.copy() for a in store.arucos]
+            + [store.camera.params.copy()])
+    same = _same(out[False]["poses"], out[True]["poses"]) and (
+        out[False]["summary"] == out[True]["summary"])
+    emit("solve_graphs", cell="room-16 map (solve)", bit_for_bit=same,
+         eager_seconds=out[False]["seconds"],
+         graphed_seconds=out[True]["seconds"],
+         rmse_px=out[True]["summary"]["rmse"],
+         waves=out[True]["summary"]["waves"], graphs=out[True]["graphs"])
+    if not same:
+        fail("solve_graphs room-16 map: graphed map differs from the eager")
+
+    t10k = _lm_tensors(arrs10k)
+    _, j = _graph_cell("synthetic-10k CG", _lm_runner(
+        t10k, LMConfig(max_iterations=12, linear_solver="cg", **zero_tol),
+        _slot_bounds(arrs10k, cg=True)), 3, 12)
+    jobs += j
+    del t10k
+
+    store, first, config = phone
+
+    def loc_run(budget, graphed):
+        cfg = config if budget is None else dataclasses.replace(
+            config, solver=dataclasses.replace(
+                config.solver, max_iterations=budget,
+                final_polish_iterations=0, **zero_tol))
+
+        def fn():
+            res = localize_many(store, first, cfg, device=DEVICE,
+                                graphs=graphed)
+            return max(res["iterations"].values()), [
+                res, [c.inv_pose.copy() for c in store.captures[first:]]]
+        return fn
+
+    _, j = _graph_cell("phone_12mp localize (4 queries)", loc_run, 4, 16)
+    jobs += j
+    # the default localize, as the engine runs it
+    out = {}
+    for graphed in (False, True):
+        fn = loc_run(None, graphed)
+        fn()
+        out[graphed] = (_wall_ms(fn, 3), fn())
+    same = _same(out[False][1], out[True][1])
+    emit("solve_graphs", cell="phone_12mp localize (default config)",
+         bit_for_bit=same, eager_ms=out[False][0], graphed_ms=out[True][0],
+         iterations=out[True][1][0], rmse_px=out[True][1][1][0]["rmse"])
+    if not same:
+        fail("solve_graphs phone_12mp localize: graphed differs from eager")
+    graphs.CACHE.clear()
+    return jobs
+
+
+def phase_solve_graphs_profile(jobs) -> None:
+    """Launches, device items and device ms per LM iteration of each
+    solve_graphs cell, eager and graphed: one profiled run at each of
+    PROFILE_BUDGETS (a graphed one after an unprofiled one, so that no
+    capture is profiled), the difference over the iterations between
+    them."""
+    for name, mode, graphed, fns in jobs:
+        runs = []
+        for fn in fns:
+            if graphed:
+                fn()
+            (iters, _), prof = _launch_profile(fn)
+            runs.append((iters, prof))
+        (it_lo, lo), (it_hi, hi) = runs
+        d_it = max(it_hi - it_lo, 1)
+        emit("solve_graphs_profile", cell=name, mode=mode,
+             iterations=[it_lo, it_hi],
+             per_iteration={k: (hi[k] - lo[k]) / d_it for k in hi},
+             at_budgets=[lo, hi])
 
 
 def phase_solver_cg_vs_dense_2000() -> None:
@@ -1621,6 +1925,120 @@ def phase_multihost_1() -> None:
          cards=torch.cuda.device_count(), processes=runs)
 
 
+def one_shot_map(mode: str, src: str, out: str) -> int:
+    """One process of phase 19: ``arslam-torch map SRC -o OUT`` with the
+    solve's graphs (``mode`` "graphs") or its eager loop ("eager"); prints
+    the seconds of its parts and the graph cache's counts."""
+    import contextlib
+    import io
+
+    t0 = time.perf_counter()
+    import torch
+
+    from ar_slam_tpu_torch import cli
+    from ar_slam_tpu_torch.solve import batch, graphs
+
+    import_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.zeros(1, device=DEVICE)
+    cuda_s = time.perf_counter() - t0
+    solve, solve_s = batch.solve, []
+
+    def timed_solve(*a, **kw):
+        t1 = time.perf_counter()
+        res = solve(*a, graphs=mode == "graphs", **kw)
+        solve_s.append(time.perf_counter() - t1)
+        return res
+
+    batch.solve = timed_solve
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main(["map", src, "-o", out])
+    torch.cuda.synchronize()
+    emit("one_shot_map_process", mode=mode, rc=rc, import_s=import_s,
+         cuda_start_s=cuda_s, command_s=time.perf_counter() - t0,
+         solve_s=solve_s, printed=printed.getvalue().splitlines()[-1],
+         graphs=graphs.CACHE.stats())
+    return rc
+
+
+def phase_one_shot_map() -> None:
+    """Phase 19: room-16's map.yaml (phase 4) re-solved by ``arslam-torch
+    map`` in fresh processes, eager and graphed."""
+    src = os.path.join(OUT_DIR, "map.yaml")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    runs, maps = [], set()
+    for k, mode in enumerate(("eager", "graphs")):
+        out = os.path.join(OUT_DIR, f"one_shot_{k}.yaml")
+        t0 = time.perf_counter()
+        try:
+            p = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--one-shot-map",
+                 mode, src, out], cwd=REPO, env=env, capture_output=True,
+                text=True, timeout=ONE_SHOT_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"one_shot_map {mode}: no answer in {ONE_SHOT_TIMEOUT_S} s")
+        wall = time.perf_counter() - t0
+        if p.returncode != 0:
+            fail(f"one_shot_map {mode}: exit {p.returncode}\n{p.stdout}\n"
+                 f"{p.stderr}")
+        runs.append(dict(json.loads(p.stdout.strip().splitlines()[-1]),
+                         process_s=wall))
+        with open(out) as f:
+            maps.add(f.read())
+    emit("one_shot_map", cell="room-16 map.yaml", runs=runs,
+         same_maps=len(maps) == 1)
+    if len(maps) != 1:
+        fail("one_shot_map: the eager and graphed processes wrote different "
+             "maps")
+
+
+def phase_serve_growth() -> None:
+    """Phase 20: solve_incremental over a synthetic map growing 8 captures
+    a call through its padding buckets."""
+    import torch
+
+    from ar_slam_tpu_torch.config import ArSlamConfig
+    from ar_slam_tpu_torch.graph.store import MapStore
+    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch.solve.batch import solve_incremental
+    from ar_slam_tpu_torch.utils.synthetic import make_synthetic_map
+
+    src, _ = make_synthetic_map(n_tags=200, n_caps=64, seed=0, noise_px=0.3,
+                                focal=3000.0)
+    store = MapStore(initial_focal=3000.0)
+    graphs.CACHE.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    calls, out = [], {}
+    for k in range(0, len(src.captures), 8):
+        for cap in src.captures[k:k + 8]:
+            store.add_detections(cap.uid, [
+                (src.arucos[src.blocks[b].tag_idx].id, src.blocks[b].corners)
+                for b in cap.blocks], src.camera.size)
+        t0 = time.perf_counter()
+        out = solve_incremental(store, ArSlamConfig(), device=DEVICE)
+        torch.cuda.synchronize()
+        stats = graphs.CACHE.stats()
+        calls.append(dict(
+            captures_in_map=len(store.captures), tags=len(store.arucos),
+            blocks=len(store.blocks), seconds=time.perf_counter() - t0,
+            waves=out.get("waves"), rmse_px=out.get("rmse"),
+            captures_made=stats["captures"], programs=stats["programs"],
+            pool_gb=stats["pool_bytes"] / 1e9,
+            reserved_gb=(torch.cuda.memory_reserved() - reserved0) / 1e9))
+    emit("serve_growth", calls=calls,
+         capture_split_ms=graphs.CACHE.stats()["capture_split_ms"])
+    rmse = out.get("rmse", float("nan"))
+    if not (all(c["programs"] == 1 for c in calls) and np.isfinite(rmse)
+            and rmse < 1.0 and out.get("unsolved") == 0):
+        fail(f"serve_growth: {calls}")
+    graphs.CACHE.clear()
+
+
 def _device_ms(fn, names) -> dict:
     """Device ms, by torch.profiler, of the kernels whose names hold each
     of ``names`` over one run of fn."""
@@ -1716,17 +2134,22 @@ def phase_profile(frames16, frames12, tag_m: float) -> None:
 def main() -> int:
     import argparse
 
-    import torch
-
-    from ar_slam_tpu_torch.utils.render import PHONE_12MP, room_scene
-
     p = argparse.ArgumentParser(description="smoke run of the port on a GPU")
     p.add_argument("--profile", action="store_true",
                    help="profile a detection batch of each cell and the "
                         "phone_12mp localization")
     p.add_argument("--tag-mm", type=float, default=PHONE_TAG_M * 1e3,
                    help="printed tag side of the phone_12mp scene in mm")
+    p.add_argument("--one-shot-map", nargs=3, metavar=("MODE", "SRC", "OUT"),
+                   help="run one process of phase 19 (MODE graphs or eager)")
     args = p.parse_args()
+    if args.one_shot_map:
+        return one_shot_map(*args.one_shot_map)
+
+    import torch
+
+    from ar_slam_tpu_torch.utils.render import PHONE_12MP, room_scene
+
     tag_m = args.tag_mm / 1e3
     phase_device()
     phase_build()
@@ -1737,8 +2160,9 @@ def main() -> int:
     emit("render", seconds=time.perf_counter() - t0)
     rows, jobs = phase_kernels(frames16, frames12)
     room16, store16, rmse16 = phase_main_path(frames16, truth16)
-    launches = {"room-16": room16,
-                "phone_12mp": phase_phone_12mp(frames12, truth12, tag_m)}
+    launches = {"room-16": room16}
+    launches["phone_12mp"], phone = phase_phone_12mp(frames12, truth12,
+                                                     tag_m)
     phase_serve_12mp(frames12, truth12, tag_m)
     grouped_rate = timed("solver", phase_solver)
     cg_10k, (arrs10k, rmse10k) = timed("solver_cg_10k", phase_solver_cg_10k)
@@ -1750,14 +2174,19 @@ def main() -> int:
                           frames12)
     timed("mesh_solver_500", phase_mesh_solver_500, grouped_rate)
     timed("mesh_cg_10k", phase_mesh_cg_10k, arrs10k, rmse10k)
-    del arrs10k
     timed("mesh_map_room16", phase_mesh_map_room16, store16, rmse16, truth16)
     timed("multihost_1", phase_multihost_1)
+    graph_jobs = timed("solve_graphs", phase_solve_graphs, store16, phone,
+                       arrs10k)
+    del arrs10k, phone
+    timed("one_shot_map", phase_one_shot_map)
+    timed("serve_growth", phase_serve_growth)
     if args.profile:
         phase_profile(frames16, frames12, tag_m)
     phase_kernel_profiles(jobs)
     timed("cg_10k_profile", phase_cg_profile, *cg_10k)
     del cg_10k
+    timed("solve_graphs_profile", phase_solve_graphs_profile, graph_jobs)
     for row in rows:
         row["launches"] = launches[row["cell"]][COUNTERS[row["name"]]]
         row["mesh_detect_launches"] = mesh_launches[row["cell"]][

@@ -50,7 +50,7 @@ def test_lie_binary_ops(fn):
 
 
 @pytest.mark.parametrize("fn", ["axis_angle_to_quaternion",
-                                "axis_angle_to_matrix"])
+                                "axis_angle_to_matrix", "invert_axis_angle"])
 def test_lie_unary_ops(fn):
     aa = _axis_angles(np.random.default_rng(1))
     ref = jax.jit(jax.vmap(getattr(jlie, fn)))(jnp.asarray(aa))
@@ -104,6 +104,30 @@ def test_project_and_block_residual(distortion):
                                                    jnp.asarray(tag[0]))
     _close(tproj.project_corners(_t(cam), _t(cap[0]), _t(tag[0]), SIZE,
                                  distortion), ref_c, atol=1e-9)
+
+
+def test_reprojection_residuals():
+    """The batched residuals over a padded block table, masked rows zero."""
+    rng = np.random.default_rng(5)
+    cam = np.array([2900.0, 0.0, 0.0])
+    caps = rng.normal(scale=0.3, size=(6, 6))
+    caps[:, 2] -= 2.0
+    tags = rng.normal(scale=0.3, size=(9, 6))
+    blocks = dict(cap_idx=rng.integers(0, 6, size=40),
+                  tag_idx=rng.integers(0, 9, size=40),
+                  corners=rng.normal(scale=200.0, size=(40, 4, 2)),
+                  mask=rng.random(40) < 0.7)
+    ref = jax.jit(lambda c, p, t, b: jproj.reprojection_residuals(
+        c, p, t, b, SIZE))(jnp.asarray(cam), jnp.asarray(caps),
+                           jnp.asarray(tags),
+                           {k: jnp.asarray(v) for k, v in blocks.items()})
+    got = tproj.reprojection_residuals(
+        _t(cam), _t(caps), _t(tags),
+        {k: torch.as_tensor(v) if v.dtype.kind in "bi" else _t(v)
+         for k, v in blocks.items()}, SIZE)
+    assert got.shape == (40, 8)
+    assert not got[~torch.as_tensor(blocks["mask"])].any()
+    _close(got, ref, atol=1e-9)
 
 
 def _views(seed, n):

@@ -342,3 +342,185 @@ def test_sharded_detection_equals_unsharded(dev):
     for name in ref:
         for key in ref[name]:
             assert torch.equal(got[name][key], ref[name][key])
+
+
+def _lm_case(dev, n_tags, n_caps, solver, seed=3):
+    """lm_solve's arguments on the card in float32: a synthetic map near
+    its truth, and its slot bounds (row-split of 8 slots for CG)."""
+    from ar_slam_tpu_torch.convert import arrays_from_numpy
+    from ar_slam_tpu_torch.solve.lm import LMConfig
+    from torch_cases import slot_bounds, synthetic_arrays
+
+    a = synthetic_arrays(seed=seed, n_tags=n_tags, n_caps=n_caps,
+                         perturb=0.005)
+    s_tag, s_cap, n_rows, n_cap_rows = slot_bounds(a, 8)
+    t = arrays_from_numpy(a, dev, torch.float32)
+    args = (t["camera"], t["cap_poses"], t["tag_poses"], t["cap_idx"],
+            t["tag_idx"], t["corners"], t["block_mask"], True,
+            t["cap_mask"], t["tag_mask"])
+    kw = dict(aruco_size=0.0635, obs_per_tag=s_tag, obs_per_cap=s_cap,
+              row_slots=8, tag_rows=n_rows, cap_rows=n_cap_rows,
+              config=LMConfig(max_iterations=12, linear_solver=solver))
+    return args, kw
+
+
+def _equal_solves(got, ref):
+    for g, r in zip(got[:3], ref[:3]):
+        assert torch.equal(g, r)
+    for k, r in ref[3].items():
+        g = got[3][k]
+        assert (torch.equal(g, r) if isinstance(r, torch.Tensor)
+                else g == r), k
+
+
+@pytest.mark.parametrize("solver,n_tags,n_caps",
+                         [("dense", 500, 200), ("cg", 300, 120)])
+def test_graphed_lm_equals_eager(dev, solver, n_tags, n_caps):
+    """lm_solve's CUDA graphs give the eager loop's results bit for bit
+    (synthetic-500 dense, a small CG map), with budgets 3 then the full
+    12 through one capture, and the warmup's frozen camera."""
+    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch.solve.lm import lm_solve
+
+    graphs.CACHE.clear()
+    args, kw = _lm_case(dev, n_tags, n_caps, solver)
+    for budget, cam in ((3, True), (None, True), (None, False)):
+        a = args[:7] + (cam,) + args[8:]
+        ref = lm_solve(*a, iter_budget=budget, graphs=False, **kw)
+        got = lm_solve(*a, iter_budget=budget, **kw)
+        torch.cuda.synchronize()
+        _equal_solves(got, ref)
+    assert graphs.CACHE.captures == 1 and graphs.CACHE.replays > 0
+
+
+def test_graph_cache_reuses_its_pool(dev):
+    """Another signature replaces the LM program and captures into the
+    same memory pool: one program held, and a smaller problem after a
+    larger one adds less than half of what its own pool holds; each
+    replays the eager results."""
+    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch.solve.lm import lm_solve
+
+    cases = [_lm_case(dev, n_tags, n_caps, "dense")
+             for n_tags, n_caps in ((300, 120), (500, 200))]
+    pools = []
+    for order in ([0], [1, 0]):
+        graphs.CACHE.clear()
+        for args, kw in (cases[i] for i in order):
+            ref = lm_solve(*args, iter_budget=3, graphs=False, **kw)
+            got = lm_solve(*args, iter_budget=3, **kw)
+            torch.cuda.synchronize()
+            _equal_solves(got, ref)
+            stats = graphs.CACHE.stats()
+            assert stats["programs"] == 1
+            pools.append(stats["pool_bytes"])
+        assert graphs.CACHE.captures == len(order)
+    small, large, both = pools
+    assert 0 < small < large and both < large + small / 2
+    graphs.CACHE.clear()
+
+
+def test_graph_replays_do_not_sync(dev):
+    """The stages read nothing back to the host: run eagerly on the card
+    and replayed, both under set_sync_debug_mode("error")."""
+    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch.solve.lm import grouped_bounds, lm_solve
+
+    graphs.CACHE.clear()
+    args, kw = _lm_case(dev, 200, 80, "cg")
+    lm_solve(*args, iter_budget=2, **kw)  # captures
+    (prog,) = graphs.CACHE._programs.values()
+    n_tags = args[2].shape[0]
+    eager = graphs.Program(graphs._lm_stages(
+        kw["aruco_size"], kw["config"], args[1].shape[0], n_tags,
+        grouped_bounds(n_tags, kw["config"], kw["obs_per_tag"],
+                       kw["obs_per_cap"], kw["row_slots"], kw["tag_rows"],
+                       kw["cap_rows"])), False)
+    eager.load(**{k: v.clone() for k, v in prog.t.items() if k in (
+        "in_camera", "in_cap_poses", "in_tag_poses", "cap_idx", "tag_idx",
+        "corners", "block_mask", "cam_active", "cap_active", "tag_active")})
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for p in (eager, prog):
+            for name in ("setup", "step", "accept", "step", "reject"):
+                p.run(name)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for k in ("camera", "cap_poses", "tag_poses", "lam", "nu", "cost"):
+        assert torch.equal(prog.t[k], eager.t[k]), k
+
+
+def test_capture_beside_detect_thread(dev):
+    """A capture succeeds while another thread runs detect_batch on the
+    card (the pipelined serve loop), and replays the eager results."""
+    import threading
+
+    from ar_slam_tpu_torch.detect.detect import detect_batch
+    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch.solve.lm import lm_solve
+
+    frames = torch.from_numpy(_frames(4))
+    detect_batch(frames, device=dev)  # builds the kernels
+    stop, errors, runs = threading.Event(), [], [0]
+
+    def detect_loop():
+        try:
+            while not stop.is_set():
+                detect_batch(frames, device=dev)
+                runs[0] += 1
+        except Exception as e:  # reported by the main thread
+            errors.append(e)
+
+    graphs.CACHE.clear()
+    args, kw = _lm_case(dev, 500, 200, "dense")
+    ref = lm_solve(*args, graphs=False, **kw)
+    th = threading.Thread(target=detect_loop)
+    th.start()
+    try:
+        while runs[0] == 0 and not errors:
+            stop.wait(0.01)
+        got = lm_solve(*args, **kw)
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        th.join(timeout=120)
+    assert not th.is_alive() and not errors, errors
+    assert graphs.CACHE.captures == 1 and runs[0] > 0
+    _equal_solves(got, ref)
+
+
+def test_solve_and_localize_replay_graphs(dev):
+    """solve and localize_many on the card replay graphs, bit for bit the
+    eager loops (a synthetic map of 7 captures, 3 queries)."""
+    from ar_slam_tpu_torch.config import ArSlamConfig
+    from ar_slam_tpu_torch.graph.store import MapStore
+    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch.solve.batch import solve
+    from ar_slam_tpu_torch.solve.localize import localize_many
+    from ar_slam_tpu_torch.utils.synthetic import make_synthetic_map
+
+    src, _ = make_synthetic_map(n_tags=20, n_caps=10, seed=8)
+
+    def add(store, caps):
+        for cap in caps:
+            store.add_detections(cap.uid, [
+                (src.arucos[src.blocks[b].tag_idx].id, src.blocks[b].corners)
+                for b in cap.blocks], src.camera.size)
+
+    results = {}
+    for g in (False, True):
+        graphs.CACHE.clear()
+        store = MapStore(initial_focal=3000.0)
+        add(store, src.captures[:7])
+        summary = solve(store, ArSlamConfig(), device=dev, graphs=g)
+        add(store, src.captures[7:])
+        loc = localize_many(store, 7, ArSlamConfig(), device=dev, graphs=g)
+        results[g] = (summary, loc, [c.inv_pose.copy()
+                                     for c in store.captures])
+        assert (graphs.CACHE.replays > 0) == g
+    (s0, l0, p0), (s1, l1, p1) = results[False], results[True]
+    assert s0 == s1 and l0 == l1
+    for a, b in zip(p0, p1):
+        assert np.array_equal(a, b)

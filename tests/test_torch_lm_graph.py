@@ -1,0 +1,320 @@
+"""The solver's CUDA-graph stages on the CPU, float64.
+
+solve/graphs.py replays the LM iteration as the stages ``lm_step`` /
+``lm_accept`` / ``lm_reject`` and localize's as ``localize_iteration``.
+Here the same stages run eagerly, driven by the same host loop, and must
+give the eager loops' (``lm_core``, ``localize_batch``) results bit for
+bit; they agree with the JAX package within 1e-10; and no operation that
+a CUDA graph cannot capture runs inside a stage.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from ar_slam_tpu.solve import lm as jlm
+from ar_slam_tpu.solve import localize as jloc
+from ar_slam_tpu_torch.solve import graphs
+from ar_slam_tpu_torch.solve import lm as tlm
+from ar_slam_tpu_torch.solve.localize import localize_batch
+from ar_slam_tpu_torch.utils.synthetic import make_synthetic_map
+from torch_cases import slot_bounds, synthetic_arrays
+
+torch.set_num_threads(1)
+SIZE = 0.0635
+ROW_SLOTS = 2
+
+# each case names the termination it must reach (TERMINATION_REASONS)
+CASES = {
+    "function": (dict(), 1),
+    "parameter": (dict(function_tolerance=0.0, parameter_tolerance=1e-3), 2),
+    "gradient": (dict(function_tolerance=0.0, gradient_tolerance=5e3), 3),
+    "gradient_at_start": (dict(gradient_tolerance=1e12), 3),
+    # every step rejected until lambda passes the stall bound
+    "stall": (dict(min_relative_decrease=10.0, stall_lambda=1e-2), 4),
+    "budget_1": (dict(), 0),
+    "full_budget": (dict(function_tolerance=0.0, parameter_tolerance=0.0,
+                         max_iterations=6), 0),
+    "disabled": (dict(), 5),
+    "warmup_masks": (dict(), None),
+}
+
+
+@pytest.fixture(scope="module")
+def problem():
+    a = synthetic_arrays(seed=3, n_tags=20, n_caps=10, perturb=0.01)
+    s_tag, s_cap, n_rows, n_cap_rows = slot_bounds(a, ROW_SLOTS)
+    return a, dict(obs_per_tag=s_tag, obs_per_cap=s_cap,
+                   row_slots=ROW_SLOTS, tag_rows=n_rows,
+                   cap_rows=n_cap_rows)
+
+
+def _args(a, case):
+    """(positional lm_solve args as numpy, keywords) of a case."""
+    cam, cap_m, tag_m = True, a.cap_mask, a.tag_mask
+    kw = {}
+    if case == "warmup_masks":  # register-then-refine: camera frozen
+        cam = False
+        cap_m = a.cap_mask & (np.arange(a.cap_mask.size) % 3 == 0)
+        tag_m = a.tag_mask & (np.arange(a.tag_mask.size) % 2 == 0)
+    if case == "budget_1":
+        kw["iter_budget"] = 1
+    if case == "disabled":
+        kw["enabled"] = False
+    return (a.camera, a.cap_poses, a.tag_poses, a.cap_idx, a.tag_idx,
+            a.corners, a.block_mask, cam, cap_m, tag_m), kw
+
+
+def _torch_args(args):
+    """numpy arrays as float64 / int64 tensors; the camera flag stays."""
+    out = []
+    for x in args:
+        if isinstance(x, np.ndarray):
+            x = torch.as_tensor(x)
+            x = (x.to(torch.float64) if x.is_floating_point() else
+                 x.to(torch.int64) if x.dtype == torch.int32 else x)
+        out.append(x)
+    return out
+
+
+def _assert_equal(got, ref):
+    for g, r in zip(got[:3], ref[:3]):
+        assert torch.equal(g, r)
+    for k, r in ref[3].items():
+        g = got[3][k]
+        assert (torch.equal(g, r) if isinstance(r, torch.Tensor)
+                else g == r), k
+
+
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_split_stages_equal_lm_core(problem, solver, case):
+    """The stages driven by the graphs' host loop give lm_core's results
+    bit for bit: state, cost, lambda, nu, flags, termination, iterations,
+    gradient."""
+    a, bounds = problem
+    overrides, term = CASES[case]
+    config = tlm.LMConfig(linear_solver=solver, **overrides)
+    args, kw = _args(a, case)
+    targs = _torch_args(args)
+    ref = tlm.lm_solve(*targs, aruco_size=SIZE, config=config, graphs=False,
+                       **bounds, **kw)
+    got = graphs.lm_solve_graphed(
+        *targs, aruco_size=SIZE, config=config, graphed=False,
+        **tlm.grouped_bounds(a.tag_poses.shape[0], config, **bounds), **kw)
+    _assert_equal(got, ref)
+    if term is not None:
+        assert int(got[3]["termination"]) == term
+    iters = got[3]["iterations"]
+    assert iters == {"budget_1": 1, "full_budget": 6, "disabled": 0,
+                     "gradient_at_start": 0}.get(case, iters)
+
+
+def test_split_stages_resume_damping(problem):
+    """lam0 / nu0 (the host-stepped progress mode) resume the schedule."""
+    a, bounds = problem
+    config = tlm.LMConfig()
+    targs = _torch_args(_args(a, "function")[0])
+    kw = dict(aruco_size=SIZE, config=config, iter_budget=2, lam0=3e-3,
+              nu0=8.0, **bounds)
+    ref = tlm.lm_solve(*targs, graphs=False, **kw)
+    got = graphs.lm_solve_graphed(*targs, graphed=False, **{
+        **kw, **tlm.grouped_bounds(a.tag_poses.shape[0], config, **bounds)})
+    _assert_equal(got, ref)
+
+
+def test_graphed_lm_needs_cuda(problem):
+    a, bounds = problem
+    with pytest.raises(ValueError, match="CUDA graphs need a CUDA device"):
+        graphs.lm_solve_graphed(*_torch_args(_args(a, "function")[0]),
+                                aruco_size=SIZE, config=tlm.LMConfig(),
+                                **bounds)
+
+
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+def test_split_stages_match_jax(problem, solver):
+    """The staged LM against the JAX package's lm_solve: the same
+    iterations and termination, cost within 1e-10 (CG solved to 1e-12,
+    where its inexact steps would otherwise follow rounding); the dense
+    solve's parameters within 1e-8 (CG's stop 1e-7 apart along the
+    optimum's shallow directions, at the same cost)."""
+    a, bounds = problem
+    fields = dict(linear_solver=solver, cg_tolerance=1e-12,
+                  cg_max_iterations=60)
+    args, _ = _args(a, "function")
+    ref = jax.jit(lambda *x: jlm.lm_solve(
+        *x[:7], True, *x[7:], aruco_size=SIZE,
+        config=jlm.LMConfig(**fields), **bounds))(
+        *map(jnp.asarray, args[:7] + args[8:]))
+    config = tlm.LMConfig(**fields)
+    got = graphs.lm_solve_graphed(
+        *_torch_args(args), aruco_size=SIZE, config=config, graphed=False,
+        **tlm.grouped_bounds(a.tag_poses.shape[0], config, **bounds))
+    c_ref, c_got = float(ref[3]["cost"]), float(got[3]["cost"])
+    assert abs(c_got - c_ref) <= 1e-10 * c_ref
+    assert got[3]["iterations"] == int(ref[3]["iterations"])
+    assert int(got[3]["termination"]) == int(ref[3]["termination"])
+    if solver == "dense":
+        for g, r in zip(got[:3], ref[:3]):
+            assert np.abs(g.numpy() - np.asarray(r)).max() <= 1e-8
+
+
+def _queries(seed=8):
+    """Every capture of a synthetic map as a query against its true tag
+    poses (perturbed by 1e-3), padded to the widest query; one query
+    without blocks."""
+    store, truth = make_synthetic_map(n_tags=12, n_caps=6, seed=seed)
+    rng = np.random.default_rng(seed)
+    tags = np.zeros((len(store.arucos), 6))
+    for t in store.arucos:
+        tags[t.index] = truth["tag_poses"][int(t.id.split("_")[-1])]
+    tags += rng.normal(scale=1e-3, size=tags.shape)
+    q = len(store.captures) + 1
+    k = max(len(c.blocks) for c in store.captures)
+    q_tag = np.zeros((q, k), np.int64)
+    q_crn = np.zeros((q, k, 4, 2))
+    q_mask = np.zeros((q, k), bool)
+    q_seed = np.zeros(q, np.int64)
+    for qi, cap in enumerate(store.captures):
+        for ki, bh in enumerate(cap.blocks):
+            q_tag[qi, ki] = store.blocks[bh].tag_idx
+            q_crn[qi, ki] = store.blocks[bh].corners
+            q_mask[qi, ki] = True
+        q_seed[qi] = qi % len(cap.blocks)
+    return store.camera.params.copy(), tags, q_tag, q_crn, q_mask, q_seed
+
+
+LOC_CASES = {"default": dict(), "stall": dict(min_relative_decrease=10.0,
+                                              stall_lambda=1e-2),
+             "budget": dict(function_tolerance=0.0, parameter_tolerance=0.0,
+                            max_iterations=4)}
+
+
+@pytest.mark.parametrize("case", list(LOC_CASES))
+def test_localize_stage_equals_localize_batch(case):
+    """The staged localize (one stage an iteration) is localize_batch bit
+    for bit."""
+    config = tlm.LMConfig(**LOC_CASES[case])
+    args = [torch.as_tensor(x) for x in _queries()]
+    ref = localize_batch(*args, aruco_size=SIZE, config=config)
+    got = graphs.localize_graphed(*args, aruco_size=SIZE, config=config,
+                                  graphed=False)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    if case == "budget":
+        assert got[2][:-1].tolist() == [4] * (len(got[2]) - 1)
+    assert got[2][-1] == 0  # the query without blocks
+
+
+def test_localize_stage_matches_jax():
+    """The staged localize against the JAX package's localize_kernel:
+    poses within 1e-10, costs within 1e-10 relative, the same iteration
+    counts."""
+    q = _queries()
+    config = tlm.LMConfig()
+    got = graphs.localize_graphed(*[torch.as_tensor(x) for x in q],
+                                  aruco_size=SIZE, config=config,
+                                  graphed=False)
+    ref = jloc.localize_kernel(*map(jnp.asarray, q), aruco_size=SIZE,
+                               config=jlm.LMConfig())
+    assert np.abs(got[0].numpy() - np.asarray(ref[0])).max() <= 1e-10
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(ref[1]),
+                               rtol=1e-10, atol=1e-20)
+    assert got[2].tolist() == np.asarray(ref[2]).tolist()
+
+
+class NoHostSync(TorchDispatchMode):
+    """Raises on what a CUDA graph cannot capture: a read of a value to
+    the host (``item``, ``bool()``: ``_local_scalar_dense``), an output
+    sized by the data (``nonzero``), a tensor made from host data
+    (``torch.tensor``, ``as_tensor`` of Python values: ``lift_fresh``) or
+    a copy between devices.  (``tolist`` and ``numpy`` of a CPU tensor do
+    not dispatch; the card tests catch those under
+    ``set_sync_debug_mode``.)"""
+
+    BANNED = {torch.ops.aten._local_scalar_dense.default,
+              torch.ops.aten.nonzero.default,
+              torch.ops.aten.item.default,
+              torch.ops.aten.lift_fresh.default,
+              torch.ops.aten.lift_fresh_copy.default}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in self.BANNED:
+            raise AssertionError(f"{func} inside a captured stage")
+        if func in (torch.ops.aten._to_copy.default,
+                    torch.ops.aten.copy_.default):
+            src = args[1] if func is torch.ops.aten.copy_.default else args[0]
+            dst = (args[0].device if func is torch.ops.aten.copy_.default
+                   else kwargs.get("device") or src.device)
+            if torch.device(dst) != src.device:
+                raise AssertionError(f"{func} from {src.device} to {dst}")
+        return func(*args, **kwargs)
+
+
+def test_no_host_sync_mode_catches_reads():
+    x = torch.ones(3)
+    with NoHostSync():
+        torch.full((), 2.0) * x  # fills are fine
+        for bad in (lambda: bool(x.sum() > 0), lambda: torch.nonzero(x),
+                    lambda: torch.as_tensor(2.0), lambda: x.sum().item()):
+            with pytest.raises(AssertionError):
+                bad()
+
+
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+def test_stages_read_nothing_back(problem, monkeypatch, solver):
+    """No stage (setup, step, accept, reject, localize's iteration) reads
+    a value to the host or makes a tensor from host data: each runs under
+    NoHostSync, the host loop between them does not."""
+    ran = []
+    run = graphs.Program.run
+
+    def guarded(self, name):
+        ran.append(name)
+        with NoHostSync():
+            run(self, name)
+
+    monkeypatch.setattr(graphs.Program, "run", guarded)
+    a, bounds = problem
+    for case in ("function", "stall", "warmup_masks"):
+        config = tlm.LMConfig(linear_solver=solver, **CASES[case][0])
+        args, kw = _args(a, case)
+        graphs.lm_solve_graphed(
+            *_torch_args(args), aruco_size=SIZE, config=config,
+            graphed=False, **kw,
+            **tlm.grouped_bounds(a.tag_poses.shape[0], config, **bounds))
+    graphs.localize_graphed(*[torch.as_tensor(x) for x in _queries()],
+                            aruco_size=SIZE, config=tlm.LMConfig(),
+                            graphed=False)
+    assert {"setup", "step", "accept", "reject", "iterate"} <= set(ran)
+
+
+def test_graph_cache_keeps_one_program_per_kind():
+    """The cache holds one program per (kind, device): the same signature
+    gets it back, another signature replaces it and frees it, and the
+    kinds are kept apart."""
+    import weakref
+
+    made = []
+
+    def make():
+        made.append(graphs.Program({}, True))
+        return made[-1]
+
+    graphs.CACHE.clear()
+    try:
+        first = weakref.ref(graphs.CACHE.get("lm", "cuda:0", 1, make))
+        assert graphs.CACHE.get("lm", "cuda:0", 1, make) is first()
+        made.clear()
+        lm = graphs.CACHE.get("lm", "cuda:0", 2, make)
+        loc = graphs.CACHE.get("localize", "cuda:0", 1, make)
+        assert first() is None and len(made) == 2 and lm is not loc
+        assert graphs.CACHE.get("lm", "cuda:0", 2, make) is lm
+        assert graphs.CACHE.get("lm", "cuda:1", 2, make) is not lm
+        assert graphs.CACHE.stats()["programs"] == 3
+    finally:
+        graphs.CACHE.clear()
