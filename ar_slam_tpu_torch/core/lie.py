@@ -5,10 +5,12 @@ Conventions are the reference's: an axis-angle vector's direction is the
 rotation axis and its norm the angle; quaternions are (w, x, y, z).
 
 Every function works on the last axis and broadcasts over leading axes, so
-the same code serves one block under ``torch.func.jacfwd``/``vmap`` and a
-whole batch directly.  Each sin/cos ratio switches to its Taylor series
-under ``theta^2 < 1e-12`` with the double-where trick, so values and
-forward-mode derivatives stay finite at exactly zero.
+the same code serves one block and a whole batch.  ``axis_angle_rotate``
+also takes jets (core/jet.py) for its operands, which gives the rotated
+points' forward-mode derivatives with their values.  Each sin/cos ratio
+switches to its Taylor series under ``theta^2 < 1e-12`` with the
+double-where trick, so values and forward-mode derivatives stay finite
+at exactly zero.
 """
 
 from __future__ import annotations
@@ -18,37 +20,37 @@ import math
 import torch
 
 import ar_slam_tpu_torch.device  # noqa: F401  (switches TF32 off)
+from ar_slam_tpu_torch.core import jet as J
 
 _SMALL_SQ = 1e-12
 
 
 def _safe_ratio(theta_sq, closed_form_fn, series_fn):
     """closed_form_fn(theta_sq) where theta_sq is large, the series
-    elsewhere, with NaN-free derivatives (double-where trick)."""
-    small = theta_sq < _SMALL_SQ
-    safe = torch.where(small, torch.ones_like(theta_sq), theta_sq)
-    return torch.where(small, series_fn(theta_sq), closed_form_fn(safe))
-
-
-def _cross(a, b):
-    a, b = torch.broadcast_tensors(a, b)
-    return torch.linalg.cross(a, b, dim=-1)
+    elsewhere, with NaN-free derivatives (double-where trick); a tensor
+    or a jet."""
+    t2 = J.value(theta_sq)
+    small = t2 < _SMALL_SQ
+    safe = J.where(small, torch.ones_like(t2), theta_sq)
+    return J.where(small, series_fn(theta_sq), closed_form_fn(safe))
 
 
 def axis_angle_rotate(aa, p):
     """Rotate points ``p`` (..., 3) by axis-angle ``aa`` (..., 3):
-    R p = p cos t + (aa x p) sin(t)/t + aa (aa . p) (1 - cos t)/t^2."""
-    theta_sq = torch.sum(aa * aa, dim=-1, keepdim=True)
-    cos_t = _safe_ratio(theta_sq, lambda t2: torch.cos(torch.sqrt(t2)),
+    R p = p cos t + (aa x p) sin(t)/t + aa (aa . p) (1 - cos t)/t^2.
+    Either operand may be a jet; the result is one if either is."""
+    theta_sq = J.sum(aa * aa, dim=-1, keepdim=True)
+    cos_t = _safe_ratio(theta_sq, lambda t2: J.cos(J.sqrt(t2)),
                         lambda t2: 1.0 - t2 / 2.0 + t2 * t2 / 24.0)
     sinc = _safe_ratio(theta_sq,
-                       lambda t2: torch.sin(torch.sqrt(t2)) / torch.sqrt(t2),
+                       lambda t2: J.sin(J.sqrt(t2)) / J.sqrt(t2),
                        lambda t2: 1.0 - t2 / 6.0 + t2 * t2 / 120.0)
     one_minus_cos_over_sq = _safe_ratio(
-        theta_sq, lambda t2: (1.0 - torch.cos(torch.sqrt(t2))) / t2,
+        theta_sq, lambda t2: (1.0 - J.cos(J.sqrt(t2))) / t2,
         lambda t2: 0.5 - t2 / 24.0 + t2 * t2 / 720.0)
-    dot = torch.sum(aa * p, dim=-1, keepdim=True)
-    return p * cos_t + _cross(aa, p) * sinc + aa * (dot * one_minus_cos_over_sq)
+    dot = J.sum(aa * p, dim=-1, keepdim=True)
+    return (p * cos_t + J.cross(aa, p) * sinc
+            + aa * (dot * one_minus_cos_over_sq))
 
 
 def axis_angle_to_quaternion(aa):

@@ -6,13 +6,16 @@ p_w = R(tag_rot) c + tag_t; camera point from the capture's stored INVERSE
 pose, translate then rotate: p_c = R(inv_rot) (p_w + inv_t); pinhole
 uv = focal (x/z, y/z) in centered pixel coordinates, with the reference's
 carried-but-disabled radial terms behind ``distortion``.  Corner order
-TL, TR, BR, BL.  Functions broadcast over leading axes.
+TL, TR, BR, BL.  Functions broadcast over leading axes, and
+``project_corners`` / ``block_residual`` take jets (core/jet.py) for the
+camera and the poses, which gives the residuals' Jacobians with them.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ar_slam_tpu_torch.core import jet as J
 from ar_slam_tpu_torch.core.lie import axis_angle_rotate
 
 ARUCO_DIRECTIONS = ((-1.0, -1.0), (1.0, -1.0), (1.0, 1.0), (-1.0, 1.0))
@@ -48,11 +51,12 @@ def project_corners(camera, inv_cap_pose, tag_pose, aruco_size,
                                   corners_w + inv_cap_pose[..., None, 0:3])
     # sign-preserving depth clamp keeps padded/garbage rows finite
     z = corners_c[..., 2:3]
-    z_safe = torch.where(torch.abs(z) < 1e-9,
-                         torch.where(z < 0, -1e-9, 1e-9).to(z.dtype), z)
+    zv = J.value(z)
+    z_safe = J.where(torch.abs(zv) < 1e-9,
+                     torch.where(zv < 0, -1e-9, 1e-9).to(zv.dtype), z)
     xy = corners_c[..., 0:2] / z_safe
     if distortion:
-        r2 = torch.sum(xy * xy, dim=-1, keepdim=True)
+        r2 = J.sum(xy * xy, dim=-1, keepdim=True)
         xy = xy * (1.0 + r2 * (camera[..., None, 1:2]
                                + camera[..., None, 2:3] * r2))
     return camera[..., None, 0:1] * xy

@@ -17,8 +17,8 @@ Functions broadcast over leading axes (several corner sets at once).
 from __future__ import annotations
 
 import torch
-from torch.func import jacfwd
 
+from ar_slam_tpu_torch.core import jet as J
 from ar_slam_tpu_torch.core.lie import (axis_angle_rotate,
                                         axis_angle_to_quaternion,
                                         compose_axis_angle,
@@ -179,6 +179,20 @@ def seed_capture_pose(corners, camera, ar_pose, aruco_size,
     return torch.where((c_h < c_f)[..., None], homog, frontal)
 
 
+def anchor_residuals(pose, camera, anchor_tag_poses, anchor_corners,
+                     anchor_mask, aruco_size):
+    """(S * 8,) residuals of a capture pose (6,) against its anchors,
+    masked and non-finite entries zeroed: the capture seed's Gauss-Newton
+    residual.  With ``pose`` a jet (core/jet.py), a jet whose tangents
+    are its (S * 8, 6) Jacobian."""
+    rs = block_residual(camera, pose, anchor_tag_poses, anchor_corners,
+                        aruco_size)  # (S, 8)
+    zero = torch.zeros_like(J.value(rs))
+    rs = J.where(anchor_mask[:, None], rs, zero)
+    rs = J.where(torch.isfinite(J.value(rs)), rs, zero)
+    return rs.reshape(-1)
+
+
 def seed_capture_pose_multi(anchor_corners, camera, anchor_tag_poses,
                             anchor_mask, aruco_size, mode: str = "hybrid"):
     """Seed one capture's inverse pose from ALL its observations of
@@ -186,7 +200,9 @@ def seed_capture_pose_multi(anchor_corners, camera, anchor_tag_poses,
     position / quaternion mean, the one of lowest total anchor cost, then
     three guarded Gauss-Newton steps against the anchors.  With exactly
     one valid anchor the single-anchor candidate is returned as it is
-    (the reference's init_block seed).
+    (the reference's init_block seed).  No host read: the selections are
+    index_select of device indices, the Gauss-Newton Jacobian a jet
+    (core/jet.py).
 
     anchor_corners (S, 4, 2), anchor_tag_poses (S, 6), anchor_mask (S,).
     """
@@ -197,8 +213,8 @@ def seed_capture_pose_multi(anchor_corners, camera, anchor_tag_poses,
     denom = torch.clamp(m.sum(), min=1.0)
     pos_mean = (cands[:, 0:3] * m[:, None]).sum(0) / denom
     q = axis_angle_to_quaternion(cands[:, 3:6])
-    first_i = torch.argmax(anchor_mask.to(torch.int32))
-    q0 = q[first_i]
+    first_i = torch.argmax(anchor_mask.to(torch.int32)).reshape(1)
+    q0 = q.index_select(0, first_i)[0]
     sign = torch.where(torch.sum(q * q0, dim=-1, keepdim=True) < 0.0, -1.0,
                        1.0).to(dtype)
     qm = (q * sign * m[:, None]).sum(0)
@@ -217,20 +233,16 @@ def seed_capture_pose_multi(anchor_corners, camera, anchor_tag_poses,
                                     torch.full_like(scores[:-1],
                                                     float("inf"))),
                         scores[-1:]])
-    best = all_cands[torch.argmin(scores)]
-
-    def anchor_residuals(pose):
-        rs = block_residual(camera, pose, anchor_tag_poses, anchor_corners,
-                            aruco_size)  # (S, 8)
-        rs = torch.where(anchor_mask[:, None], rs, torch.zeros_like(rs))
-        return _finite_or_zero(rs).reshape(-1)
+    best = all_cands.index_select(0, torch.argmin(scores).reshape(1))[0]
 
     eye = torch.eye(6, dtype=dtype, device=best.device)
     for _ in range(3):
-        r = anchor_residuals(best)
-        jac = jacfwd(anchor_residuals)(best)  # (S*8, 6)
+        rj = anchor_residuals(J.variables(best, 6), camera, anchor_tag_poses,
+                              anchor_corners, anchor_mask, aruco_size)
+        r, jac = rj.v, rj.d  # (S*8,), (S*8, 6)
         h = jac.T @ jac + 1e-4 * eye
         new = best - torch.linalg.solve_ex(h, jac.T @ r).result
         new = torch.where(torch.isfinite(new), new, best)
         best = torch.where(total_cost(new) < total_cost(best), new, best)
-    return torch.where(m.sum() == 1.0, cands[first_i], best)
+    return torch.where(m.sum() == 1.0, cands.index_select(0, first_i)[0],
+                       best)

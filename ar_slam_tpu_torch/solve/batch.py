@@ -19,11 +19,13 @@ row-split slot packing, its row budgets sized from the whole store.  With
 ``minimizer_progress_to_stdout`` the joint LM of each flush runs one
 iteration per call, eagerly, and prints a ceres-style line per iteration.
 
-On a CUDA device every single-device LM (the waves, the warmups, the
-polish) replays CUDA graphs (solve/graphs.py), one capture serving every
-LM of a runner; ``graphs=False`` runs the eager loop, bit for bit the
-same.  A flush uploads its seed tables in one copy (``pack_waves``) and
-its activity masks in another (``_WaveRunner._masks``).
+A flush uploads its seed tables in one copy (``pack_waves``: the JAX
+package's (W, S) slot tables) and its activity masks in another
+(``_WaveRunner._masks``); ``seed_waves`` applies the tables with no host
+read.  On a CUDA device the seeds and every single-device LM (the waves,
+the warmups, the polish) replay CUDA graphs (solve/graphs.py), one
+capture of each serving every flush of a runner; ``graphs=False`` runs
+the same stages eagerly, bit for bit the same.
 
 With a ``mesh`` (or ``config.dist.num_devices > 1``) the tags are sharded
 over it and every LM runs the tag-sharded distributed solve
@@ -44,7 +46,8 @@ from ar_slam_tpu_torch.convert import arrays_from_numpy
 from ar_slam_tpu_torch.core.seeding import (seed_capture_pose_multi,
                                             seed_tag_pose)
 from ar_slam_tpu_torch.device import resolve_device, resolve_dtype
-from ar_slam_tpu_torch.graph.arrays import export_arrays, obs_bucket, write_back
+from ar_slam_tpu_torch.graph.arrays import (bucket_size, export_arrays,
+                                            obs_bucket, write_back)
 from ar_slam_tpu_torch.graph.store import MapStore
 from ar_slam_tpu_torch.solve.lm import TERMINATION_REASONS, LMConfig, lm_solve
 from ar_slam_tpu_torch.solve.residuals import total_cost
@@ -55,7 +58,8 @@ logger = logging.getLogger(__name__)
 def seed_capture(camera, cap_poses, seed_cap, anchor_corners,
                  anchor_tag_poses, aruco_size, seed_mode):
     """Seed capture ``seed_cap`` in place from its anchors: the corners of
-    its observations of already-initialized tags and those tags' poses."""
+    its observations of already-initialized tags and those tags' poses
+    (the mesh path's seeds, parallel/dist_lm.py)."""
     cap_poses[seed_cap] = seed_capture_pose_multi(
         anchor_corners, camera, anchor_tag_poses,
         torch.ones(anchor_corners.shape[0], dtype=torch.bool,
@@ -65,7 +69,8 @@ def seed_capture(camera, cap_poses, seed_cap, anchor_corners,
 def seed_tags(camera, cap_pose, tag_poses, corners, rows, tags, aruco_size,
               seed_mode):
     """Initialize ``tags`` in place, each from its block row of
-    ``rows``, through the capture pose that saw them."""
+    ``rows``, through the capture pose that saw them (the mesh path's
+    seeds, parallel/dist_lm.py)."""
     dev = corners.device
     r = torch.as_tensor(rows, dtype=torch.int64, device=dev)
     t = torch.as_tensor(tags, dtype=torch.int64, device=dev)
@@ -73,22 +78,63 @@ def seed_tags(camera, cap_pose, tag_poses, corners, rows, tags, aruco_size,
                                  mode=seed_mode)
 
 
-def pack_waves(waves, device) -> list:
-    """A flush's seed tables uploaded in one copy (≙ the (W, S) slot
-    tables of the reference's ``apply_wave_seeds_multi``): per wave
-    (seed_cap, seed_row, tag rows, tags, anchor rows), the three row lists
-    as int64 views on ``device`` cut to their lengths on the host."""
-    lists = [list(w[k]) for w in waves for k in (2, 3, 4)]
-    flat = torch.as_tensor(np.fromiter((x for ls in lists for x in ls),
-                                       dtype=np.int64), device=device)
-    out, at = [], 0
-    for i, (seed_cap, seed_row, *_) in enumerate(waves):
-        views = []
-        for ls in lists[3 * i:3 * i + 3]:
-            views.append(flat[at:at + len(ls)])
-            at += len(ls)
-        out.append((seed_cap, seed_row, *views))
+def pack_waves(waves, slots: int, w_min: int = 1) -> np.ndarray:
+    """A flush's seed tables, the JAX package's (W, S) slot tables
+    (ar_slam_tpu/solve/batch.py:579-605), as one int64 host array
+    (W, 2 + 5 S) for one upload: per wave its row [seed_cap, seed_block,
+    wave_tags (S), wave_rows (S), wave_mask (S), anchor_rows (S),
+    anchor_mask (S)].  W = max(bucket_size(len(waves), floor=1), w_min)
+    and S = ``slots``; padding waves have seed_block -1 and padding slots
+    row 0, masked.  A wave is (seed_cap, seed_row, tag_rows, tags,
+    anchor_rows)."""
+    s = slots
+    out = np.zeros((max(bucket_size(len(waves), floor=1), w_min), 2 + 5 * s),
+                   dtype=np.int64)
+    out[:, 1] = -1
+    for w, (seed_cap, seed_row, rows, tags, anchors) in enumerate(waves):
+        out[w, 0:2] = seed_cap, seed_row
+        out[w, 2:2 + len(tags)] = tags
+        out[w, 2 + s:2 + s + len(rows)] = rows
+        out[w, 2 + 2 * s:2 + 2 * s + len(rows)] = 1
+        out[w, 2 + 3 * s:2 + 3 * s + len(anchors)] = anchors
+        out[w, 2 + 4 * s:2 + 4 * s + len(anchors)] = 1
     return out
+
+
+def seed_waves(camera, cap_poses, tag_poses, tag_idx, corners, tables, *,
+               aruco_size, seed_mode) -> tuple:
+    """Seed the waves of ``tables`` (``pack_waves``, on the device) in
+    order, with no host read (≙ the JAX package's
+    ``apply_wave_seeds_multi``): a static loop over the W waves, each
+    seeding its capture from its anchors where seed_block >= 0 (selected
+    by ``torch.where``, as JAX's ``lax.cond``), then initializing the
+    tags first seen in it through that capture.  Padding slots scatter
+    into one spare tag row that is cut off (JAX's ``mode="drop"``).
+    Returns new (cap_poses, tag_poses)."""
+    s = (tables.shape[1] - 2) // 5
+    seed_caps, seed_blocks = tables[:, 0], tables[:, 1]
+    wave_tags, wave_rows, wave_mask, anchor_rows, anchor_mask = (
+        tables[:, 2 + k * s:2 + (k + 1) * s] for k in range(5))
+    wave_mask, anchor_mask = wave_mask != 0, anchor_mask != 0
+    n_tags = tag_poses.shape[0]
+    init_corners = corners[wave_rows]  # (W, S, 4, 2)
+    anc_corners = corners[anchor_rows]
+    anc_tags = tag_idx[anchor_rows]  # (W, S)
+    targets = torch.where(wave_mask, wave_tags,
+                          torch.full_like(wave_tags, n_tags))
+    cap_poses = cap_poses.clone()
+    tag_poses = torch.cat([tag_poses, tag_poses[:1]])
+    for w in range(tables.shape[0]):
+        cap = seed_caps[w:w + 1]
+        pose = seed_capture_pose_multi(
+            anc_corners[w], camera, tag_poses.index_select(0, anc_tags[w]),
+            anchor_mask[w], aruco_size, mode=seed_mode)
+        pose = torch.where(seed_blocks[w] >= 0, pose,
+                           cap_poses.index_select(0, cap)[0])
+        cap_poses.index_copy_(0, cap, pose[None])
+        tag_poses.index_copy_(0, targets[w], seed_tag_pose(
+            init_corners[w], camera, pose, aruco_size, mode=seed_mode))
+    return cap_poses, tag_poses[:n_tags]
 
 
 def apply_wave_seeds(camera, cap_poses, tag_poses, tag_idx, corners, wave,
@@ -100,24 +146,30 @@ def apply_wave_seeds(camera, cap_poses, tag_poses, tag_idx, corners, wave,
 
 
 def apply_wave_seeds_multi(camera, cap_poses, tag_poses, tag_idx, corners,
-                           waves, aruco_size, seed_mode):
-    """Seed a sequence of waves in order, from one upload of their tables
-    (``pack_waves``).  A wave is (seed_cap, seed_row, tag_rows, tags,
-    anchor_rows): with seed_row >= 0 the capture is seeded from its
+                           waves, aruco_size, seed_mode, slots=None,
+                           w_min: int = 1, graphs: bool = True):
+    """Seed a sequence of waves in order (``seed_waves``) from one upload
+    of their tables (``pack_waves`` at ``slots``, by default the largest
+    list's ``obs_bucket``).  A wave is (seed_cap, seed_row, tag_rows,
+    tags, anchor_rows): with seed_row >= 0 the capture is seeded from its
     anchors (block rows of already-initialized tags), then each tag first
     seen in the wave is initialized through the wave's capture from its
-    block row.  Returns new (cap_poses, tag_poses)."""
-    cap_poses = cap_poses.clone()
-    tag_poses = tag_poses.clone()
-    for seed_cap, seed_row, rows, tags, anc in pack_waves(waves,
-                                                          corners.device):
-        if seed_row >= 0 and anc.shape[0]:
-            seed_capture(camera, cap_poses, seed_cap, corners[anc],
-                         tag_poses[tag_idx[anc]], aruco_size, seed_mode)
-        if rows.shape[0]:
-            seed_tags(camera, cap_poses[seed_cap], tag_poses, corners, rows,
-                      tags, aruco_size, seed_mode)
-    return cap_poses, tag_poses
+    block row.  On a CUDA device with ``graphs`` the stage replays a CUDA
+    graph (solve/graphs.py), bit for bit the eager stage.  Returns new
+    (cap_poses, tag_poses)."""
+    if slots is None:
+        slots = obs_bucket(max((len(x) for w in waves for x in w[2:]),
+                               default=1))
+    tables = torch.as_tensor(pack_waves(waves, slots, w_min),
+                             device=corners.device)
+    kw = dict(aruco_size=aruco_size, seed_mode=seed_mode)
+    if graphs and corners.device.type == "cuda":
+        from ar_slam_tpu_torch.solve.graphs import seed_waves_graphed
+
+        return seed_waves_graphed(camera, cap_poses, tag_poses, tag_idx,
+                                  corners, tables, **kw)
+    return seed_waves(camera, cap_poses, tag_poses, tag_idx, corners, tables,
+                      **kw)
 
 
 def _maybe_calibrate_focal(store: MapStore, config) -> None:
@@ -176,6 +228,10 @@ class _WaveRunner:
         self.seed_anchors = getattr(solver_cfg, "seed_anchors", "multi")
         self.warmup = getattr(solver_cfg, "warmup_new_captures", True)
         self.wave_budget = solver_cfg.max_iterations
+        # a flush's seed tables pad their waves to at least the
+        # optimize_every bucket, so one seed program serves every flush
+        self.w_fixed = bucket_size(
+            max(getattr(solver_cfg, "optimize_every", 1), 1), floor=1)
         arrs = export_arrays(store, dtype=np.float64)
         self.c_pad = arrs.cap_poses.shape[0]
         self.t_pad = arrs.tag_poses.shape[0]
@@ -320,7 +376,9 @@ class _WaveRunner:
         else:
             self.cap_poses, self.tag_poses = apply_wave_seeds_multi(
                 self.camera, self.cap_poses, self.tag_poses, self.tag_idx,
-                self.corners, waves, self.aruco_size, self.seed_mode)
+                self.corners, waves, self.aruco_size, self.seed_mode,
+                slots=self.obs_per_cap, w_min=self.w_fixed,
+                graphs=self.graphs)
             (cam, blocks, caps, tags, warm_c,
              warm_t) = self._masks(self.active_blocks, cap_active,
                                    self.active_tags, warm_caps, warm_tags)

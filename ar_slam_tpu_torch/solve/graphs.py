@@ -1,21 +1,26 @@
-"""CUDA graphs of the solver's loops: capture, cache and replay.
+"""CUDA graphs of the solver's programs: capture, cache and replay.
 
 The port's counterpart of the JAX package's compiled solve programs: the
-wave's LM ``lax.while_loop`` with its ``lax.cond`` relinearization
-(ar_slam_tpu/solve/lm.py:378, :424) and localize's ``while_loop``
-(ar_slam_tpu/solve/localize.py:134).  PyTorch runs eagerly, so an LM
-iteration was some 980 small launches from Python; here it is at most two
-graph replays and one host read, with the results of the eager loop bit
-for bit (the same kernels on the same values, in the same order).
+wave program ``solve_wave_multi`` (ar_slam_tpu/solve/batch.py:157), its
+seed ``lax.scan`` and its LM ``lax.while_loop`` with the ``lax.cond``
+relinearization (ar_slam_tpu/solve/lm.py:378, :424), and
+``localize_kernel`` (ar_slam_tpu/solve/localize.py:32) with its seeding
+and ``while_loop``.  PyTorch runs eagerly, so an LM iteration was some
+980 small launches from Python; here it is at most two graph replays and
+one host read, with the results of the eager loop bit for bit (the same
+kernels on the same values, in the same order).
 
-A ``Program`` holds a loop's stage functions and one dict of the tensors
-they read and write.  Graphed, the stages are captured once, in their
-order, into one memory pool, after two warm-up rounds on the capture
-stream (cuBLAS and cuSOLVER set up their workspaces outside the capture);
-a replay then writes the same tensors in place, and the caller's inputs
-are copied into the program's own before each call.  Eagerly (the CPU
-tests' mode) each stage's outputs replace the dict's entries.
+A ``Program`` holds a program's stage functions and one dict of the
+tensors they read and write.  Graphed, the stages are captured once, in
+their order, into one memory pool, after two warm-up rounds on the
+capture stream (cuBLAS and cuSOLVER set up their workspaces outside the
+capture); a replay then writes the same tensors in place, and the
+caller's inputs are copied into the program's own before each call.
+Eagerly (the CPU tests' mode) each stage's outputs replace the dict's
+entries.
 
+- seeds (``seed_waves_graphed``): one stage ``seed``, a flush's padded
+  seed tables (solve/batch.py ``seed_waves``) applied in one replay.
 - LM (``lm_solve_graphed``): stages ``setup`` (the regroup of the block
   table, the first linearization, the gradient test, the initial state),
   ``step`` (the damped solve, the proposal, its quality and the tests),
@@ -26,22 +31,29 @@ tests' mode) each stage's outputs replace the dict's entries.
   ``accept`` or ``reject``: the eager loop's lazy relinearization.  A
   step run after a convergence the flags then show is dropped, which
   leaves the state as the eager loop leaves it.
-- localize (``localize_graphed``): the seeding stays eager; each
-  iteration replays ``iterate`` and reads one flag (any query active).
+- localize (``localize_graphed``): stages ``init`` (each query's seed
+  pose, cost and damping) and ``iterate``; a call replays ``init`` and
+  then ``iterate`` once an iteration, each replay followed by one flag
+  read (any query active).
 
-The cache (``CACHE``) holds one captured program per kind (``"lm"``,
-``"localize"``) and device, as ``jax.jit`` caches its compiles: a
-solve's waves, its warmups and its polish share one capture, and
-``serve``'s per-batch solves reuse it while their bucketed shapes repeat.
-A call with another static signature (dtype, padded shapes, slot bounds,
-``LMConfig``, tag size) replaces the kind's program: the old graphs and
-tensors are freed into the kind's memory pool, which the new capture
-reuses, so a map that grows through its buckets holds one pool of about
-its largest signature's size, not one per bucket.  Capturing runs on the
-kind's own stream with ``capture_error_mode="thread_local"`` and no
-device-wide synchronisation, so the detect thread of ``serve`` may
-launch kernels meanwhile.  One thread solves at a time.  A capture or
-replay error raises; there is no eager fallback on the card.
+The cache (``CACHE``) holds one captured program per kind (``"seed"``,
+``"lm"``, ``"localize"``) and device, as ``jax.jit`` caches its
+compiles: a solve's waves, its warmups and its polish share one LM
+capture, and ``serve``'s per-batch solves reuse it while their bucketed
+shapes repeat.  A call with another static signature (dtype, padded
+shapes, slot bounds, ``LMConfig``, tag size, seed mode) replaces the
+kind's program: the old graphs and tensors are freed into the kind's
+memory pool, which the new capture reuses, so a map that grows through
+its buckets holds one pool of about its largest signature's size, not
+one per bucket.  Each stage is recorded with ``capture_begin`` /
+``capture_end`` on the kind's own stream, in
+``capture_error_mode="thread_local"``, after that stream has waited for
+the current one (which waits for it after the recording): no
+``torch.cuda.synchronize`` and no ``empty_cache``, which the
+``torch.cuda.graph`` context manager would make, so the detect thread of
+``serve`` keeps its queued kernels and cached blocks meanwhile.  One
+thread solves at a time.  A capture or replay error raises; there is no
+eager fallback on the card.
 """
 
 from __future__ import annotations
@@ -53,6 +65,7 @@ import torch
 from ar_slam_tpu_torch.solve.lm import (LMConfig, LMState, _grad_inf_norm,
                                         grouped_solver, lm_accept, lm_init,
                                         lm_reject, lm_step)
+from ar_slam_tpu_torch.solve.batch import seed_waves
 from ar_slam_tpu_torch.solve.localize import localize_init, localize_iteration
 
 WARMUP_ROUNDS = 2
@@ -66,9 +79,10 @@ class GraphCache:
     def __init__(self):
         self._programs: dict = {}
         self._pools: dict = {}  # (kind, device) -> (MemPool, capture stream)
+        self._retired: dict = {}  # (kind, device) -> dropped graphs
         self.captures = 0
         self.replays = 0
-        self.capture_ms: list = []  # per capture: {"warmup", "record"}
+        self.capture_ms: list = []  # per capture: program, warmup, record
 
     def get(self, kind: str, device, signature, make) -> "Program":
         """The kind's program on ``device`` for ``signature``; another
@@ -77,6 +91,13 @@ class GraphCache:
         prog = self._programs.get(key)
         if prog is None or prog.signature != signature:
             self._programs.pop(key, None)
+            if prog is not None and prog.graphs:
+                # the dropped graphs live on (their tensors are freed) until
+                # the next capture into the pool has ended: the host
+                # allocator asserts when a capture begins on a pool that no
+                # graph holds any more (torch.cuda.graph empties the host
+                # cache before each capture, which this module does not)
+                self._retired[key] = prog.graphs
             del prog
             prog = self._programs[key] = make()
             prog.key, prog.signature = key, signature
@@ -105,6 +126,7 @@ class GraphCache:
 
     def clear(self) -> None:
         self._programs.clear()
+        self._retired.clear()
         self._pools.clear()
         self.captures = self.replays = 0
         self.capture_ms = []
@@ -178,16 +200,21 @@ class Program:
                 warmup.append(ms)
                 del scratch
         t0 = time.perf_counter()
-        for name, fn in self.stages.items():
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g, pool=pool.id, stream=stream,
-                                  capture_error_mode="thread_local"):
-                _write(self.t, fn(self.t))
-            self.graphs[name] = g
+        with torch.cuda.stream(stream):
+            for name, fn in self.stages.items():
+                g = torch.cuda.CUDAGraph()
+                g.capture_begin(pool=pool.id,
+                                capture_error_mode="thread_local")
+                try:
+                    _write(self.t, fn(self.t))
+                finally:
+                    g.capture_end()
+                self.graphs[name] = g
         torch.cuda.current_stream(dev).wait_stream(stream)
+        CACHE._retired.pop(self.key, None)
         CACHE.captures += 1
-        CACHE.capture_ms.append({"warmup": warmup, "record": (
-            time.perf_counter() - t0) * 1e3})
+        CACHE.capture_ms.append({"program": self.key[0], "warmup": warmup,
+                                 "record": (time.perf_counter() - t0) * 1e3})
 
     def out(self, x):
         """A result that outlives the next replay: a copy when graphed."""
@@ -306,22 +333,59 @@ def lm_solve_graphed(camera, cap_poses, tag_poses, cap_idx, tag_idx, corners,
             prog.out(t["tag_poses"]), info)
 
 
+def seed_waves_graphed(camera, cap_poses, tag_poses, tag_idx, corners,
+                       tables, *, aruco_size: float, seed_mode: str,
+                       graphed: bool = True):
+    """``batch.seed_waves`` as the ``seed`` stage of a program: a replayed
+    CUDA graph (``graphed``, a CUDA device) or the stage run eagerly.
+    Returns new (cap_poses, tag_poses), bit for bit ``seed_waves``'s."""
+    dev = cap_poses.device
+    if graphed and dev.type != "cuda":
+        raise ValueError(f"CUDA graphs need a CUDA device, not {dev}")
+
+    def seed(t):
+        cap, tag = seed_waves(t["camera"], t["in_cap_poses"],
+                              t["in_tag_poses"], t["tag_idx"], t["corners"],
+                              t["tables"], aruco_size=aruco_size,
+                              seed_mode=seed_mode)
+        return {"cap_poses": cap, "tag_poses": tag}
+
+    def make():
+        return Program({"seed": seed}, graphed)
+
+    if graphed:
+        prog = CACHE.get("seed", dev, (
+            cap_poses.dtype, cap_poses.shape[0], tag_poses.shape[0],
+            corners.shape[0], *tables.shape, float(aruco_size), seed_mode),
+            make)
+    else:
+        prog = make()
+    prog.load(camera=camera, in_cap_poses=cap_poses, in_tag_poses=tag_poses,
+              tag_idx=tag_idx, corners=corners, tables=tables)
+    prog.run("seed")
+    return prog.out(prog.t["cap_poses"]), prog.out(prog.t["tag_poses"])
+
+
 _LOC_STATE = ("pose", "lam", "nu", "cost", "it", "conv")
 
 
 def localize_graphed(camera, tag_poses, q_tag_idx, q_corners, q_block_mask,
                      q_seed_slot, *, aruco_size: float, config: LMConfig,
                      seed_mode: str = "hybrid", graphed: bool = True):
-    """``localize_batch`` with each iteration a replayed CUDA graph
-    (``graphed``, a CUDA device) or the same stage run eagerly; the seeds
-    stay eager.  Returns (poses, costs, iterations), bit for bit
-    ``localize_batch``'s."""
+    """``localize_batch`` as the stages ``init`` (the seeds) and
+    ``iterate`` (one iteration): replayed CUDA graphs (``graphed``, a
+    CUDA device) or the same stages run eagerly.  Returns (poses, costs,
+    iterations), bit for bit ``localize_batch``'s."""
     dev = camera.device
     if graphed and dev.type != "cuda":
         raise ValueError(f"CUDA graphs need a CUDA device, not {dev}")
-    s = localize_init(camera, tag_poses, q_tag_idx, q_corners, q_block_mask,
-                      q_seed_slot, aruco_size=aruco_size, config=config,
-                      seed_mode=seed_mode)
+
+    def init(t):
+        s = localize_init(t["camera"], t["tag_poses"], t["q_tag_idx"],
+                          t["q_corners"], t["q_block_mask"], t["q_seed_slot"],
+                          aruco_size=aruco_size, config=config,
+                          seed_mode=seed_mode)
+        return {**s, "any_active": (~s["conv"]).any()}
 
     def iterate(t):
         new = localize_iteration(
@@ -331,17 +395,20 @@ def localize_graphed(camera, tag_poses, q_tag_idx, q_corners, q_block_mask,
         return {**new, "any_active": (~new["conv"]).any()}
 
     def make():
-        return Program({"iterate": iterate}, graphed)
+        return Program({"init": init, "iterate": iterate}, graphed)
 
     if graphed:
-        prog = CACHE.get("localize", dev, (camera.dtype,
-                                           tuple(q_tag_idx.shape), config,
-                                           float(aruco_size)), make)
+        prog = CACHE.get("localize", dev, (
+            camera.dtype, tuple(q_tag_idx.shape), tag_poses.shape[0], config,
+            float(aruco_size), seed_mode), make)
     else:
         prog = make()
-    prog.load(camera=camera, q_corners=q_corners, **s)
+    prog.load(camera=camera, tag_poses=tag_poses, q_tag_idx=q_tag_idx,
+              q_corners=q_corners, q_block_mask=q_block_mask,
+              q_seed_slot=q_seed_slot)
     t = prog.t
-    active = bool((~t["conv"]).any())
+    prog.run("init")
+    active = bool(t["any_active"])
     for _ in range(config.max_iterations):
         if not active:
             break

@@ -8,9 +8,10 @@ camera intrinsics constant.  Every query is an independent 6-unknown
 problem, so all of them run at once: one Python loop of at most
 ``max_iterations`` LM iterations over the (Q, ...) batch, each query with
 its own lambda, acceptance and convergence, and one host read per
-iteration to stop when every query has converged.  ``localize_iteration``
-is one iteration with no host read; on the card it is replayed as a CUDA
-graph.
+iteration to stop when every query has converged.  ``localize_init`` (the
+seeds) and ``localize_iteration`` (one iteration) read nothing back; on
+the card each is replayed as a CUDA graph.  The Jacobians are jets
+(core/jet.py).
 """
 
 from __future__ import annotations
@@ -19,8 +20,8 @@ import logging
 
 import numpy as np
 import torch
-from torch.func import jacfwd, vmap
 
+from ar_slam_tpu_torch.core import jet as J
 from ar_slam_tpu_torch.core.projection import block_residual
 from ar_slam_tpu_torch.core.seeding import seed_capture_pose
 from ar_slam_tpu_torch.device import resolve_device, resolve_dtype
@@ -30,21 +31,16 @@ from ar_slam_tpu_torch.solve.lm import LMConfig
 logger = logging.getLogger(__name__)
 
 
-def _localize_fns(camera, aruco_size: float, config: LMConfig):
-    """(jac, residuals): the queries' vmapped Jacobian-and-residual and
-    residual functions of (pose, tag poses, corners, block mask)."""
-    zero = torch.zeros((), dtype=camera.dtype, device=camera.device)
-
-    def residual_fn(pose, tp, corners, m):
-        r = block_residual(camera, pose, tp, corners, aruco_size,
-                           config.enable_distortion)  # (K, 8)
-        return torch.where(m[:, None] > 0, r, zero).reshape(-1)
-
-    def with_aux(pose, tp, corners, m):
-        r = residual_fn(pose, tp, corners, m)
-        return r, r
-
-    return vmap(jacfwd(with_aux, has_aux=True)), vmap(residual_fn)
+def _query_residuals(camera, pose, tps, corners, maskf, aruco_size: float,
+                     config: LMConfig):
+    """(Q, K*8) residuals of every query's blocks at its pose (Q, 6),
+    padded blocks zeroed; with ``pose`` a jet (core/jet.py), a jet whose
+    tangents are the (Q, K*8, 6) Jacobians."""
+    r = block_residual(camera, pose[:, None, :], tps, corners, aruco_size,
+                       config.enable_distortion)  # (Q, K, 8)
+    r = J.where(maskf[..., None] > 0, r,
+                torch.zeros((), dtype=camera.dtype, device=camera.device))
+    return r.reshape((r.shape[0], -1))
 
 
 def localize_init(camera, tag_poses, q_tag_idx, q_corners, q_block_mask,
@@ -58,13 +54,13 @@ def localize_init(camera, tag_poses, q_tag_idx, q_corners, q_block_mask,
     ar = torch.arange(q, device=camera.device)
     tps = tag_poses[q_tag_idx]  # (Q, K, 6)
     maskf = q_block_mask.to(dtype)
-    _, residuals = _localize_fns(camera, aruco_size, config)
     seed = q_seed_slot.to(torch.int64)
     pose = seed_capture_pose(q_corners[ar, seed], camera, tps[ar, seed],
                              aruco_size, mode=seed_mode)
     lam = torch.full((q,), config.initial_lambda, dtype=dtype,
                      device=camera.device)
-    r = residuals(pose, tps, q_corners, maskf)
+    r = _query_residuals(camera, pose, tps, q_corners, maskf, aruco_size,
+                         config)
     return dict(
         tps=tps, maskf=maskf, pose=pose, lam=lam, nu=torch.full_like(lam, 2.0),
         cost=0.5 * torch.sum(r * r, dim=1),
@@ -79,9 +75,10 @@ def localize_iteration(camera, q_corners, tps, maskf, pose, lam, nu, cost,
                        config: LMConfig) -> dict:
     """One LM iteration of every query still active, with no host read:
     the new (pose, lam, nu, cost, it, conv)."""
-    jac, residuals = _localize_fns(camera, aruco_size, config)
     active = ~conv
-    j, r = jac(pose, tps, q_corners, maskf)  # (Q, K8, 6), (Q, K8)
+    rj = _query_residuals(camera, J.variables(pose, 6), tps, q_corners,
+                          maskf, aruco_size, config)
+    j, r = rj.d, rj.v  # (Q, K8, 6), (Q, K8)
     h = j.transpose(1, 2) @ j
     g = (j.transpose(1, 2) @ r[..., None])[..., 0]
     d = torch.clamp(torch.diagonal(h, dim1=1, dim2=2), 1e-6, 1e32)
@@ -89,7 +86,8 @@ def localize_iteration(camera, q_corners, tps, maskf, pose, lam, nu, cost,
         h + lam[:, None, None] * torch.diag_embed(d),
         g[..., None]).result[..., 0]
     new_pose = pose + step
-    r_new = residuals(new_pose, tps, q_corners, maskf)
+    r_new = _query_residuals(camera, new_pose, tps, q_corners, maskf,
+                             aruco_size, config)
     new_cost = 0.5 * torch.sum(r_new * r_new, dim=1)
     js = (j @ step[..., None])[..., 0]
     model = -(g * step).sum(1) - 0.5 * torch.sum(js * js, dim=1)

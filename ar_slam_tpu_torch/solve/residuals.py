@@ -4,15 +4,16 @@ ar_slam_tpu/solve/residuals.py).
 Per block (one tag seen in one capture): 8 residuals and Jacobian blocks
 for the camera (3), the capture's inverse pose (6) and the tag pose (6),
 like the reference's AutoDiffCostFunction<..., 8, 3, 6, 6>.  Derivatives
-come from ``torch.func.jacfwd`` vmapped over the block table, as the
-reference uses ``jax.jacfwd``.
+come from forward-mode jets (core/jet.py) with 15 tangents over the whole
+block table, as the reference's Ceres Jets carry them (the JAX package
+uses ``jax.jacfwd``).
 """
 
 from __future__ import annotations
 
 import torch
-from torch.func import jacfwd, vmap
 
+from ar_slam_tpu_torch.core import jet as J
 from ar_slam_tpu_torch.core.projection import block_residual
 
 
@@ -40,15 +41,11 @@ def linearize(camera, cap_poses, tag_poses, cap_idx, tag_idx, corners,
     per-block robust cost rho (B,); masked rows are zero, and with a
     robust loss residuals and Jacobian rows are IRLS-weighted.
     """
-
-    def res(cam, cap_pose, tag_pose, crn):
-        r = block_residual(cam, cap_pose, tag_pose, crn, aruco_size,
-                           distortion)
-        return r, r
-
-    jac = jacfwd(res, argnums=(0, 1, 2), has_aux=True)
-    (jc, jp, jt), r = vmap(jac, in_dims=(None, 0, 0, 0))(
-        camera, cap_poses[cap_idx], tag_poses[tag_idx], corners)
+    rj = block_residual(J.variables(camera, 15),
+                        J.variables(cap_poses[cap_idx], 15, 3),
+                        J.variables(tag_poses[tag_idx], 15, 9), corners,
+                        aruco_size, distortion)
+    r, jc, jp, jt = rj.v, rj.d[..., 0:3], rj.d[..., 3:9], rj.d[..., 9:15]
     # where-based masking: padded rows may hold inf/NaN garbage
     m = block_mask[:, None]
     zero = torch.zeros((), dtype=r.dtype, device=r.device)

@@ -101,19 +101,27 @@ Phases (each prints one JSON line; any failure exits non-zero):
    phone_12mp's localize of its 4 queries (budgets 4 and 16, and the
    default config); every result bit for bit the eager one's, host ms per
    LM iteration between the budgets, capture ms, graph-pool and peak
-   memory.  Phases 4-6 also require the solve and localize to replay
-   graphs;
+   memory; then whole calls, eager and graphed, each with its host ms,
+   launches, graph launches and device ms: room-16's last flush (its
+   seeds, warmup LM and joint LM, from the state ``solve`` reaches
+   before it), that flush's seeds alone, and a phone_12mp localize call
+   (the seeding ``init`` and the iterations).  Phases 4-6 also require
+   the solve and localize to replay graphs, every capture of them to
+   make no ``torch.cuda.synchronize`` and no ``empty_cache`` call (the
+   ``capture_syncs`` line), and each rmse to stay within 1e-4 px of the
+   one the torch.func Jacobians gave (``JACFWD_RMSE_PX``);
 19. one_shot_map — ``arslam-torch map`` of room-16's saved map in two
    fresh processes, eager then graphed (the eager loop through
    ``solve(graphs=False)``, which no flag of the command reaches): each
-   process's wall, import, CUDA start, command and solve seconds and the
-   first capture's warm-up (by stage) and recording ms; the two maps
-   written must be the same text;
+   process's wall, import, CUDA start, command and solve seconds, whether
+   ``torch._dynamo`` or sympy was imported (neither may be), each
+   program's first warm-up round by stage and the captures' recording
+   ms; the two maps written must be the same text;
 20. serve_growth — solve_incremental, one call per batch of 8 captures
    as serve runs it, over make_synthetic_map(200, 64) growing through its
    padding buckets: after each call the captures made, the programs held
-   (one), the graph pool's and the reserved memory; rmse < 1 px and no
-   capture unsolved at the end.
+   (two: the seeds' and the LM's), the graph pools' and the reserved
+   memory; rmse < 1 px and no capture unsolved at the end.
 
 A mesh of k shards puts shard i on card i mod the card count: on one
 card all shards share it and run one after another on its stream (their
@@ -176,6 +184,14 @@ SERVE_RMSE_TOL_PX, SERVE_FOCAL_TOL = 1e-3, 1e-4
 PHONE_ARC = [i / 7 for i in range(8)] + [(i + 0.5) / 7 for i in (0, 2, 4, 6)]
 
 
+# each cell's rmse with the Jacobians of torch.func.jacfwd, the plain
+# version the jets of core/jet.py are held to (tests/test_torch_jet.py):
+# the jets move the last bits of every Jacobian, not the optimum
+JACFWD_RMSE_PX = {"room-16": 0.5854781062953117,
+                  "phone_12mp map": 0.16911114668753466,
+                  "phone_12mp localize": 0.1963597989953149,
+                  "serve_12mp": 0.1735787689156555}
+JET_RMSE_TOL_PX = 1e-4
 MESH_RMSE_TOL_PX = 1e-3  # mesh_map_room16, multihost_1 vs the dense map
 MESH_CG_RMSE_TOL_PX = 1e-2  # mesh_cg_10k vs phase 8 (CG follows rounding)
 MULTIHOST_TIMEOUT_S = 180
@@ -626,6 +642,64 @@ def check_graphs(cell: str, stats: dict) -> None:
         fail(f"{cell}: no CUDA graph was replayed: {stats}")
 
 
+def check_rmse(cell: str, rmse: float) -> None:
+    """rmse within JET_RMSE_TOL_PX of the cell's JACFWD_RMSE_PX."""
+    if not abs(rmse - JACFWD_RMSE_PX[cell]) <= JET_RMSE_TOL_PX:
+        fail(f"{cell} rmse {rmse} px is not within {JET_RMSE_TOL_PX} of "
+             f"{JACFWD_RMSE_PX[cell]}")
+
+
+class CaptureSyncs:
+    """Counts the calls of ``torch.cuda.synchronize`` and
+    ``torch.cuda.empty_cache`` that a capturing thread makes while a
+    program of solve/graphs.py captures; ``close`` restores both."""
+
+    NAMES = ("synchronize", "empty_cache")
+
+    def __init__(self):
+        import threading
+
+        import torch
+
+        from ar_slam_tpu_torch.solve import graphs
+
+        self.counts = dict.fromkeys(self.NAMES, 0)
+        self.captures = 0
+        self._saved = {n: getattr(torch.cuda, n) for n in self.NAMES}
+        self._capture = graphs.Program._capture
+        capturing = set()
+
+        def counted(name):
+            real = self._saved[name]
+
+            def call(*a, **k):
+                if threading.get_ident() in capturing:
+                    self.counts[name] += 1
+                return real(*a, **k)
+            return call
+
+        def watched(prog):
+            capturing.add(threading.get_ident())
+            try:
+                self._capture(prog)
+            finally:
+                capturing.discard(threading.get_ident())
+            self.captures += 1
+
+        for n in self.NAMES:
+            setattr(torch.cuda, n, counted(n))
+        graphs.Program._capture = watched
+
+    def close(self) -> None:
+        import torch
+
+        from ar_slam_tpu_torch.solve import graphs
+
+        for n, f in self._saved.items():
+            setattr(torch.cuda, n, f)
+        graphs.Program._capture = self._capture
+
+
 def check_tags(cell: str, found: dict, truth_frames, uids, min_side: float):
     """Every rendered tag of side >= min_side found with its true id in
     its frame, no id that is not rendered there.  Returns the count of
@@ -690,6 +764,7 @@ def phase_main_path(frames, truth):
     rmse = summary.get("rmse", float("nan"))
     if not (np.isfinite(rmse) and rmse < 1.0):
         fail(f"map rmse {rmse} px is not < 1")
+    check_rmse("room-16", rmse)
     with open(map_path) as f:
         parsed = yamlio._fast_parse(f.read())
     if sorted(parsed["tag_ids"]) != sorted(t.id for t in engine.store.arucos):
@@ -810,12 +885,14 @@ def phase_phone_12mp(frames, truth, tag_m: float):
     rmse = summary.get("rmse", float("nan"))
     if not (np.isfinite(rmse) and rmse < 1.0):
         fail(f"phone_12mp map rmse {rmse} px is not < 1")
+    check_rmse("phone_12mp map", rmse)
     statuses = result.get("status", {})
     if sorted(statuses) != [c.uid for c in caps[8:]] or set(
             statuses.values()) != {"localized"}:
         fail(f"phone_12mp: not every query localized: {statuses}")
     if not (np.isfinite(loc_rmse) and loc_rmse < 1.0):
         fail(f"phone_12mp localize rmse {loc_rmse} px is not < 1")
+    check_rmse("phone_12mp localize", loc_rmse)
     if not q_err.max() <= QUERY_POSITION_M:
         fail(f"phone_12mp query positions off by {q_err.tolist()} m "
              f"(bound {QUERY_POSITION_M})")
@@ -994,6 +1071,7 @@ def phase_serve_12mp(frames, truth, tag_m: float) -> None:
                        uids, PHONE_SIDE_PX)
     if not (np.isfinite(rmse) and rmse < 1.0):
         fail(f"serve_12mp map rmse {rmse} px is not < 1")
+    check_rmse("serve_12mp", rmse)
     if not cam_err.max() <= QUERY_POSITION_M:
         fail(f"serve_12mp cameras off by {cam_err.tolist()} m after "
              f"alignment (bound {QUERY_POSITION_M})")
@@ -1387,6 +1465,92 @@ def _perturbed(arrs, seed: int = 1):
             scale=0.005, size=arrs.tag_poses.shape)).astype(np.float32))
 
 
+def _room16_flush(store16):
+    """make(graphed, seeds_only): a function that runs room-16's last
+    flush as ``solve`` reaches it (its seeds, the warmup LM and the joint
+    LM), or its seeds alone, from the state before it, eagerly or through
+    the graphs, and returns (LM iterations, its results)."""
+    from ar_slam_tpu_torch.config import ArSlamConfig
+    from ar_slam_tpu_torch.device import resolve_dtype
+    from ar_slam_tpu_torch.solve import batch
+
+    config = ArSlamConfig()
+    store = _store_from(store16, store16.captures)
+    batch._maybe_calibrate_focal(store, config)
+    root = store.capture_with_most_blocks()
+    order = store.connected_component(root)
+    runner = batch._WaveRunner(
+        store, config.solver, config.aruco_size,
+        resolve_dtype(config.solver.dtype), DEVICE, camera_cfg=config.camera)
+
+    def wave(cap):
+        return cap, None if cap == root else store.captures[cap].init_block
+
+    for cap in order[:-1]:
+        runner.run_wave(*wave(cap))
+    state = ("camera", "cap_poses", "tag_poses")
+    host = ("active_blocks", "tag_initialized", "active_tags")
+    snap = ([getattr(runner, k).clone() for k in state],
+            [getattr(runner, k).copy() for k in host],
+            set(runner.active_caps))
+    seeds_args = {}
+    apply = batch.apply_wave_seeds_multi
+
+    def flush(graphed):
+        for k, v in zip(state, snap[0]):
+            setattr(runner, k, v.clone())
+        for k, v in zip(host, snap[1]):
+            setattr(runner, k, v.copy())
+        runner.active_caps = set(snap[2])
+        runner.graphs = graphed
+        info = runner.run_wave(*wave(order[-1]))
+        return info["iterations"], [*(getattr(runner, k) for k in state),
+                                    info]
+
+    def recorded(*a, **k):
+        seeds_args.update(a=a, k=k)
+        return apply(*a, **k)
+
+    batch.apply_wave_seeds_multi = recorded
+    try:
+        flush(False)
+    finally:
+        batch.apply_wave_seeds_multi = apply
+
+    def make(graphed: bool, seeds_only: bool):
+        if not seeds_only:
+            return lambda: flush(graphed)
+        kw = {**seeds_args["k"], "graphs": graphed}
+        return lambda: (1, list(apply(*seeds_args["a"], **kw)))
+
+    return make
+
+
+def _call_cell(name: str, make, reps: int = 5) -> list:
+    """One call's host ms (median of ``reps``, after a first call, so
+    that no capture is timed), eager and graphed, and whether the two
+    agree bit for bit: ``make(graphed)`` returns the call.  Returns the
+    profile jobs (the profiler runs last, ``phase_solve_graphs_profile``:
+    a profile session here hid kernels from the later ones)."""
+    from ar_slam_tpu_torch.solve import graphs
+
+    cell, results, jobs = {"cell": name}, {}, []
+    for graphed in (False, True):
+        graphs.CACHE.clear()
+        fn = make(graphed)
+        results[graphed] = fn()
+        cell["graphed" if graphed else "eager"] = dict(
+            host_ms=_wall_ms(fn, reps), iterations=results[graphed][0])
+        jobs.append((name, "graphed" if graphed else "eager", graphed,
+                     [fn]))
+    cell["bit_for_bit"] = _same(results[False], results[True])
+    emit("solve_graphs", **cell)
+    if not cell["bit_for_bit"]:
+        fail(f"solve_graphs {name}: graphed results differ from the eager")
+    graphs.CACHE.clear()
+    return jobs
+
+
 def phase_solve_graphs(store16, phone, arrs10k):
     """The solve through CUDA graphs against the eager loop, on the card:
     per LM iteration host ms (here) and launches and device ms (profiled
@@ -1444,6 +1608,11 @@ def phase_solve_graphs(store16, phone, arrs10k):
     if not same:
         fail("solve_graphs room-16 map: graphed map differs from the eager")
 
+    make = _room16_flush(store16)
+    jobs += _call_cell("room-16 flush (seeds, warmup LM, joint LM)",
+                       lambda g: make(g, False))
+    jobs += _call_cell("room-16 flush seeds", lambda g: make(g, True))
+
     t10k = _lm_tensors(arrs10k)
     _, j = _graph_cell("synthetic-10k CG", _lm_runner(
         t10k, LMConfig(max_iterations=12, linear_solver="cg", **zero_tol),
@@ -1468,6 +1637,8 @@ def phase_solve_graphs(store16, phone, arrs10k):
 
     _, j = _graph_cell("phone_12mp localize (4 queries)", loc_run, 4, 16)
     jobs += j
+    jobs += _call_cell("phone_12mp localize call (init + iterations)",
+                       lambda g: loc_run(None, g))
     # the default localize, as the engine runs it
     out = {}
     for graphed in (False, True):
@@ -1489,8 +1660,14 @@ def phase_solve_graphs_profile(jobs) -> None:
     solve_graphs cell, eager and graphed: one profiled run at each of
     PROFILE_BUDGETS (a graphed one after an unprofiled one, so that no
     capture is profiled), the difference over the iterations between
-    them."""
+    them; and of each whole call (a job of one function), per call."""
     for name, mode, graphed, fns in jobs:
+        if len(fns) == 1:
+            fns[0]()
+            (iters, _), prof = _launch_profile(fns[0])
+            emit("solve_graphs_profile", cell=name, mode=mode,
+                 iterations=iters, per_call=prof)
+            continue
         runs = []
         for fn in fns:
             if graphed:
@@ -1956,10 +2133,16 @@ def one_shot_map(mode: str, src: str, out: str) -> int:
     with contextlib.redirect_stdout(printed):
         rc = cli.main(["map", src, "-o", out])
     torch.cuda.synchronize()
+    stats = graphs.CACHE.stats()
+    first = {}  # each program's first capture: its first warm-up round
+    for c in stats["capture_split_ms"]:
+        first.setdefault(c["program"], c["warmup"][0])
     emit("one_shot_map_process", mode=mode, rc=rc, import_s=import_s,
          cuda_start_s=cuda_s, command_s=time.perf_counter() - t0,
          solve_s=solve_s, printed=printed.getvalue().splitlines()[-1],
-         graphs=graphs.CACHE.stats())
+         imported={m: m in sys.modules for m in ("torch._dynamo", "sympy")},
+         first_warmup_round_ms=first,
+         graphs=stats)
     return rc
 
 
@@ -1993,6 +2176,9 @@ def phase_one_shot_map() -> None:
     if len(maps) != 1:
         fail("one_shot_map: the eager and graphed processes wrote different "
              "maps")
+    if any(any(r["imported"].values()) for r in runs):
+        fail("one_shot_map: a solve imported "
+             f"{[r['imported'] for r in runs]}")
 
 
 def phase_serve_growth() -> None:
@@ -2033,7 +2219,7 @@ def phase_serve_growth() -> None:
     emit("serve_growth", calls=calls,
          capture_split_ms=graphs.CACHE.stats()["capture_split_ms"])
     rmse = out.get("rmse", float("nan"))
-    if not (all(c["programs"] == 1 for c in calls) and np.isfinite(rmse)
+    if not (all(c["programs"] == 2 for c in calls) and np.isfinite(rmse)
             and rmse < 1.0 and out.get("unsolved") == 0):
         fail(f"serve_growth: {calls}")
     graphs.CACHE.clear()
@@ -2159,11 +2345,18 @@ def main() -> int:
                                    aruco_size=tag_m, **PHONE_12MP)
     emit("render", seconds=time.perf_counter() - t0)
     rows, jobs = phase_kernels(frames16, frames12)
+    syncs = CaptureSyncs()
     room16, store16, rmse16 = phase_main_path(frames16, truth16)
     launches = {"room-16": room16}
     launches["phone_12mp"], phone = phase_phone_12mp(frames12, truth12,
                                                      tag_m)
     phase_serve_12mp(frames12, truth12, tag_m)
+    syncs.close()
+    emit("capture_syncs", cells=["room-16", "phone_12mp", "serve_12mp"],
+         captures=syncs.captures, calls=syncs.counts)
+    if syncs.captures <= 0 or any(syncs.counts.values()):
+        fail(f"the main paths' captures: {syncs.captures}, calls during "
+             f"them {syncs.counts}")
     grouped_rate = timed("solver", phase_solver)
     cg_10k, (arrs10k, rmse10k) = timed("solver_cg_10k", phase_solver_cg_10k)
     timed("solver_cg_vs_dense_2000", phase_solver_cg_vs_dense_2000)

@@ -524,3 +524,156 @@ def test_solve_and_localize_replay_graphs(dev):
     assert s0 == s1 and l0 == l1
     for a, b in zip(p0, p1):
         assert np.array_equal(a, b)
+
+
+def _seed_case(dev):
+    """seed_waves' arguments on the card in float32: three BFS waves of a
+    synthetic map, each initializing tags, padded to W = 4."""
+    from ar_slam_tpu_torch.convert import arrays_from_numpy
+    from ar_slam_tpu_torch.graph.arrays import obs_bucket
+    from ar_slam_tpu_torch.solve.batch import pack_waves
+    from torch_cases import bfs_waves, synthetic_arrays
+
+    a = synthetic_arrays(seed=7, n_tags=40, n_caps=10, perturb=0.05)
+    slots = obs_bucket(int(np.bincount(a.cap_idx[a.block_mask]).max()))
+    t = arrays_from_numpy(a, dev, torch.float32)
+    tables = [torch.as_tensor(pack_waves(bfs_waves(a, order), slots),
+                              device=dev) for order in ([3, 1, 5], [0, 2, 4])]
+    return (t["camera"], t["cap_poses"], t["tag_poses"], t["tag_idx"],
+            t["corners"]), tables
+
+
+def test_graphed_seeds_equal_eager(dev):
+    """The seed program's replays equal the eager stage bit for bit, for
+    two flushes' tables through one capture."""
+    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch.solve.batch import seed_waves
+
+    graphs.CACHE.clear()
+    args, tables = _seed_case(dev)
+    kw = dict(aruco_size=0.0635, seed_mode="hybrid")
+    for tab in tables:
+        ref = seed_waves(*args, tab, **kw)
+        got = graphs.seed_waves_graphed(*args, tab, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+        assert not torch.equal(got[1], args[2])
+    assert graphs.CACHE.captures == 1 and graphs.CACHE.replays == 2
+    graphs.CACHE.clear()
+
+
+def test_localize_call_replays_init(dev, monkeypatch):
+    """A graphed localize call replays ``init`` and then ``iterate``,
+    bit for bit localize_batch."""
+    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch.solve.lm import LMConfig
+    from ar_slam_tpu_torch.solve.localize import localize_batch
+    from torch_cases import localize_queries
+
+    q = [torch.as_tensor(x, device=dev) for x in localize_queries()]
+    q[0], q[1], q[3] = q[0].float(), q[1].float(), q[3].float()
+    kw = dict(aruco_size=0.0635, config=LMConfig())
+    ref = localize_batch(*q, **kw)
+    replayed, replay = [], graphs.Program.run
+
+    def run(self, name):
+        replayed.append((name, self.graphed))
+        replay(self, name)
+
+    monkeypatch.setattr(graphs.Program, "run", run)
+    graphs.CACHE.clear()
+    for _ in range(2):
+        replayed.clear()
+        got = graphs.localize_graphed(*q, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+        assert replayed[0] == ("init", True)
+        assert {n for n, _ in replayed[1:]} == {"iterate"}
+    assert graphs.CACHE.captures == 1
+    graphs.CACHE.clear()
+
+
+class CaptureSyncs:
+    """Counts the calls of ``torch.cuda.synchronize`` and
+    ``torch.cuda.empty_cache`` that the capturing thread makes while a
+    program captures (``graphs.Program._capture``)."""
+
+    NAMES = ("synchronize", "empty_cache")
+
+    def __init__(self, monkeypatch):
+        import threading
+
+        from ar_slam_tpu_torch.solve import graphs
+
+        self.counts = dict.fromkeys(self.NAMES, 0)
+        self.captures = 0
+        capturing = set()
+        for name in self.NAMES:
+            real = getattr(torch.cuda, name)
+
+            def counted(*a, _name=name, _real=real, **k):
+                if threading.get_ident() in capturing:
+                    self.counts[_name] += 1
+                return _real(*a, **k)
+
+            monkeypatch.setattr(torch.cuda, name, counted)
+        capture = graphs.Program._capture
+
+        def watched(prog):
+            capturing.add(threading.get_ident())
+            try:
+                capture(prog)
+            finally:
+                capturing.discard(threading.get_ident())
+            self.captures += 1
+
+        monkeypatch.setattr(graphs.Program, "_capture", watched)
+
+
+@pytest.mark.parametrize("detecting", [False, True])
+def test_captures_make_no_device_sync(dev, monkeypatch, detecting):
+    """A solve's captures (seed, LM) and a localize's make no
+    torch.cuda.synchronize and no empty_cache call, also while another
+    thread runs detect_batch on the card."""
+    import threading
+
+    from ar_slam_tpu_torch.config import ArSlamConfig
+    from ar_slam_tpu_torch.detect.detect import detect_batch
+    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch.solve.batch import solve
+    from ar_slam_tpu_torch.solve.localize import localize_many
+    from ar_slam_tpu_torch.utils.synthetic import make_synthetic_map
+
+    frames = torch.from_numpy(_frames(4))
+    detect_batch(frames, device=dev)  # builds the kernels
+    store, _ = make_synthetic_map(n_tags=20, n_caps=8, seed=9)
+    syncs = CaptureSyncs(monkeypatch)
+    stop, errors, runs = threading.Event(), [], [0]
+
+    def detect_loop():
+        try:
+            while not stop.is_set():
+                detect_batch(frames, device=dev)
+                runs[0] += 1
+        except Exception as e:  # reported by the main thread
+            errors.append(e)
+
+    th = threading.Thread(target=detect_loop)
+    graphs.CACHE.clear()
+    if detecting:
+        th.start()
+    try:
+        while detecting and runs[0] == 0 and not errors:
+            stop.wait(0.01)
+        out = solve(store, ArSlamConfig(), device=dev)
+        loc = localize_many(store, 6, ArSlamConfig(), device=dev)
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        if detecting:
+            th.join(timeout=120)
+    assert not th.is_alive() and not errors, errors
+    assert out["rmse"] < 1.0 and loc["localized"] > 0
+    assert syncs.captures >= 3, syncs.captures  # seed, lm, localize
+    assert syncs.counts == {"synchronize": 0, "empty_cache": 0}
+    graphs.CACHE.clear()

@@ -20,7 +20,7 @@ from ar_slam_tpu.solve import localize as jloc
 from ar_slam_tpu_torch.solve import graphs
 from ar_slam_tpu_torch.solve import lm as tlm
 from ar_slam_tpu_torch.solve.localize import localize_batch
-from ar_slam_tpu_torch.utils.synthetic import make_synthetic_map
+from torch_cases import localize_queries as _queries
 from torch_cases import slot_bounds, synthetic_arrays
 
 torch.set_num_threads(1)
@@ -162,31 +162,6 @@ def test_split_stages_match_jax(problem, solver):
             assert np.abs(g.numpy() - np.asarray(r)).max() <= 1e-8
 
 
-def _queries(seed=8):
-    """Every capture of a synthetic map as a query against its true tag
-    poses (perturbed by 1e-3), padded to the widest query; one query
-    without blocks."""
-    store, truth = make_synthetic_map(n_tags=12, n_caps=6, seed=seed)
-    rng = np.random.default_rng(seed)
-    tags = np.zeros((len(store.arucos), 6))
-    for t in store.arucos:
-        tags[t.index] = truth["tag_poses"][int(t.id.split("_")[-1])]
-    tags += rng.normal(scale=1e-3, size=tags.shape)
-    q = len(store.captures) + 1
-    k = max(len(c.blocks) for c in store.captures)
-    q_tag = np.zeros((q, k), np.int64)
-    q_crn = np.zeros((q, k, 4, 2))
-    q_mask = np.zeros((q, k), bool)
-    q_seed = np.zeros(q, np.int64)
-    for qi, cap in enumerate(store.captures):
-        for ki, bh in enumerate(cap.blocks):
-            q_tag[qi, ki] = store.blocks[bh].tag_idx
-            q_crn[qi, ki] = store.blocks[bh].corners
-            q_mask[qi, ki] = True
-        q_seed[qi] = qi % len(cap.blocks)
-    return store.camera.params.copy(), tags, q_tag, q_crn, q_mask, q_seed
-
-
 LOC_CASES = {"default": dict(), "stall": dict(min_relative_decrease=10.0,
                                               stall_lambda=1e-2),
              "budget": dict(function_tolerance=0.0, parameter_tolerance=0.0,
@@ -290,7 +265,7 @@ def test_stages_read_nothing_back(problem, monkeypatch, solver):
     graphs.localize_graphed(*[torch.as_tensor(x) for x in _queries()],
                             aruco_size=SIZE, config=tlm.LMConfig(),
                             graphed=False)
-    assert {"setup", "step", "accept", "reject", "iterate"} <= set(ran)
+    assert {"setup", "step", "accept", "reject", "init", "iterate"} <= set(ran)
 
 
 def test_graph_cache_keeps_one_program_per_kind():

@@ -109,3 +109,50 @@ def slot_bounds(arrs, row_slots=2):
     obs = [up8(c.max()) for c in counts]
     rows = [up8((-(-c // row_slots)).sum()) for c in counts]
     return obs[0], obs[1], rows[0], rows[1]
+
+
+def bfs_waves(a, order, single: bool = False):
+    """The waves a BFS over captures ``order`` of arrays ``a`` queues (as
+    ``solve.batch._WaveRunner.run_wave``): (seed_cap, seed_row, tag_rows,
+    tags, anchor_rows); the first keeps its pose, each later one is
+    seeded from its anchors (``single``: its first anchor only)."""
+    known, waves = set(), []
+    for k, cap in enumerate(order):
+        rows = np.flatnonzero((a.cap_idx == cap) & a.block_mask)
+        new = [int(r) for r in rows if a.tag_idx[r] not in known]
+        anchors = [int(r) for r in rows if a.tag_idx[r] in known]
+        known |= {int(a.tag_idx[r]) for r in new}
+        seed_row = anchors[0] if k and anchors else -1
+        if single and seed_row >= 0:
+            anchors = [seed_row]
+        waves.append((cap, seed_row, new, [int(a.tag_idx[r]) for r in new],
+                      anchors if seed_row >= 0 else []))
+    return waves
+
+
+def localize_queries(seed=8):
+    """(camera, tag poses, q_tag_idx, q_corners, q_mask, q_seed) float64 /
+    int64 numpy: every capture of a synthetic map as a query against its
+    true tag poses (perturbed by 1e-3), padded to the widest query, plus
+    one query without blocks."""
+    from ar_slam_tpu_torch.utils.synthetic import make_synthetic_map
+
+    store, truth = make_synthetic_map(n_tags=12, n_caps=6, seed=seed)
+    rng = np.random.default_rng(seed)
+    tags = np.zeros((len(store.arucos), 6))
+    for t in store.arucos:
+        tags[t.index] = truth["tag_poses"][int(t.id.split("_")[-1])]
+    tags += rng.normal(scale=1e-3, size=tags.shape)
+    q = len(store.captures) + 1
+    k = max(len(c.blocks) for c in store.captures)
+    q_tag = np.zeros((q, k), np.int64)
+    q_crn = np.zeros((q, k, 4, 2))
+    q_mask = np.zeros((q, k), bool)
+    q_seed = np.zeros(q, np.int64)
+    for qi, cap in enumerate(store.captures):
+        for ki, bh in enumerate(cap.blocks):
+            q_tag[qi, ki] = store.blocks[bh].tag_idx
+            q_crn[qi, ki] = store.blocks[bh].corners
+            q_mask[qi, ki] = True
+        q_seed[qi] = qi % len(cap.blocks)
+    return store.camera.params.copy(), tags, q_tag, q_crn, q_mask, q_seed
