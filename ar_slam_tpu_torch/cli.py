@@ -534,7 +534,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="shard the solve's tags over N devices "
                              "(distributed BA over a 'blocks' mesh; with "
                              "--device cpu, N CPU shards) and, for detect, "
-                             "the image batch; 0/1 = single device")
+                             "the image batch; 0/1 = single device.  The "
+                             "sharded solve replays CUDA graphs when this "
+                             "process's shards share one card (each "
+                             "--multihost process on its own card); shards "
+                             "spread over several cards run eagerly")
         sp.add_argument("--multihost", default="",
                         help="join a torch.distributed process group before "
                              "any device use: 'coordinator:port,"
@@ -666,6 +670,10 @@ def main(argv=None) -> int:
         if getattr(args, "multihost", ""):
             import torch.distributed as dist
 
+            from ar_slam_tpu_torch.solve import graphs
+
+            # the graphs that captured collectives go before the group
+            graphs.CACHE.clear()
             dist.destroy_process_group()
 
 

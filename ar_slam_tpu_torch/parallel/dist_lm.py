@@ -27,6 +27,22 @@ tag-side sums the LM loop itself needs (the parameter test's norms, the
 gradient test's max) ride the same packs, so processes agree on every
 host decision without another collective.  The mesh counts the
 reductions (``Mesh.reductions``).
+
+The loop runs as the stages of solve/graphs.py (``setup``, ``step``,
+``accept``, ``reject``) with the fused quality (``lm.lm_step``'s
+``quality_lin_fn``) and their host loop (``graphs.lm_iterate``);
+a flush's seeds as one stage ``seed`` over the padded wave tables
+(``seed_waves_sharded``).  On a CUDA mesh whose local shards all sit on
+one card (``[cuda:0] * k``, and every ``--multihost`` process, pinned to
+its own card) the stages are captured once per signature and replayed
+as CUDA graphs, the packed reductions (with a process group, the NCCL
+``all_reduce``) inside them: the counterparts of the JAX package's
+jitted ``_dist_lm_runner`` and ``_dist_wave_solver``.  A CUDA graph
+records on one device, so a mesh that spreads one process's shards over
+several cards, and the CPU, run the same stages eagerly; so does
+``graphs=False``.  Graphed and eager give the same values bit for bit,
+and the eager stages those of ``lm_core`` over the same hooks
+(``_lm_sharded``, the plain loop).
 """
 
 from __future__ import annotations
@@ -36,11 +52,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ar_slam_tpu_torch.core.seeding import (seed_capture_pose_multi,
+                                            seed_tag_pose)
 from ar_slam_tpu_torch.graph.arrays import obs_bucket
 from ar_slam_tpu_torch.parallel.mesh import Mesh, Sharded, replicate
 from ar_slam_tpu_torch.parallel.multihost import fetch, put_global
 from ar_slam_tpu_torch.parallel.partition import prepare_tag_shards
-from ar_slam_tpu_torch.solve.lm import LMConfig, lm_core
+from ar_slam_tpu_torch.solve.batch import pack_waves
+from ar_slam_tpu_torch.solve.graphs import (CACHE, Program, fields, lm_info,
+                                            lm_iterate, state_of)
+from ar_slam_tpu_torch.solve.lm import (LMConfig, lm_accept, lm_core,
+                                        lm_init, lm_reject, lm_step)
 from ar_slam_tpu_torch.solve.residuals import linearize
 from ar_slam_tpu_torch.solve.schur import (CapEqs, CgShard, TagRows,
                                            assemble_grouped,
@@ -330,13 +352,9 @@ class TagShardedProblem:
         self.t_new = p["t_new"]
         self.b_shard = b_shard
         rg = p["row_gather"]
-        # host copies of the repacked table: the wave seeds read anchor
-        # corners and tag ids from any shard
-        self.corners_host = corners[rg]
-        self.tag_idx_host = p["new_tag_idx"]
         self.cap_idx = self.put_blocks(cap_idx[rg])
         self.tag_idx = self.put_blocks(p["new_tag_idx"])
-        self.corners = self.put_blocks(self.corners_host)
+        self.corners = self.put_blocks(corners[rg])
         self.base_mask = p["row_mask"]
 
     def put_blocks(self, arr) -> Sharded:
@@ -380,20 +398,43 @@ def _numpy(a):
         else np.asarray(a)
 
 
+def graphed_mesh(mesh: Mesh, graphs: bool = True) -> bool:
+    """Whether the mesh's stages replay CUDA graphs: ``graphs`` and every
+    local shard on one card.  A rule of layout: a CUDA graph records on
+    one device, so the CPU and a mesh that spreads this process's shards
+    over several cards run the same stages eagerly."""
+    return (graphs and mesh.home.type == "cuda"
+            and all(d == mesh.home for d in mesh.devices))
+
+
+def _signature(prob: TagShardedProblem, dtype, n_caps: int, *rest) -> tuple:
+    """A mesh program's static signature: the mesh's layout, the dtype and
+    the padded shard shapes, then ``rest``."""
+    mesh = prob.mesh
+    return (tuple(map(str, mesh.devices)), mesh.world, mesh.rank, dtype,
+            n_caps, prob.t_per, prob.b_shard, *rest)
+
+
+def _hooks(prob: TagShardedProblem, aruco_size, config: LMConfig,
+           n_caps: int):
+    return make_tag_sharded_hooks(
+        prob.mesh, prob.t_per, n_caps, aruco_size, config.jacobi_scaling,
+        config.enable_distortion, prob.obs_per_tag, prob.obs_per_cap,
+        loss=config.loss, loss_scale=config.loss_scale,
+        linear_solver=config.linear_solver, cg_tol=config.cg_tolerance,
+        cg_iters=config.cg_max_iterations, row_slots=prob.row_slots,
+        shard_rows=prob.shard_rows, shard_cap_rows=prob.shard_cap_rows)
+
+
 def _lm_sharded(prob: TagShardedProblem, aruco_size, config: LMConfig,
                 camera, cap_poses, tag_poses, block_mask, cam_active,
                 cap_active, tag_active, enabled=True, iter_budget=None):
     """lm_core over the tag-sharded hooks: placed state in, placed state
-    out (the tags ``Sharded`` in the renumbered order)."""
+    out (the tags ``Sharded`` in the renumbered order).  The plain loop
+    that the stages (``lm_solve_sharded``) run bit for bit."""
     n_caps = cap_poses.shape[0]
-    make_group, make_lin, make_quality_lin, make_solve = (
-        make_tag_sharded_hooks(
-            prob.mesh, prob.t_per, n_caps, aruco_size, config.jacobi_scaling,
-            config.enable_distortion, prob.obs_per_tag, prob.obs_per_cap,
-            loss=config.loss, loss_scale=config.loss_scale,
-            linear_solver=config.linear_solver, cg_tol=config.cg_tolerance,
-            cg_iters=config.cg_max_iterations, row_slots=prob.row_slots,
-            shard_rows=prob.shard_rows, shard_cap_rows=prob.shard_cap_rows))
+    make_group, make_lin, make_quality_lin, make_solve = _hooks(
+        prob, aruco_size, config, n_caps)
     # per-shard regroup ONCE, outside the LM loop
     grouped = make_group(prob.cap_idx, prob.tag_idx, prob.corners,
                          block_mask)
@@ -410,15 +451,109 @@ def _lm_sharded(prob: TagShardedProblem, aruco_size, config: LMConfig,
                    quality_lin_fn=make_quality_lin(grouped, tag_active))
 
 
+def _lm_stages(prob: TagShardedProblem, aruco_size, config: LMConfig,
+               n_caps: int) -> dict:
+    """The tag-sharded LM's stages: ``setup`` (the per-shard regroup, the
+    first linearization and its reduction, the initial state), ``step``
+    (``lm_step`` over the fused quality: the damped solve, the quality
+    and relinearization, the tests), ``accept`` (adopt the
+    relinearization) and ``reject``.  The hooks ``setup`` builds serve the later stages."""
+    make_group, make_lin, make_quality_lin, make_solve = _hooks(
+        prob, aruco_size, config, n_caps)
+    hooks = {}
+
+    def active(t):
+        return t["cam_active"], t["cap_active"], t["tag_active"]
+
+    def setup(t):
+        grouped = make_group(t["cap_idx"], t["tag_idx"], t["corners"],
+                             t["block_mask"])
+        lin_fn = make_lin(grouped, t["tag_active"])
+        hooks.update(quality=make_quality_lin(grouped, t["tag_active"]),
+                     solve=make_solve(*active(t), grouped))
+        state, eqs = lm_init(t["in_camera"], t["in_cap_poses"],
+                             t["in_tag_poses"], *active(t), lin_fn, config)
+        sol = None
+        if config.linear_solver == "cg":
+            sol = torch.zeros(3 + 6 * n_caps, dtype=state.cap_poses.dtype,
+                              device=state.cap_poses.device)
+        return {**fields(state), "cost0": state.cost.clone(), "eqs": eqs,
+                "sol": sol}
+
+    def step(t):
+        return {"step": lm_step(state_of(t), t["eqs"], t["sol"],
+                                hooks["solve"], None, config,
+                                quality_lin_fn=hooks["quality"],
+                                active=active(t))}
+
+    def accept(t):
+        state, eqs, sol = lm_accept(state_of(t), t["step"], None,
+                                    *active(t), config)
+        return {**fields(state), "eqs": eqs, "sol": sol}
+
+    def reject(t):
+        state, sol = lm_reject(state_of(t), t["step"])
+        return {**fields(state), "sol": sol}
+
+    return {"setup": setup, "step": step, "accept": accept, "reject": reject}
+
+
+def lm_solve_sharded(prob: TagShardedProblem, aruco_size, config: LMConfig,
+                     camera, cap_poses, tag_poses, block_mask, cam_active,
+                     cap_active, tag_active, enabled=True, iter_budget=None,
+                     graphs: bool = True):
+    """The tag-sharded LM on placed state and masks through its stages:
+    replayed CUDA graphs where ``graphed_mesh`` allows, else the same
+    stages eagerly, driven by ``graphs.lm_iterate``: an iteration is a
+    ``step``, one read of its flags and an ``accept`` or ``reject``, and
+    no step runs that the eager loop does not run.  Returns (camera,
+    cap_poses, tag_poses, info) as ``_lm_sharded`` does, bit for bit, and
+    counts the same reductions."""
+    mesh = prob.mesh
+    n_caps = cap_poses.shape[0]
+    graphed = graphed_mesh(mesh, graphs)
+
+    def make():
+        return Program(_lm_stages(prob, aruco_size, config, n_caps), graphed)
+
+    if graphed:
+        cg = config.linear_solver == "cg"
+        prog = CACHE.get("mesh_lm", mesh.home, _signature(
+            prob, cap_poses.dtype, n_caps, prob.obs_per_tag,
+            prob.obs_per_cap,
+            (prob.row_slots, prob.shard_rows, prob.shard_cap_rows) if cg
+            else None,
+            # the budget is the host's: one capture serves every budget
+            config._replace(max_iterations=0), float(aruco_size)), make)
+        prog.counter = mesh
+    else:
+        prog = make()
+    prog.load(in_camera=camera, in_cap_poses=cap_poses,
+              in_tag_poses=tag_poses, cap_idx=prob.cap_idx,
+              tag_idx=prob.tag_idx, corners=prob.corners,
+              block_mask=block_mask, cam_active=cam_active,
+              cap_active=cap_active, tag_active=tag_active)
+    t = prog.t
+    prog.run("setup")
+    if not enabled:
+        t["converged"].fill_(True)
+        t["term"].fill_(5)
+    iteration = lm_iterate(prog, config, iter_budget)
+    return (prog.out(t["camera"]), prog.out(t["cap_poses"]),
+            prog.out(t["tag_poses"]), lm_info(prog, iteration))
+
+
 def lm_solve_dist(mesh: Mesh, camera, cap_poses, tag_poses, cap_idx,
                   tag_idx, corners, block_mask, cam_active, cap_active,
                   tag_active, *, aruco_size: float,
-                  config: LMConfig = LMConfig()):
+                  config: LMConfig = LMConfig(), graphs: bool = True):
     """Distributed lm_solve: the contract of solve.lm.lm_solve (arrays in
     the original tag numbering, numpy or tensors); tags and their
     observations are sharded internally, and the results come back in the
     original numbering on the mesh's home device, in the dtype of
-    ``cap_poses``."""
+    ``cap_poses``.  The LM replays CUDA graphs on a mesh whose shards
+    share one card (``graphed_mesh``); ``graphs=False`` runs the same
+    stages eagerly, bit for bit."""
     dtype = (cap_poses.dtype if isinstance(cap_poses, torch.Tensor)
              else torch.from_numpy(np.asarray(cap_poses)).dtype)
     n_tags = tag_poses.shape[0]
@@ -427,87 +562,153 @@ def lm_solve_dist(mesh: Mesh, camera, cap_poses, tag_poses, cap_idx,
                              dtype=dtype)
     camera_r, cap_poses_r, cam_a, cap_a = prob.put_rep(
         camera, cap_poses, np.asarray(_numpy(cam_active), bool), cap_active)
-    cam, caps, tags, info = _lm_sharded(
+    cam, caps, tags, info = lm_solve_sharded(
         prob, aruco_size, config, camera_r, cap_poses_r,
         prob.put_tags(tag_poses), prob.block_mask(block_mask), cam_a, cap_a,
-        prob.put_tag_mask(tag_active))
+        prob.put_tag_mask(tag_active), graphs=graphs)
     tags_old = torch.as_tensor(prob.tags_to_old(tags, n_tags),
                                device=mesh.home)
     return cam, caps, tags_old, info
+
+
+def seed_waves_sharded(mesh: Mesh, t_per: int, b_shard: int, camera,
+                       cap_poses, tag_poses, tag_idx, corners, tables, *,
+                       aruco_size, seed_mode) -> tuple:
+    """``solve.batch.seed_waves`` on the tag-sharded layout, with no host
+    read (≙ the JAX package's ``apply_wave_seeds`` inside
+    ``_dist_wave_solver``): ``tables`` (``pack_waves``, replicated on the
+    home device) hold REPACKED block rows and RENUMBERED tag ids;
+    ``tag_poses``, ``tag_idx`` and ``corners`` are ``Sharded``.  A static
+    loop over the W waves: each wave's anchor poses and corners come from
+    the shards that own their rows through one packed reduction (the
+    other shards add zeros), the capture is seeded on the home device
+    where seed_block >= 0, and each shard initializes the wave's tags it
+    owns from their rows through that capture (the other slots scatter
+    into a spare row that is cut off).  Returns new (cap_poses,
+    tag_poses)."""
+    s = (tables.shape[1] - 2) // 5
+    seed_caps, seed_blocks = tables[:, 0], tables[:, 1]
+    anchor_mask = tables[:, 2 + 4 * s:] != 0
+    cap_poses = cap_poses.clone()
+    shards = []
+    for g, dev, tp, ti, crn in zip(mesh.shard_ids(), mesh.devices,
+                                   tag_poses, tag_idx, corners):
+        tab = tables.to(dev)
+        w_tags, w_rows, w_mask, a_rows, a_mask = (
+            tab[:, 2 + k * s:2 + (k + 1) * s] for k in range(5))
+        lo = g * b_shard
+        zero = torch.zeros_like(w_rows)
+        own_w = (w_mask != 0) & (w_rows >= lo) & (w_rows < lo + b_shard)
+        own_a = (a_mask != 0) & (a_rows >= lo) & (a_rows < lo + b_shard)
+        loc_a = torch.where(own_a, a_rows - lo, zero)
+        shards.append(dict(
+            dev=dev, tags=torch.cat([tp, tp[:1]]), own_a=own_a[..., None],
+            anc_tags=ti[loc_a] - g * t_per,  # (W, S) local ids
+            anc_corners=crn[loc_a].reshape(*loc_a.shape, 8),
+            init_corners=crn[torch.where(own_w, w_rows - lo, zero)],
+            targets=torch.where(own_w, w_tags - g * t_per,
+                                torch.full_like(w_tags, t_per))))
+    for w in range(tables.shape[0]):
+        packs = []
+        for sh in shards:
+            own = sh["own_a"][w]
+            poses = sh["tags"].index_select(0, sh["anc_tags"][w])
+            crn = sh["anc_corners"][w]
+            packs.append([torch.where(own, poses, torch.zeros_like(poses)),
+                          torch.where(own, crn, torch.zeros_like(crn))])
+        anc_poses, anc_corners = _psum_packed(mesh, packs)
+        cap = seed_caps[w:w + 1]
+        pose = seed_capture_pose_multi(
+            anc_corners.reshape(s, 4, 2), camera, anc_poses, anchor_mask[w],
+            aruco_size, mode=seed_mode)
+        pose = torch.where(seed_blocks[w] >= 0, pose,
+                           cap_poses.index_select(0, cap)[0])
+        cap_poses.index_copy_(0, cap, pose[None])
+        for sh in shards:
+            dev = sh["dev"]
+            sh["tags"].index_copy_(0, sh["targets"][w], seed_tag_pose(
+                sh["init_corners"][w], camera.to(dev), pose.to(dev),
+                aruco_size, mode=seed_mode))
+    return cap_poses, Sharded(sh["tags"][:t_per] for sh in shards)
 
 
 class DistWaveSolver:
     """The wave solver over a ``TagShardedProblem`` (seeding prologue and
     LM, ≙ the JAX package's jitted ``make_dist_wave_solver``); the solve
     drivers' ``_WaveRunner`` calls it for each flush.  Tag-indexed state
-    is ``Sharded`` in the renumbered order."""
+    is ``Sharded`` in the renumbered order.  Its programs (kinds
+    ``mesh_seed`` and ``mesh_lm`` of ``graphs.CACHE``) replay CUDA graphs
+    where ``graphed_mesh`` allows and ``graphs`` is set."""
 
     def __init__(self, prob: TagShardedProblem, aruco_size: float,
-                 config: LMConfig, seed_mode: str):
+                 config: LMConfig, seed_mode: str, graphs: bool = True):
         self.prob = prob
         self.aruco_size = aruco_size
         self.config = config
         self.seed_mode = seed_mode
+        self.graphs = graphs
 
-    def seed_waves(self, camera, cap_poses, tag_poses, waves):
+    def seed_waves(self, camera, cap_poses, tag_poses, waves, slots: int,
+                   w_min: int = 1):
         """Apply the seeds of ``waves`` in order, as
         ``solve.batch.apply_wave_seeds_multi`` does on one table (waves in
-        the store's block and tag numbering).  A capture seed reads its
-        anchor tags' poses from the shards that own them through one
-        reduction; each tag seed runs on its own shard.  Returns new
-        (cap_poses, tag_poses)."""
-        from ar_slam_tpu_torch.solve.batch import seed_capture, seed_tags
-
+        the store's block and tag numbering): their tables repacked into
+        the shards' numbering, padded to (W, S) = (max(bucket(len(waves)),
+        w_min), ``slots``) and uploaded in one copy, then one ``seed``
+        stage (``seed_waves_sharded``).  Returns new (cap_poses,
+        tag_poses)."""
         prob, mesh = self.prob, self.prob.mesh
-        t_per, b_shard = prob.t_per, prob.b_shard
-        row_of = prob.prep["row_of_block"]
-        tag_inv = prob.prep["tag_inv"]
-        cap_poses = cap_poses.clone()
-        tag_poses = Sharded(t.clone() for t in tag_poses)
-        shards = list(zip(mesh.shard_ids(), mesh.devices, tag_poses,
-                          prob.corners))
-        for seed_cap, seed_row, rows, tags, anchors in waves:
-            if seed_row >= 0 and anchors:
-                anc_rows = row_of[np.asarray(anchors)]
-                anc_tags = prob.tag_idx_host[anc_rows]
-                packs = []
-                for g, dev, tp, _ in shards:
-                    own = anc_tags // t_per == g
-                    local = torch.as_tensor(np.where(own, anc_tags - g * t_per,
-                                                     0), device=dev)
-                    keep = torch.as_tensor(own, device=dev)[:, None]
-                    packs.append([torch.where(keep, tp[local],
-                                              torch.zeros_like(tp[local]))])
-                (anc_poses,) = _psum_packed(mesh, packs)
-                anc_corners = torch.as_tensor(prob.corners_host[anc_rows],
-                                              dtype=cap_poses.dtype,
-                                              device=mesh.home)
-                seed_capture(camera, cap_poses, seed_cap, anc_corners,
-                             anc_poses, self.aruco_size, self.seed_mode)
-            if rows:
-                new_rows = row_of[np.asarray(rows)]
-                new_tags = tag_inv[np.asarray(tags)]
-                for g, dev, tp, crn in shards:
-                    own = new_tags // t_per == g
-                    if own.any():
-                        seed_tags(camera.to(dev), cap_poses[seed_cap].to(dev),
-                                  tp, crn, new_rows[own] - g * b_shard,
-                                  new_tags[own] - g * t_per,
-                                  self.aruco_size, self.seed_mode)
-        return cap_poses, tag_poses
+        row_of, tag_inv = prob.prep["row_of_block"], prob.prep["tag_inv"]
+
+        def rows(r):
+            return row_of[np.asarray(r, dtype=np.int64)]
+
+        tables = torch.as_tensor(pack_waves(
+            [(cap, int(row_of[seed]) if seed >= 0 else -1, rows(r),
+              tag_inv[np.asarray(tags, dtype=np.int64)], rows(anchors))
+             for cap, seed, r, tags, anchors in waves], slots, w_min),
+            device=mesh.home)
+        kw = dict(aruco_size=self.aruco_size, seed_mode=self.seed_mode)
+        graphed = graphed_mesh(mesh, self.graphs)
+
+        def seed(t):
+            cap, tag = seed_waves_sharded(
+                mesh, prob.t_per, prob.b_shard, t["camera"],
+                t["in_cap_poses"], t["in_tag_poses"], t["tag_idx"],
+                t["corners"], t["tables"], **kw)
+            return {"cap_poses": cap, "tag_poses": tag}
+
+        def make():
+            return Program({"seed": seed}, graphed)
+
+        if graphed:
+            prog = CACHE.get("mesh_seed", mesh.home, _signature(
+                prob, cap_poses.dtype, cap_poses.shape[0], *tables.shape,
+                float(self.aruco_size), self.seed_mode), make)
+            prog.counter = mesh
+        else:
+            prog = make()
+        prog.load(camera=camera, in_cap_poses=cap_poses,
+                  in_tag_poses=tag_poses, tag_idx=prob.tag_idx,
+                  corners=prob.corners, tables=tables)
+        prog.run("seed")
+        return prog.out(prog.t["cap_poses"]), prog.out(prog.t["tag_poses"])
 
     def lm(self, camera, cap_poses, tag_poses, block_mask, cam_active,
            cap_active, tag_active, enabled=True, iter_budget=None):
-        """The tag-sharded LM on placed state and masks."""
-        return _lm_sharded(self.prob, self.aruco_size, self.config, camera,
-                           cap_poses, tag_poses, block_mask, cam_active,
-                           cap_active, tag_active, enabled=enabled,
-                           iter_budget=iter_budget)
+        """The tag-sharded LM on placed state and masks
+        (``lm_solve_sharded``)."""
+        return lm_solve_sharded(self.prob, self.aruco_size, self.config,
+                                camera, cap_poses, tag_poses, block_mask,
+                                cam_active, cap_active, tag_active,
+                                enabled=enabled, iter_budget=iter_budget,
+                                graphs=self.graphs)
 
 
 def make_dist_wave_solver(prob: TagShardedProblem, *, aruco_size: float,
-                          config: LMConfig, seed_mode: str = "hybrid"):
+                          config: LMConfig, seed_mode: str = "hybrid",
+                          graphs: bool = True):
     """The distributed wave solver over ``prob``'s layout.  The JAX
-    package memoizes its jitted program; the port has nothing to
-    compile, so each call builds a new solver."""
-    return DistWaveSolver(prob, aruco_size, config, seed_mode)
+    package memoizes its jitted program; here ``graphs.CACHE`` holds the
+    captured programs, so every solver of one signature shares them."""
+    return DistWaveSolver(prob, aruco_size, config, seed_mode, graphs)

@@ -29,9 +29,13 @@ the same stages eagerly, bit for bit the same.
 
 With a ``mesh`` (or ``config.dist.num_devices > 1``) the tags are sharded
 over it and every LM runs the tag-sharded distributed solve
-(parallel/dist_lm.py) on the grouped hooks; the waves, seeds and warmups
-are the single-device path's.  Progress printing is single-device only,
-as in the reference.
+(parallel/dist_lm.py) on the grouped hooks, and a flush's seeds its one
+``seed`` stage over the same padded tables in the shards' numbering; the
+waves and warmups are the single-device path's.  On a mesh whose shards
+share one card both replay CUDA graphs (``dist_lm.graphed_mesh``), one
+capture of each serving every flush; ``graphs=False``, the CPU and a
+mesh spread over several cards run the same stages eagerly.  Progress
+printing is single-device only, as in the reference.
 """
 
 from __future__ import annotations
@@ -53,29 +57,6 @@ from ar_slam_tpu_torch.solve.lm import TERMINATION_REASONS, LMConfig, lm_solve
 from ar_slam_tpu_torch.solve.residuals import total_cost
 
 logger = logging.getLogger(__name__)
-
-
-def seed_capture(camera, cap_poses, seed_cap, anchor_corners,
-                 anchor_tag_poses, aruco_size, seed_mode):
-    """Seed capture ``seed_cap`` in place from its anchors: the corners of
-    its observations of already-initialized tags and those tags' poses
-    (the mesh path's seeds, parallel/dist_lm.py)."""
-    cap_poses[seed_cap] = seed_capture_pose_multi(
-        anchor_corners, camera, anchor_tag_poses,
-        torch.ones(anchor_corners.shape[0], dtype=torch.bool,
-                   device=anchor_corners.device), aruco_size, mode=seed_mode)
-
-
-def seed_tags(camera, cap_pose, tag_poses, corners, rows, tags, aruco_size,
-              seed_mode):
-    """Initialize ``tags`` in place, each from its block row of
-    ``rows``, through the capture pose that saw them (the mesh path's
-    seeds, parallel/dist_lm.py)."""
-    dev = corners.device
-    r = torch.as_tensor(rows, dtype=torch.int64, device=dev)
-    t = torch.as_tensor(tags, dtype=torch.int64, device=dev)
-    tag_poses[t] = seed_tag_pose(corners[r], camera, cap_pose, aruco_size,
-                                 mode=seed_mode)
 
 
 def pack_waves(waves, slots: int, w_min: int = 1) -> np.ndarray:
@@ -273,7 +254,7 @@ class _WaveRunner:
                                                        arrs.cap_poses)
             self._dist = make_dist_wave_solver(
                 prob, aruco_size=aruco_size, config=self.config,
-                seed_mode=self.seed_mode)
+                seed_mode=self.seed_mode, graphs=graphs)
         self.active_caps: set[int] = set()
         self.active_blocks = np.zeros_like(arrs.block_mask)
         self.tag_initialized = np.zeros(self.t_pad, dtype=bool)
@@ -369,7 +350,8 @@ class _WaveRunner:
 
         if self._dist is not None:
             self.cap_poses, self.tag_poses = self._dist.seed_waves(
-                self.camera, self.cap_poses, self.tag_poses, waves)
+                self.camera, self.cap_poses, self.tag_poses, waves,
+                slots=self.obs_per_cap, w_min=self.w_fixed)
             cam_on, cam_off, blocks = True, False, None
             caps, tags = cap_active, self.active_tags.copy()
             warm_c, warm_t = warm_caps, warm_tags
@@ -492,9 +474,10 @@ def solve(store: MapStore, config=None, dtype=None, device=None,
     ``assemble_fn`` overrides the normal-equation assembly (the flat
     hooks then run; see lm.lm_solve; the mesh path ignores it).  With
     ``mesh`` (or config.dist.num_devices > 1) each LM runs tag-sharded
-    over it.  On a CUDA device the single-device grouped LM replays CUDA graphs
-    (solve/graphs.py); ``graphs=False`` runs the eager loop instead, bit
-    for bit the same.  Returns {"waves", "cost", "rmse"}."""
+    over it.  On a CUDA device the grouped LM and the seeds replay CUDA
+    graphs (solve/graphs.py; on a mesh, where its shards share one card:
+    parallel/dist_lm.py); ``graphs=False`` runs the eager loop instead,
+    bit for bit the same.  Returns {"waves", "cost", "rmse"}."""
     config, dtype, device, mesh = _resolve(config, dtype, device, mesh)
     if not store.captures:
         return {"waves": 0}

@@ -25,22 +25,29 @@ entries.
   table, the first linearization, the gradient test, the initial state),
   ``step`` (the damped solve, the proposal, its quality and the tests),
   ``accept`` (relinearize at an accepted proposal, the gradient test, the
-  state update) and ``reject`` (the state update of any other step).  An
-  iteration replays ``step``, reads its three flags (converged before the
-  step, accept, converged_fp) in one copy to the host, and replays
-  ``accept`` or ``reject``: the eager loop's lazy relinearization.  A
-  step run after a convergence the flags then show is dropped, which
-  leaves the state as the eager loop leaves it.
+  state update) and ``reject`` (the state update of any other step).
+  The host loop (``lm_iterate``) reads the converged flag once after
+  ``setup``; an iteration replays ``step``, reads its three flags
+  (converged before the step, accept stage next, converged after it) in
+  one copy to the host, and replays ``accept`` or ``reject``: the eager
+  loop's lazy relinearization.  A step run after a convergence that only
+  the gradient test shows is dropped, which leaves the state as the
+  eager loop leaves it.
 - localize (``localize_graphed``): stages ``init`` (each query's seed
   pose, cost and damping) and ``iterate``; a call replays ``init`` and
   then ``iterate`` once an iteration, each replay followed by one flag
   read (any query active).
 
+- the mesh (parallel/dist_lm.py, on shards of one card): the kinds
+  ``"mesh_lm"`` (the tag-sharded LM's stages, with the fused quality,
+  through ``lm_iterate``) and ``"mesh_seed"``; a program counts the packed reductions its
+  replays run on the mesh (``Program.counter``).
+
 The cache (``CACHE``) holds one captured program per kind (``"seed"``,
-``"lm"``, ``"localize"``) and device, as ``jax.jit`` caches its
-compiles: a solve's waves, its warmups and its polish share one LM
-capture, and ``serve``'s per-batch solves reuse it while their bucketed
-shapes repeat.  A call with another static signature (dtype, padded
+``"lm"``, ``"localize"``, ``"mesh_seed"``, ``"mesh_lm"``) and device, as
+``jax.jit`` caches its compiles: a solve's waves, its warmups and its
+polish share one LM capture, and ``serve``'s per-batch solves reuse it
+while their bucketed shapes repeat.  A call with another static signature (dtype, padded
 shapes, slot bounds, ``LMConfig``, tag size, seed mode) replaces the
 kind's program: the old graphs and tensors are freed into the kind's
 memory pool, which the new capture reuses, so a map that grows through
@@ -135,32 +142,58 @@ class GraphCache:
 CACHE = GraphCache()
 
 
+def _copy_into(dst, src) -> None:
+    """Copy ``src`` into the tensors of ``dst``, a tensor or a tuple or
+    list of them (nested: NamedTuples, ``Sharded`` shards), leaf by leaf;
+    None leaves stay."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+    elif isinstance(dst, (tuple, list)):
+        for d, s in zip(dst, src):
+            _copy_into(d, s)
+
+
+def _clone(x):
+    """A copy of ``x`` (as ``_copy_into`` takes it) in memory of its
+    own."""
+    if isinstance(x, torch.Tensor):
+        return x.clone(memory_format=torch.contiguous_format)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*map(_clone, x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(map(_clone, x))
+    return x
+
+
 def _write(t: dict, out: dict) -> None:
     """Store stage outputs: in place into tensors ``t`` already holds (a
     replayed graph writes the same memory), else as new entries."""
     for k, v in out.items():
-        old = t.get(k)
-        if old is None:
+        if t.get(k) is None:
             t[k] = v
-        elif isinstance(old, torch.Tensor):
-            old.copy_(v)
-        else:  # a NamedTuple of tensors
-            for o, n in zip(old, v):
-                if o is not None:
-                    o.copy_(n)
+        else:
+            _copy_into(t[k], v)
 
 
 class Program:
     """A loop's stages over one dict of tensors ``t``, run eagerly or as
     CUDA graphs (``graphed``, held by ``CACHE``; see the module
-    docstring)."""
+    docstring).  An entry of ``t`` is a tensor or a (nested) tuple or
+    list of them: the mesh's ``Sharded`` state is copied, selected and
+    cloned shard by shard.  ``counter``, which the caller of a graphed
+    program sets to the call's ``parallel.Mesh``, counts the packed
+    reductions the stages run: eagerly they count themselves; a captured
+    stage records how many it holds and each replay adds that many (a
+    capture's warm-up rounds and recording count none)."""
 
     def __init__(self, stages: dict, graphed: bool):
         self.stages = stages  # in capture order
         self.graphed = graphed
+        self.counter = None
         self.key = self.signature = None
         self.t: dict = {}
         self.graphs: dict = {}
+        self.reductions: dict = {}  # per captured stage
 
     def load(self, **inputs) -> None:
         """The call's inputs: copied into the program's own tensors when
@@ -170,9 +203,9 @@ class Program:
             return
         for k, v in inputs.items():
             if k in self.t:
-                self.t[k].copy_(v)
+                _copy_into(self.t[k], v)
             else:
-                self.t[k] = v.clone(memory_format=torch.contiguous_format)
+                self.t[k] = _clone(v)
         if not self.graphs:
             self._capture()
 
@@ -180,11 +213,15 @@ class Program:
         if self.graphed:
             self.graphs[name].replay()
             CACHE.replays += 1
+            if self.counter is not None:
+                self.counter.reductions += self.reductions[name]
         else:
             self.t.update(self.stages[name](self.t))
 
     def _capture(self) -> None:
-        dev = next(iter(self.t.values())).device
+        dev = torch.device(self.key[1])
+        counter = self.counter
+        counted = counter.reductions if counter is not None else 0
         pool, stream = CACHE.pool(self.key, dev)
         # the inputs were copied in on the current stream; the replays run
         # there too, after the capture
@@ -203,6 +240,7 @@ class Program:
         with torch.cuda.stream(stream):
             for name, fn in self.stages.items():
                 g = torch.cuda.CUDAGraph()
+                before = counter.reductions if counter is not None else 0
                 g.capture_begin(pool=pool.id,
                                 capture_error_mode="thread_local")
                 try:
@@ -210,6 +248,10 @@ class Program:
                 finally:
                     g.capture_end()
                 self.graphs[name] = g
+                if counter is not None:
+                    self.reductions[name] = counter.reductions - before
+        if counter is not None:
+            counter.reductions = counted
         torch.cuda.current_stream(dev).wait_stream(stream)
         CACHE._retired.pop(self.key, None)
         CACHE.captures += 1
@@ -218,11 +260,58 @@ class Program:
 
     def out(self, x):
         """A result that outlives the next replay: a copy when graphed."""
-        return x.clone() if self.graphed else x
+        return _clone(x) if self.graphed else x
 
 
 _STATE = ("camera", "cap_poses", "tag_poses", "lam", "nu", "cost",
           "converged", "term")
+
+
+def state_of(t: dict) -> LMState:
+    """The LM state a program's tensors hold."""
+    return LMState(**{k: t[k] for k in _STATE}, iteration=0)
+
+
+def fields(state: LMState) -> dict:
+    """An LM state as a program's entries."""
+    return {k: getattr(state, k) for k in _STATE}
+
+
+def lm_info(prog: "Program", iteration: int) -> dict:
+    """``lm_core``'s info dict from an LM program's tensors (copies when
+    graphed)."""
+    t = prog.t
+    return {"cost": prog.out(t["cost"]), "iterations": iteration,
+            "lambda": prog.out(t["lam"]),
+            "converged": prog.out(t["converged"]),
+            "initial_cost": prog.out(t["cost0"]),
+            "termination": prog.out(t["term"]), "nu": prog.out(t["nu"]),
+            "grad_max": _grad_inf_norm(t["eqs"], t["cam_active"],
+                                       t["cap_active"], t["tag_active"])}
+
+
+def lm_iterate(prog: Program, config: LMConfig, iter_budget=None) -> int:
+    """The host's loop over an LM program's stages once ``setup`` has run:
+    one read of the converged flag, then per iteration a ``step``, one
+    read of its flags (``lm.LMStep``) and an ``accept`` or ``reject``, to
+    the budget or convergence.  Every process of a mesh reads the same
+    flags, so all replay the same stages.  Returns the iterations run."""
+    t = prog.t
+    budget = min(config.max_iterations if iter_budget is None
+                 else int(iter_budget), config.max_iterations)
+    iteration = 0
+    if bool(t["converged"]):
+        return iteration
+    while iteration < budget:
+        prog.run("step")
+        before, accepting, after = t["step"].flags.tolist()
+        if before:
+            break
+        prog.run("accept" if accepting else "reject")
+        iteration += 1
+        if after:
+            break
+    return iteration
 
 
 def _lm_stages(aruco_size: float, config: LMConfig, n_caps: int, n_tags: int,
@@ -231,12 +320,6 @@ def _lm_stages(aruco_size: float, config: LMConfig, n_caps: int, n_tags: int,
     inputs; the hooks built by ``setup`` (its regroup tables) serve the
     later stages."""
     hooks = {}
-
-    def state_of(t):
-        return LMState(**{k: t[k] for k in _STATE}, iteration=0)
-
-    def fields(state):
-        return {k: getattr(state, k) for k in _STATE}
 
     def setup(t):
         lin_fn, quality_fn, solve_fn, sol = grouped_solver(
@@ -312,25 +395,9 @@ def lm_solve_graphed(camera, cap_poses, tag_poses, cap_idx, tag_idx, corners,
     if not enabled:
         t["converged"].fill_(True)
         t["term"].fill_(5)
-    budget = min(config.max_iterations if iter_budget is None
-                 else int(iter_budget), config.max_iterations)
-    iteration = 0
-    while enabled and iteration < budget:
-        prog.run("step")
-        converged, accepted, done_fp = t["step"].flags.tolist()
-        if converged:
-            break
-        prog.run("accept" if accepted and not done_fp else "reject")
-        iteration += 1
-    info = {"cost": prog.out(t["cost"]), "iterations": iteration,
-            "lambda": prog.out(t["lam"]),
-            "converged": prog.out(t["converged"]),
-            "initial_cost": prog.out(t["cost0"]),
-            "termination": prog.out(t["term"]), "nu": prog.out(t["nu"]),
-            "grad_max": _grad_inf_norm(t["eqs"], t["cam_active"],
-                                       t["cap_active"], t["tag_active"])}
+    iteration = lm_iterate(prog, config, iter_budget)
     return (prog.out(t["camera"]), prog.out(t["cap_poses"]),
-            prog.out(t["tag_poses"]), info)
+            prog.out(t["tag_poses"]), lm_info(prog, iteration))
 
 
 def seed_waves_graphed(camera, cap_poses, tag_poses, tag_idx, corners,

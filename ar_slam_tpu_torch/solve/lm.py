@@ -268,8 +268,9 @@ def lm_core(camera, cap_poses, tag_poses, cam_active, cap_active, tag_active,
     (``_grad_inf_norm``).  The tags may then be ``Sharded``.
 
     This is the plain version of the split iteration (``lm_step``,
-    ``lm_accept``, ``lm_reject``) that solve/graphs.py replays as CUDA
-    graphs: the same operations in the same order."""
+    ``lm_accept``, ``lm_reject``, with ``quality_fn`` or
+    ``quality_lin_fn``) that solve/graphs.py and parallel/dist_lm.py
+    replay as CUDA graphs: the same operations in the same order."""
     stateful = solver_state0 is not None
     sol = solver_state0
     if solve_fn is None:
@@ -343,9 +344,14 @@ def lm_core(camera, cap_poses, tag_poses, cam_active, cap_active, tag_active,
 
 class LMStep(NamedTuple):
     """One step's proposal and decision (``lm_step``).  ``flags`` is
-    [converged before the step, accept, converged_fp]: the host's one
-    read an iteration, which picks ``lm_accept`` or ``lm_reject`` next (or
-    ends the loop, dropping the proposal)."""
+    [converged before the step, run ``lm_accept`` next (else
+    ``lm_reject``), converged after it]: the host's one read an
+    iteration, which ends the loop on the first (dropping the proposal),
+    runs the stage the second names, then ends the loop on the third.
+    Over a fused ``quality_lin_fn`` the step carries the speculative
+    relinearization ``eqs`` and its gradient test ``g_conv``, so the third
+    flag is the state's next ``converged``; else it is ``converged_fp``
+    and the gradient test shows in the next step's first flag."""
 
     camera: torch.Tensor
     cap_poses: torch.Tensor
@@ -360,13 +366,20 @@ class LMStep(NamedTuple):
     converged_fp: torch.Tensor
     sol: torch.Tensor | None  # the CG solve's reduced solution
     flags: torch.Tensor  # (3,) bool
+    eqs: object = None  # fused: the speculative relinearization
+    g_conv: torch.Tensor | None = None  # fused: its gradient test
 
 
 def lm_step(state: LMState, eqs, sol, solve_fn, quality_fn,
-            config: LMConfig) -> LMStep:
+            config: LMConfig, quality_lin_fn=None, active=None) -> LMStep:
     """The damped solve, the proposal, its quality and the tests of one
     iteration, with no host read: ``lm_core``'s loop body up to its read.
-    ``sol`` is the CG warm start (None for a stateless ``solve_fn``)."""
+    ``sol`` is the CG warm start (None for a stateless ``solve_fn``).
+    With ``quality_lin_fn`` (the tag-sharded hooks, see ``lm_core``) in
+    place of ``quality_fn``, the step also makes the gradient test that
+    ``lm_core`` makes on the speculative relinearization (false unless the
+    step is accepted and does not converge otherwise), over the masks
+    ``active`` = (cam_active, cap_active, tag_active)."""
     if sol is None:
         d_cam, d_cap, d_tag = solve_fn(eqs, state.lam)
     else:
@@ -374,25 +387,43 @@ def lm_step(state: LMState, eqs, sol, solve_fn, quality_fn,
     new_camera = state.camera + d_cam
     new_caps = state.cap_poses + d_cap
     new_tags = state.tag_poses + d_tag
-    new_cost, g_dot_d, jd_sq = quality_fn(
-        eqs, new_camera, new_caps, new_tags, d_cam, d_cap, d_tag)
+    if quality_lin_fn is not None:
+        new_cost, g_dot_d, jd_sq, eqs_prop = quality_lin_fn(
+            eqs, new_camera, new_caps, new_tags, d_cam, d_cap, d_tag)
+        tag_step_sq, tag_x_sq = eqs_prop.step_sq, eqs.tag_sq
+    else:
+        new_cost, g_dot_d, jd_sq = quality_fn(
+            eqs, new_camera, new_caps, new_tags, d_cam, d_cap, d_tag)
+        tag_step_sq = torch.sum(d_tag ** 2)
+        tag_x_sq = torch.sum(state.tag_poses ** 2)
     (accept, lam_acc, lam_rej, f_conv, p_conv, stalled,
      converged_fp) = _decide(state, new_cost, g_dot_d, jd_sq, d_cam, d_cap,
-                             torch.sum(d_tag ** 2),
-                             torch.sum(state.tag_poses ** 2), config)
+                             tag_step_sq, tag_x_sq, config)
+    if quality_lin_fn is None:
+        eqs_prop = g_conv = None
+        flags = torch.stack([state.converged, accept & ~converged_fp,
+                             converged_fp])
+    else:
+        g_conv = accept & ~converged_fp & (_grad_inf_norm(
+            eqs_prop, *active) <= config.gradient_tolerance)
+        flags = torch.stack([state.converged, accept,
+                             converged_fp | g_conv])
     return LMStep(new_camera, new_caps, new_tags, new_cost, lam_acc, lam_rej,
-                  accept, f_conv, p_conv, stalled, converged_fp, sol,
-                  torch.stack([state.converged, accept, converged_fp]))
+                  accept, f_conv, p_conv, stalled, converged_fp, sol, flags,
+                  eqs_prop, g_conv)
 
 
 def _lm_update(state: LMState, step: LMStep, g_conv):
     """The state after ``step``: selects on its accept flag where
-    ``lm_core`` branches on the host (the same values bit for bit), and
-    the CG warm start zeroed after an accepted step.  Returns (state,
-    sol)."""
+    ``lm_core`` branches on the host (the same values bit for bit; shard
+    by shard for ``Sharded`` tags), and the CG warm start zeroed after an
+    accepted step.  Returns (state, sol)."""
     acc = step.accept
 
     def pick(new, old):
+        if isinstance(new, list):  # parallel.mesh.Sharded
+            return type(new)(torch.where(acc.to(n.device), n, o)
+                             for n, o in zip(new, old))
         return torch.where(acc, new, old)
 
     state = LMState(
@@ -412,9 +443,14 @@ def _lm_update(state: LMState, step: LMStep, g_conv):
 
 def lm_accept(state: LMState, step: LMStep, lin_fn, cam_active, cap_active,
               tag_active, config: LMConfig):
-    """An accepted step that does not end the loop: the relinearization at
-    the proposal, the gradient test and the state update.  Returns
-    (state, eqs, sol)."""
+    """An accepted step: the relinearization at the proposal, the gradient
+    test and the state update (a step that ends the loop takes
+    ``lm_reject`` instead); a fused step's (``step.eqs``) speculative eqs
+    and test adopted in their place, also when it ends the loop, as
+    ``lm_core`` adopts them.  Returns (state, eqs, sol)."""
+    if step.eqs is not None:
+        state, sol = _lm_update(state, step, step.g_conv)
+        return state, step.eqs, sol
     eqs, _ = lin_fn(step.camera, step.cap_poses, step.tag_poses)
     g_conv = _grad_inf_norm(eqs, cam_active, cap_active,
                             tag_active) <= config.gradient_tolerance

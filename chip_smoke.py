@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py [--profile] [--tag-mm 50]
 
-(``--one-shot-map MODE SRC OUT`` runs one process of phase 19.)
+(``--one-shot-map MODE SRC OUT`` runs one process of phase 19,
+``--mesh-map MODE SPEC SRC OUT`` one of phase 17.)
 
 Phases (each prints one JSON line; any failure exits non-zero):
 
@@ -81,18 +82,26 @@ Phases (each prints one JSON line; any failure exits non-zero):
 14. mesh_solver_500 — the 500-tag problem through the tag-sharded
    lm_solve_dist over 1, 2 and 4 shards of the card: final cost within
    1e-3 of 3771.57, exactly 1 + 2 x iterations reductions, LM
-   iterations/s beside the single-device rate;
+   iterations/s beside the single-device rate; on shards of one card
+   the LM replays CUDA graphs (parallel/dist_lm.py): one capture, then a
+   call replays ``setup`` and per iteration ``step`` and ``accept`` or
+   ``reject``;
 15. mesh_cg_10k — the 10k map of phase 8 (not generated again), CG over
    two shards for 12 LM iterations: cost finite and below the initial
-   one, rmse within 1e-2 px of phase 8's, one sharded CG solve with no
-   synchronising call, peak memory and LM iterations/s;
+   one, rmse within 1e-2 px of phase 8's, the replays as in phase 14,
+   one sharded CG solve with no synchronising call, peak memory and LM
+   iterations/s;
 16. mesh_map_room16 — room-16's detections mapped again through
    solve(store, mesh=block_mesh(devices=[cuda:0] * 2)): rmse within 1e-3
-   px of the dense map's, every tag;
+   px of the dense map's, every tag, the mesh's seeds and LM replayed
+   (two captures);
 17. multihost_1 — ``arslam-torch map`` of phone_12mp's saved map with
    ``--multihost 127.0.0.1:<port>,1,0`` in a subprocess (one NCCL
-   process): rmse equal to the in-process solve's within 1e-3 px (and two
-   NCCL processes where the machine has two cards);
+   process; ``chip_smoke.py --mesh-map``), eager and graphed: rmse equal
+   to the in-process solve's within 1e-3 px, the two maps the same text,
+   the graphed process replaying its graphs (and two and four NCCL
+   processes where the machine has as many cards, graphed where each
+   takes one card: their NCCL all_reduce inside the graphs);
 18. solve_graphs — the single-device LM and localize through their CUDA
    graphs (solve/graphs.py) against the eager loops (``graphs=False``):
    synthetic-500 dense (budgets 8 and 32), room-16's LM over its 16
@@ -121,7 +130,17 @@ Phases (each prints one JSON line; any failure exits non-zero):
    as serve runs it, over make_synthetic_map(200, 64) growing through its
    padding buckets: after each call the captures made, the programs held
    (two: the seeds' and the LM's), the graph pools' and the reserved
-   memory; rmse < 1 px and no capture unsolved at the end.
+   memory; rmse < 1 px and no capture unsolved at the end;
+21. mesh_graphs (run after solve_graphs) — the tag-sharded LM through its
+   CUDA graphs against its eager stages on shards of one card:
+   synthetic-500 dense over 1, 2 and 4 shards (budgets 8 and 32), the
+   10k CG map over 2 (budgets 3 and 12): results bit for bit, host ms per
+   LM iteration, one capture and 1 + 2 x iterations replays a call, capture
+   ms, pool and peak memory (launches and device ms per iteration
+   profiled last, ``mesh_graphs_profile``); and room-16's map solve over
+   2 shards, eager once and graphed twice (the first captures), beside
+   the single-device graphed solve: seconds, the mesh LM's iterations and
+   the ms of its LM calls per iteration, the same map bit for bit.
 
 A mesh of k shards puts shard i on card i mod the card count: on one
 card all shards share it and run one after another on its stream (their
@@ -135,7 +154,7 @@ in phase 8, before any profiler attaches), device ms and items from
 torch.profiler, and both per CG step; then solve_graphs' launches (the
 runtime calls that enqueue work, graph launches among them), device items
 and device ms per LM iteration, eager and graphed, from torch.profiler
-runs at budgets 2 and 4.
+runs at budgets 2 and 4, and mesh_graphs' likewise.
 With --profile, one detection batch of each cell and phone_12mp's
 localization then run under torch.profiler (device time, idle share, the
 host-to-device bytes and ms, the largest device items).  Then the kernel
@@ -161,6 +180,7 @@ CG_VS_DENSE_REL = 1e-2  # f32 CG and dense stop at points of a shallow valley
 PROGRESS_RMSE_TOL_PX = 1e-3  # host-stepped vs one-call LM (tests/test_lm.py)
 ROW_SLOTS = 8  # the CG path's row-split packing (solve/batch.py)
 DEVICE = "cuda"
+MESH_CARD = "cuda:0"  # mesh_graphs' shards share this card
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM 80 GB, NVIDIA data sheet (700 W)
 F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same source
 PHONE_SIDE_PX = 80.0  # tags below this side need not be found at 12 MP
@@ -1381,8 +1401,9 @@ PROFILE_BUDGETS = (2, 4)  # a profiled eager 10k CG iteration is ~2 900
 # device items; the profiler's cost grows with them
 
 
-def _graph_cell(name, run, lo: int, hi: int, reps: int = 3) -> tuple:
-    """One solve_graphs cell: ``run(budget, graphed)`` returns a function
+def _graph_cell(name, run, lo: int, hi: int, reps: int = 3,
+                phase: str = "solve_graphs") -> tuple:
+    """One cell of ``phase``: ``run(budget, graphed)`` returns a function
     whose call solves and returns (loop iterations, its results).  For the
     eager loop and the graphs: the first calls at budgets lo and hi (the
     graphs' capture), their results bit for bit, peak memory, and host ms
@@ -1424,9 +1445,9 @@ def _graph_cell(name, run, lo: int, hi: int, reps: int = 3) -> tuple:
     cell["bit_for_bit"] = _same(results["eager"], results["graphed"])
     cell["speedup_per_iteration"] = (cell["eager"]["host_ms_per_iteration"]
                                      / cell["graphed"]["host_ms_per_iteration"])
-    emit("solve_graphs", **cell)
+    emit(phase, **cell)
     if not cell["bit_for_bit"]:
-        fail(f"solve_graphs {name}: graphed results differ from the eager "
+        fail(f"{phase} {name}: graphed results differ from the eager "
              "loop's")
     return cell, jobs
 
@@ -1655,7 +1676,141 @@ def phase_solve_graphs(store16, phone, arrs10k):
     return jobs
 
 
-def phase_solve_graphs_profile(jobs) -> None:
+def _mesh_runner(arrs, shards: int, config):
+    """run(budget, graphed) for _graph_cell over lm_solve_sharded on
+    ``shards`` shards of one card (``[cuda:0] * shards``), the problem
+    prepared and placed once."""
+    import torch
+
+    from ar_slam_tpu_torch.parallel import TagShardedProblem, block_mesh
+    from ar_slam_tpu_torch.parallel.dist_lm import lm_solve_sharded
+
+    mesh = block_mesh(devices=[MESH_CARD] * shards)
+    prob = TagShardedProblem(mesh, arrs.cap_idx, arrs.tag_idx, arrs.corners,
+                             arrs.block_mask, arrs.tag_poses.shape[0],
+                             dtype=torch.float32)
+    cam, caps, cam_a, cap_a = prob.put_rep(arrs.camera, arrs.cap_poses,
+                                           np.asarray(True), arrs.cap_mask)
+    placed = (cam, caps, prob.put_tags(arrs.tag_poses),
+              prob.block_mask(arrs.block_mask), cam_a, cap_a,
+              prob.put_tag_mask(arrs.tag_mask))
+
+    def run(budget, graphed):
+        def fn():
+            out = lm_solve_sharded(prob, 0.0635, config, *placed,
+                                   iter_budget=budget, graphs=graphed)
+            return out[3]["iterations"], [out[0], out[1], list(out[2]),
+                                          out[3]]
+        return fn
+    return run
+
+
+def _mesh_cell(name, arrs, shards, config, lo, hi) -> list:
+    """One mesh_graphs cell (_graph_cell over ``_mesh_runner``); its first
+    graphed calls must replay ``setup`` and per LM iteration one ``step``
+    and one ``accept`` or ``reject``.  Returns its profile jobs."""
+    cell, jobs = _graph_cell(name, _mesh_runner(arrs, shards, config), lo, hi,
+                             phase="mesh_graphs")
+    g = cell["graphed"]
+    want = sum(1 + 2 * it for it in g["iterations"])
+    if not (g["captures"] == 1 and g["replays_first_calls"] == want):
+        fail(f"mesh_graphs {name}: {g['captures']} captures, "
+             f"{g['replays_first_calls']} replays for {g['iterations']} LM "
+             f"iterations (want {want})")
+    return jobs
+
+
+def phase_mesh_graphs(arrs10k, store16) -> list:
+    """Phase 21: the mesh's LM through its CUDA graphs against its eager
+    stages, on shards of one card: synthetic-500 dense on 1, 2 and 4
+    shards (budgets 8, 32), the 10k CG map on 2 (budgets 3, 12); and
+    room-16's whole map solve on 2 shards, eager once and graphed twice
+    (the first call captures), beside the single-device graphed solve of
+    the same map: the solve's seconds, and the host wall of its
+    ``DistWaveSolver.lm`` calls (the captures of the first graphed call
+    included; they end at its last flag read) over their LM iterations.
+    Returns the profile jobs."""
+    import torch
+
+    from ar_slam_tpu_torch.config import ArSlamConfig
+    from ar_slam_tpu_torch.parallel import block_mesh, dist_lm
+    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch.solve.batch import solve
+    from ar_slam_tpu_torch.solve.lm import LMConfig
+
+    jobs = []
+    zero_tol = dict(function_tolerance=0.0, parameter_tolerance=0.0)
+    _, arrs500, _ = _synthetic(500, 200)
+    for k in (1, 2, 4):
+        jobs += _mesh_cell(f"synthetic-500 dense, {k} shards", arrs500, k,
+                           LMConfig(max_iterations=32, **zero_tol), 8, 32)
+    jobs += _mesh_cell("synthetic-10k CG, 2 shards", arrs10k, 2, LMConfig(
+        max_iterations=12, linear_solver="cg", **zero_tol), 3, 12)
+
+    iters, lm_sec, lm = [], [], dist_lm.DistWaveSolver.lm
+
+    def counted(self, *a, **kw):
+        t0 = time.perf_counter()
+        res = lm(self, *a, **kw)
+        lm_sec.append(time.perf_counter() - t0)
+        iters.append(res[3]["iterations"])
+        return res
+
+    out = {}
+    dist_lm.DistWaveSolver.lm = counted
+    try:
+        for mode in ("eager", "graphed", "single-device graphed"):
+            graphs.CACHE.clear()
+            calls = []
+            for _ in range(1 if mode == "eager" else 2):
+                store = _store_from(store16, store16.captures)
+                mesh = (None if mode.startswith("single")
+                        else block_mesh(devices=[MESH_CARD] * 2))
+                iters.clear()
+                lm_sec.clear()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                summary = solve(store, ArSlamConfig(), device=DEVICE,
+                                mesh=mesh, graphs=mode != "eager")
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t0
+                calls.append(dict(
+                    seconds=sec,
+                    peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9))
+                if mesh is not None:
+                    calls[-1].update(
+                        mesh_lm_calls=len(iters),
+                        mesh_lm_iterations=sum(iters),
+                        lm_ms_per_mesh_lm_iteration=(
+                            sum(lm_sec) * 1e3 / sum(iters)))
+            stats = graphs.CACHE.stats()
+            out[mode] = dict(
+                calls=calls, rmse_px=summary["rmse"], waves=summary["waves"],
+                graphs={k: stats[k] for k in (
+                    "captures", "replays", "capture_ms", "capture_split_ms")},
+                pool_gb=stats["pool_bytes"] / 1e9,
+                poses=[c.inv_pose.copy() for c in store.captures]
+                + [a.pose.copy() for a in store.arucos]
+                + [store.camera.params.copy()])
+    finally:
+        dist_lm.DistWaveSolver.lm = lm
+        graphs.CACHE.clear()
+    same = _same(out["eager"]["poses"], out["graphed"]["poses"]) and (
+        out["eager"]["rmse_px"] == out["graphed"]["rmse_px"])
+    for v in out.values():
+        del v["poses"]
+    emit("mesh_graphs", cell="room-16 map (solve), 2 shards",
+         bit_for_bit=same, **out)
+    if not same:
+        fail("mesh_graphs room-16 map: the graphed map differs from the eager")
+    if out["graphed"]["graphs"]["captures"] != 2:
+        fail(f"mesh_graphs room-16 map: {out['graphed']['graphs']}")
+    return jobs
+
+
+def phase_solve_graphs_profile(jobs,
+                               phase: str = "solve_graphs_profile") -> None:
     """Launches, device items and device ms per LM iteration of each
     solve_graphs cell, eager and graphed: one profiled run at each of
     PROFILE_BUDGETS (a graphed one after an unprofiled one, so that no
@@ -1665,8 +1820,8 @@ def phase_solve_graphs_profile(jobs) -> None:
         if len(fns) == 1:
             fns[0]()
             (iters, _), prof = _launch_profile(fns[0])
-            emit("solve_graphs_profile", cell=name, mode=mode,
-                 iterations=iters, per_call=prof)
+            emit(phase, cell=name, mode=mode, iterations=iters,
+                 per_call=prof)
             continue
         runs = []
         for fn in fns:
@@ -1676,8 +1831,7 @@ def phase_solve_graphs_profile(jobs) -> None:
             runs.append((iters, prof))
         (it_lo, lo), (it_hi, hi) = runs
         d_it = max(it_hi - it_lo, 1)
-        emit("solve_graphs_profile", cell=name, mode=mode,
-             iterations=[it_lo, it_hi],
+        emit(phase, cell=name, mode=mode, iterations=[it_lo, it_hi],
              per_iteration={k: (hi[k] - lo[k]) / d_it for k in hi},
              at_budgets=[lo, hi])
 
@@ -1883,18 +2037,39 @@ def _dist_run(mesh, arrs, config):
 
 def _dist_rate(shards, arrs, config, lo, hi):
     """LM iterations/s of lm_solve_dist over ``shards`` shards of the card
-    between budgets ``lo`` and ``hi`` (the host prep of each call cancels):
-    (rate, seconds at hi, info at hi, reductions at hi, the mesh)."""
+    between budgets ``lo`` and ``hi`` (the host prep of each call cancels),
+    after a first call that captures the graphs: (rate, seconds at hi,
+    info at hi, reductions at hi, the mesh, {graphed, captures made, capture
+    ms, replays at hi, the programs held and their pools' GB after})."""
     from ar_slam_tpu_torch.parallel import block_mesh
+    from ar_slam_tpu_torch.parallel.dist_lm import graphed_mesh
+    from ar_slam_tpu_torch.solve import graphs
 
     mesh = block_mesh(devices=_shard_devices(shards))
+    captures, capture_ms = graphs.CACHE.captures, len(graphs.CACHE.capture_ms)
     _dist_run(mesh, arrs, config._replace(max_iterations=2))
     t_lo, info_lo = _dist_run(mesh, arrs, config._replace(max_iterations=lo))
-    before = mesh.reductions
+    before, replays = mesh.reductions, graphs.CACHE.replays
     t_hi, info_hi = _dist_run(mesh, arrs, config._replace(max_iterations=hi))
     rate = (info_hi["iterations"] - info_lo["iterations"]) / max(
         t_hi - t_lo, 1e-9)
-    return rate, t_hi, info_hi, mesh.reductions - before, mesh
+    stats = graphs.CACHE.stats()
+    g = dict(graphed=graphed_mesh(mesh),
+             captures=stats["captures"] - captures,
+             capture_ms=sum(sum(sum(r.values()) for r in c["warmup"])
+                            + c["record"]
+                            for c in graphs.CACHE.capture_ms[capture_ms:]),
+             replays=stats["replays"] - replays, programs=stats["programs"],
+             pool_gb=stats["pool_bytes"] / 1e9)
+    return rate, t_hi, info_hi, mesh.reductions - before, mesh, g
+
+
+def _check_replays(cell: str, g: dict, iterations: int) -> None:
+    """A graphed LM call: one capture before, then ``setup`` and per
+    iteration one ``step`` and one ``accept`` or ``reject`` replay."""
+    if g["graphed"] and not (g["captures"] >= 1
+                             and g["replays"] == 1 + 2 * iterations):
+        fail(f"{cell}: {iterations} LM iterations replayed {g}")
 
 
 def phase_mesh_solver_500(grouped_rate: float) -> None:
@@ -1903,12 +2078,17 @@ def phase_mesh_solver_500(grouped_rate: float) -> None:
     from ar_slam_tpu_torch.solve.lm import LMConfig
 
     _, arrs, gen_s = _synthetic(500, 200)
+    from ar_slam_tpu_torch.solve import graphs
+
     config = LMConfig(max_iterations=32, function_tolerance=0.0,
                       parameter_tolerance=0.0)
     runs = {}
+    # one program a kind: each shard count's capture replaces the last one
+    # in the kind's pool, which its graphs reuse
+    graphs.CACHE.clear()
     for shards in (1, 2, 4):
-        rate, t_hi, info, reductions, _ = _dist_rate(shards, arrs, config,
-                                                     8, 32)
+        rate, t_hi, info, reductions, _, g = _dist_rate(shards, arrs, config,
+                                                        8, 32)
         cost = float(info["cost"])
         runs[shards] = dict(
             final_cost=cost, iterations=info["iterations"],
@@ -1916,7 +2096,10 @@ def phase_mesh_solver_500(grouped_rate: float) -> None:
             reductions=reductions,
             reductions_per_iteration=(reductions - 1) / info["iterations"],
             lm_iterations_per_s=rate, seconds_32=t_hi,
-            devices=_shard_devices(shards))
+            devices=_shard_devices(shards), graphs=g)
+        _check_replays(f"mesh_solver_500 at {shards} shards", g,
+                       info["iterations"])
+    graphs.CACHE.clear()
     emit("mesh_solver_500", tags=arrs.n_tags, captures=arrs.n_caps,
          blocks=arrs.n_blocks, dtype="float32", f64_optimum=F64_OPTIMUM_500,
          single_device_lm_iterations_per_s=grouped_rate, shards=runs,
@@ -1948,12 +2131,17 @@ def _mesh_cg_10k(arrs, single_rmse: float, shards: int) -> None:
 
     config = LMConfig(max_iterations=12, function_tolerance=0.0,
                       parameter_tolerance=0.0, linear_solver="cg")
+    from ar_slam_tpu_torch.solve import graphs
+
     cards = sorted(set(_shard_devices(shards)))
+    graphs.CACHE.clear()
     for d in cards:
         torch.cuda.reset_peak_memory_stats(d)
-    rate, t_hi, info, reductions, mesh = _dist_rate(shards, arrs, config, 3,
-                                                    12)
+    rate, t_hi, info, reductions, mesh, g = _dist_rate(shards, arrs, config,
+                                                       3, 12)
+    graphs.CACHE.clear()
     peak_gb = {d: torch.cuda.max_memory_allocated(d) / 1e9 for d in cards}
+    _check_replays(f"mesh_cg_10k at {shards} shards", g, info["iterations"])
     cost0, cost = float(info["initial_cost"]), float(info["cost"])
     rmse = rmse_from_cost(cost, arrs.n_blocks)
 
@@ -2000,7 +2188,8 @@ def _mesh_cg_10k(arrs, single_rmse: float, shards: int) -> None:
          rmse_diff_px=abs(rmse - single_rmse),
          tolerance_px=MESH_CG_RMSE_TOL_PX, iterations=info["iterations"],
          reductions_12=reductions, lm_iterations_per_s=rate,
-         seconds_12=t_hi, peak_memory_gb=peak_gb, host_prep_s=prep_s,
+         seconds_12=t_hi, peak_memory_gb=peak_gb, graphs=g,
+         host_prep_s=prep_s,
          sync_debug_cg_solve="no synchronising call",
          sync_debug_solution_finite=sol_finite)
     if not (np.isfinite(cost) and cost < cost0 and sol_finite
@@ -2017,11 +2206,21 @@ def phase_mesh_map_room16(store16, dense_rmse: float, truth) -> None:
     from ar_slam_tpu_torch.parallel import block_mesh
     from ar_slam_tpu_torch.solve.batch import solve
 
+    from ar_slam_tpu_torch.parallel.dist_lm import graphed_mesh
+    from ar_slam_tpu_torch.solve import graphs
+
     store = _store_from(store16, store16.captures)
     mesh = block_mesh(devices=_shard_devices(2))
+    graphs.CACHE.clear()
     t0 = time.perf_counter()
     summary = solve(store, ArSlamConfig(), mesh=mesh)
     seconds = time.perf_counter() - t0
+    stats = graphs.CACHE.stats()
+    graphs.CACHE.clear()
+    if graphed_mesh(mesh) and not (stats["captures"] == 2
+                                   and stats["replays"] > 0):
+        fail(f"mesh_map_room16: the mesh's seeds and LM replayed no graphs: "
+             f"{stats}")
     rmse = summary.get("rmse", float("nan"))
     n_req = check_tags("mesh_map_room16", _ids_in(store), truth["frames"],
                        [c.uid for c in store.captures], 40.0)
@@ -2032,7 +2231,9 @@ def phase_mesh_map_room16(store16, dense_rmse: float, truth) -> None:
          rmse_diff_px=abs(rmse - dense_rmse), tolerance_px=MESH_RMSE_TOL_PX,
          tags_in_map=len(tags), tags_required=n_req,
          reductions=mesh.reductions, focal=float(store.camera.params[0]),
-         solve_seconds=seconds)
+         solve_seconds=seconds, graphed=graphed_mesh(mesh),
+         graphs={k: stats[k] for k in ("captures", "replays", "capture_ms",
+                                       "pool_bytes")})
     if not (abs(rmse - dense_rmse) <= MESH_RMSE_TOL_PX
             and summary.get("waves") == len(store16.captures)
             and tags == sorted(a.id for a in store16.arucos)):
@@ -2048,12 +2249,47 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+MESH_MAP_MARK = "mesh_map_process: "
+
+
+def mesh_map(mode: str, spec: str, src: str, out: str) -> int:
+    """One process of multihost_1: ``arslam-torch map SRC -o OUT
+    --multihost SPEC`` with the solve's graphs (``mode`` "graphs") or its
+    eager stages ("eager"); prints on stderr (every process: the others
+    mute stdout), after MESH_MAP_MARK, the solve's seconds and the graph
+    cache's counts."""
+    import torch
+
+    from ar_slam_tpu_torch import cli
+    from ar_slam_tpu_torch.solve import batch, graphs
+
+    solve, seen = batch.solve, {}
+
+    def timed_solve(*a, **kw):
+        t0 = time.perf_counter()
+        res = solve(*a, graphs=mode == "graphs", **kw)
+        torch.cuda.synchronize()
+        seen.update(solve_s=time.perf_counter() - t0,
+                    graphs=graphs.CACHE.stats())
+        return res
+
+    batch.solve = timed_solve
+    rc = cli.main(["map", src, "-o", out, "--multihost", spec])
+    print(MESH_MAP_MARK + json.dumps(dict(mode=mode, rc=rc, **seen)),
+          file=sys.stderr, flush=True)
+    return rc
+
+
 def phase_multihost_1() -> None:
-    """``arslam-torch map`` of phone_12mp's saved map (8 captures: room-16's
-    takes 3x as long to solve) with --multihost, one NCCL process (two and
-    four where there are as many cards, one card and one shard each),
-    against the in-process solve of the same map with the command's
-    default config."""
+    """``arslam-torch map`` of phone_12mp's saved map (8 captures:
+    room-16's takes 3x as long to solve) with --multihost, one NCCL
+    process (two and four where there are as many cards, the cards shared
+    out among them),
+    eager and graphed, against the in-process solve of the same map with
+    the command's default config; each mode's maps the same text.  A
+    process replays graphs when its shards share one card (one card a
+    process); with several processes its packed reductions' NCCL
+    all_reduce is then inside the graphs."""
     import torch
 
     from ar_slam_tpu_torch.config import ArSlamConfig
@@ -2070,34 +2306,58 @@ def phase_multihost_1() -> None:
     runs = {}
     count = torch.cuda.device_count()
     for world in [w for w in (1, 2, 4) if w <= count]:
-        port = _free_port()
-        out = os.path.join(OUT_DIR, f"multihost_{world}.yaml")
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, "-m", "ar_slam_tpu_torch.cli", "map", src, "-o",
-             out, "--multihost", f"127.0.0.1:{port},{world},{rank}"],
-            cwd=REPO, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True) for rank in range(world)]
-        try:
-            res = [p.communicate(timeout=MULTIHOST_TIMEOUT_S) for p in procs]
-        except subprocess.TimeoutExpired:
-            fail(f"multihost_{world}: no answer in {MULTIHOST_TIMEOUT_S} s")
-        finally:
-            for p in procs:
-                p.kill()
-        seconds = time.perf_counter() - t0
-        for p, (o, e) in zip(procs, res):
-            if p.returncode != 0:
-                fail(f"multihost_{world}: exit {p.returncode}\n{o}\n{e}")
-        printed = res[0][0]
-        rmse = float(printed.split("rmse ")[1].split(" px")[0])
-        costs = sorted({ln.split("cost=")[1].split()[0] for _, e in res
-                        for ln in e.splitlines() if "solve done: cost=" in ln})
-        runs[world] = dict(rmse_px=rmse, costs=costs, seconds=seconds,
-                           backend="nccl")
-        if not (abs(rmse - ref) <= MESH_RMSE_TOL_PX and len(costs) == 1):
-            fail(f"multihost_{world}: rmse {rmse} against {ref}, costs "
-                 f"{costs}")
+        graphed = max(count // world, 1) == 1
+        maps = set()
+        for mode in ("eager", "graphs"):
+            port = _free_port()
+            out = os.path.join(OUT_DIR, f"multihost_{world}_{mode}.yaml")
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-map",
+                 mode, f"127.0.0.1:{port},{world},{rank}", src, out],
+                cwd=REPO, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True) for rank in range(world)]
+            try:
+                res = [p.communicate(timeout=MULTIHOST_TIMEOUT_S)
+                       for p in procs]
+            except subprocess.TimeoutExpired:
+                fail(f"multihost_{world} {mode}: no answer in "
+                     f"{MULTIHOST_TIMEOUT_S} s")
+            finally:
+                for p in procs:
+                    p.kill()
+            seconds = time.perf_counter() - t0
+            for p, (o, e) in zip(procs, res):
+                if p.returncode != 0:
+                    fail(f"multihost_{world} {mode}: exit {p.returncode}\n"
+                         f"{o}\n{e}")
+            rmse = float(res[0][0].split("rmse ")[1].split(" px")[0])
+            costs = sorted({ln.split("cost=")[1].split()[0] for _, e in res
+                            for ln in e.splitlines()
+                            if "solve done: cost=" in ln})
+            ranks = [json.loads(ln[len(MESH_MAP_MARK):]) for _, e in res
+                     for ln in e.splitlines() if ln.startswith(MESH_MAP_MARK)]
+            replayed = [r["graphs"]["captures"] >= 2
+                        and r["graphs"]["replays"] > 0 for r in ranks]
+            runs[f"{world}_{mode}"] = dict(
+                rmse_px=rmse, costs=costs, seconds=seconds, backend="nccl",
+                graphed=graphed and mode == "graphs",
+                solve_s=[r["solve_s"] for r in ranks],
+                graphs=[{k: r["graphs"][k] for k in (
+                    "captures", "replays", "capture_ms", "pool_bytes")}
+                    for r in ranks])
+            with open(out) as f:
+                maps.add(f.read())
+            if not (abs(rmse - ref) <= MESH_RMSE_TOL_PX and len(costs) == 1
+                    and len(ranks) == world
+                    and all(x == (graphed and mode == "graphs")
+                            for x in replayed)):
+                fail(f"multihost_{world} {mode}: rmse {rmse} against {ref}, "
+                     f"costs {costs}, graphs replayed {replayed}")
+        runs[f"{world}_same_maps"] = len(maps) == 1
+        if len(maps) != 1:
+            fail(f"multihost_{world}: the eager and graphed processes wrote "
+                 "different maps")
     emit("multihost", in_process_rmse_px=ref, tolerance_px=MESH_RMSE_TOL_PX,
          cards=torch.cuda.device_count(), processes=runs)
 
@@ -2328,9 +2588,15 @@ def main() -> int:
                    help="printed tag side of the phone_12mp scene in mm")
     p.add_argument("--one-shot-map", nargs=3, metavar=("MODE", "SRC", "OUT"),
                    help="run one process of phase 19 (MODE graphs or eager)")
+    p.add_argument("--mesh-map", nargs=4,
+                   metavar=("MODE", "SPEC", "SRC", "OUT"),
+                   help="run one --multihost SPEC process of phase 17 "
+                        "(MODE graphs or eager)")
     args = p.parse_args()
     if args.one_shot_map:
         return one_shot_map(*args.one_shot_map)
+    if args.mesh_map:
+        return mesh_map(*args.mesh_map)
 
     import torch
 
@@ -2371,6 +2637,7 @@ def main() -> int:
     timed("multihost_1", phase_multihost_1)
     graph_jobs = timed("solve_graphs", phase_solve_graphs, store16, phone,
                        arrs10k)
+    mesh_jobs = timed("mesh_graphs", phase_mesh_graphs, arrs10k, store16)
     del arrs10k, phone
     timed("one_shot_map", phase_one_shot_map)
     timed("serve_growth", phase_serve_growth)
@@ -2380,6 +2647,8 @@ def main() -> int:
     timed("cg_10k_profile", phase_cg_profile, *cg_10k)
     del cg_10k
     timed("solve_graphs_profile", phase_solve_graphs_profile, graph_jobs)
+    timed("mesh_graphs_profile", phase_solve_graphs_profile, mesh_jobs,
+          "mesh_graphs_profile")
     for row in rows:
         row["launches"] = launches[row["cell"]][COUNTERS[row["name"]]]
         row["mesh_detect_launches"] = mesh_launches[row["cell"]][

@@ -677,3 +677,123 @@ def test_captures_make_no_device_sync(dev, monkeypatch, detecting):
     assert syncs.captures >= 3, syncs.captures  # seed, lm, localize
     assert syncs.counts == {"synchronize": 0, "empty_cache": 0}
     graphs.CACHE.clear()
+
+
+def _mesh_case(n_tags, n_caps, seed=3):
+    """lm_solve_dist's arguments in float32 (numpy): a synthetic map near
+    its truth."""
+    from torch_cases import synthetic_arrays
+
+    a = synthetic_arrays(seed=seed, n_tags=n_tags, n_caps=n_caps,
+                         perturb=0.005)
+    f32 = {k: getattr(a, k).astype(np.float32)
+           for k in ("camera", "cap_poses", "tag_poses", "corners")}
+    return (f32["camera"], f32["cap_poses"], f32["tag_poses"], a.cap_idx,
+            a.tag_idx, f32["corners"], a.block_mask, True, a.cap_mask,
+            a.tag_mask)
+
+
+@pytest.mark.parametrize("solver,n_tags,n_caps",
+                         [("dense", 500, 200), ("cg", 300, 120)])
+def test_graphed_mesh_lm_equals_eager(dev, solver, n_tags, n_caps):
+    """The tag-sharded LM over two shards of the card: its CUDA graphs
+    give the eager stages' results bit for bit and count the same
+    reductions, with budgets 3 then 12 and the warmup's frozen camera
+    through one capture; the eager stages are ``lm_core``'s loop."""
+    from ar_slam_tpu_torch.parallel import block_mesh, dist_lm
+    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch.solve.lm import LMConfig
+
+    graphs.CACHE.clear()
+    args = _mesh_case(n_tags, n_caps)
+    meshes = [block_mesh(devices=[dev] * 2) for _ in range(2)]
+    for budget, cam in ((3, True), (12, True), (12, False)):
+        a = args[:7] + (cam,) + args[8:]
+        kw = dict(aruco_size=0.0635, config=LMConfig(
+            max_iterations=budget, linear_solver=solver))
+        ref = dist_lm.lm_solve_dist(meshes[0], *a, graphs=False, **kw)
+        got = dist_lm.lm_solve_dist(meshes[1], *a, **kw)
+        torch.cuda.synchronize()
+        _equal_solves(got, ref)
+        assert meshes[0].reductions == meshes[1].reductions
+    assert graphs.CACHE.captures == 1 and graphs.CACHE.replays > 0
+    mesh = block_mesh(devices=[dev] * 2)
+    prob = dist_lm.TagShardedProblem(mesh, *args[3:7], args[2].shape[0],
+                                     dtype=torch.float32)
+    placed = (*prob.put_rep(args[0], args[1]), prob.put_tags(args[2]),
+              prob.block_mask(args[6]), *prob.put_rep(np.asarray(True),
+                                                      args[8]),
+              prob.put_tag_mask(args[9]))
+    got = dist_lm.lm_solve_sharded(prob, 0.0635, kw["config"], *placed,
+                                   graphs=False)
+    ref = dist_lm._lm_sharded(prob, 0.0635, kw["config"], *placed)
+    torch.cuda.synchronize()
+    _equal_solves([*got[:2], torch.cat(list(got[2])), got[3]],
+                  [*ref[:2], torch.cat(list(ref[2])), ref[3]])
+    graphs.CACHE.clear()
+
+
+def test_graphed_mesh_stages_do_not_sync(dev):
+    """The mesh's CG stages read nothing back to the host: run eagerly on
+    the card and replayed, both under set_sync_debug_mode("error"), with
+    the same results."""
+    from ar_slam_tpu_torch.parallel import block_mesh, dist_lm
+    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch.solve.lm import LMConfig
+
+    graphs.CACHE.clear()
+    args = _mesh_case(200, 80)
+    config = LMConfig(max_iterations=2, linear_solver="cg")
+    mesh = block_mesh(devices=[dev] * 2)
+    dist_lm.lm_solve_dist(mesh, *args, aruco_size=0.0635, config=config)
+    (prog,) = graphs.CACHE._programs.values()
+    prob = dist_lm.TagShardedProblem(mesh, *args[3:7], args[2].shape[0],
+                                     dtype=torch.float32)
+    eager = graphs.Program(dist_lm._lm_stages(prob, 0.0635, config,
+                                              args[1].shape[0]), False)
+    eager.load(**{k: graphs._clone(v) for k, v in prog.t.items() if k in (
+        "in_camera", "in_cap_poses", "in_tag_poses", "cap_idx", "tag_idx",
+        "corners", "block_mask", "cam_active", "cap_active", "tag_active")})
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for p in (eager, prog):
+            for name in ("setup", "step", "accept", "step", "reject"):
+                p.run(name)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for k in ("camera", "cap_poses", "lam", "nu", "cost"):
+        assert torch.equal(prog.t[k], eager.t[k]), k
+    assert all(torch.equal(g, e) for g, e in zip(prog.t["tag_poses"],
+                                                 eager.t["tag_poses"]))
+    graphs.CACHE.clear()
+
+
+def test_graphed_mesh_solve_equals_eager(dev):
+    """A room-16-sized map (24 tags, 16 captures) solved with its tags
+    over two shards of the card: the graphed seeds and LM give the eager
+    stages' map bit for bit, one capture of each serving every flush."""
+    from ar_slam_tpu_torch.config import ArSlamConfig
+    from ar_slam_tpu_torch.parallel import block_mesh
+    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch.solve.batch import solve
+    from ar_slam_tpu_torch.utils.synthetic import make_synthetic_map
+
+    out = {}
+    for graphed in (False, True):
+        graphs.CACHE.clear()
+        store, _ = make_synthetic_map(n_tags=24, n_caps=16, seed=5,
+                                      noise_px=0.3)
+        summary = solve(store, ArSlamConfig(), graphs=graphed,
+                        mesh=block_mesh(devices=[dev] * 2))
+        out[graphed] = (summary, [c.inv_pose for c in store.captures],
+                        [t.pose for t in store.arucos], store.camera.params)
+        stats = graphs.CACHE.stats()
+    assert out[True][0] == out[False][0] and out[True][0]["rmse"] < 1.0
+    for g, e in zip(out[True][1:], out[False][1:]):
+        assert np.array_equal(np.asarray(g), np.asarray(e))
+    assert stats["captures"] == 2 and stats["programs"] == 2
+    assert [c["program"] for c in stats["capture_split_ms"]] == [
+        "mesh_seed", "mesh_lm"]
+    graphs.CACHE.clear()
