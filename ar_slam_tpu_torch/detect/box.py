@@ -33,7 +33,7 @@ from ar_slam_tpu_torch import cuda
 
 launches = 0  # box_sum_batch kernel launches since the last reset
 threshold_launches = 0  # threshold_batch kernel launches since the last reset
-_tables = {}  # (windows, thresh_c, device) -> threshold_table on the card
+_tables = {}  # (windows, thresh_c, device) -> device_table
 
 
 def _box_1d_plain(x: torch.Tensor, win: int, dim: int) -> torch.Tensor:
@@ -79,7 +79,8 @@ def _threshold(frames: torch.Tensor, windows, thresh_c: float, d: int,
     true division: a CPU-scalar divisor would make a CUDA kernel multiply
     by its reciprocal), then the d x d count pool."""
     x = frames.to(torch.float32)
-    area = [torch.tensor(float(win * win), device=x.device) for win in windows]
+    area = [torch.full((), float(win * win), device=x.device)
+            for win in windows]
     binary = torch.cat([x < box_sum(x, win) / a - thresh_c
                         for win, a in zip(windows, area)])
     if d > 1:
@@ -119,6 +120,18 @@ def threshold_table(windows, thresh_c: float) -> np.ndarray:
     return out
 
 
+def device_table(windows, thresh_c: float, device) -> torch.Tensor:
+    """``threshold_table`` on ``device``, kept per (windows, constant,
+    card) from its first upload on: a compiled program (detect/detect.py)
+    fetches it when it is built, since an upload cannot be captured."""
+    key = (tuple(int(win) for win in windows), float(thresh_c),
+           torch.device(device))
+    if key not in _tables:
+        _tables[key] = torch.from_numpy(threshold_table(
+            key[0], key[1])).to(key[2])
+    return _tables[key]
+
+
 def threshold_batch(frames: torch.Tensor, windows, thresh_c: float,
                     decimate: int) -> torch.Tensor:
     """(N, H, W) frames -> (len(windows) * N, ceil(H / d), ceil(W / d))
@@ -139,15 +152,12 @@ def threshold_batch(frames: torch.Tensor, windows, thresh_c: float,
     if (len(windows) > lib.arslam_threshold_max_windows()
             or max(windows) // 2 > lib.arslam_box_max_radius()):
         raise ValueError(f"windows {windows} exceed the kernel's maximum")
-    key = (windows, float(thresh_c), frames.device)
-    if key not in _tables:
-        _tables[key] = torch.from_numpy(threshold_table(
-            windows, thresh_c)).to(frames.device)
+    table = device_table(windows, thresh_c, frames.device)
     n, h, w = frames.shape
     out = torch.empty((len(windows) * n, -(-h // d), -(-w // d)),
                       dtype=torch.bool, device=frames.device)
     wins = (ctypes.c_int * len(windows))(*windows)
-    cuda.check(lib.arslam_threshold(frames.data_ptr(), _tables[key].data_ptr(),
+    cuda.check(lib.arslam_threshold(frames.data_ptr(), table.data_ptr(),
                                     out.data_ptr(), n, h, w, wins,
                                     len(windows), d, cuda.stream()),
                "arslam_threshold")

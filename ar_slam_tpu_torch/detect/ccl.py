@@ -25,6 +25,9 @@ and runs its plain version on a CPU tensor.
   converged plane stays fixed.  The rounds each plane ran stay on the card
   until ``strip_plane_rounds`` asks for them.
 
+The launch counts count the kernels a replay of a captured detector runs
+too (programs.py adds what the capture recorded).
+
 A round is a 3x3 min-pool of the foreground, then the min over every full
 foreground run along rows, then along columns.
 """
@@ -40,11 +43,12 @@ GROUP = 128  # K2's column-group width (the reference's ``cstrip``)
 launches = 0  # K2 launches since the last reset (CUDA path only)
 fused_round_reads = 0  # host reads of K2's per-plane rounds
 _fused_rounds = None  # (N,) int32 rounds each plane ran in the last K2 launch
+# (or replay of a captured detector: detect/detect.py POINTERS)
 strip_launches = 0  # K3 launches since the last reset (CUDA path only)
 strip_kernel_launches = 0  # the CUDA kernels they enqueued (1 + 2 x iters)
 strip_flag_reads = 0  # host reads of K3's round flags (strip_plane_rounds)
-_strip_flags = None  # (iters, N) int32 of the last K3 launch, on the card:
-# 1 where round r changed plane p
+_strip_flags = None  # (iters, N) int32 of the last K3 launch (or replay), on
+# the card: 1 where round r changed plane p
 
 
 def _shift(x: torch.Tensor, delta: int, dim: int, fill) -> torch.Tensor:

@@ -20,6 +20,17 @@ version that the CPU runs use):
   Otsu binarization, hamming matching, cross-dictionary arbitration and
   duplicate suppression.
 
+On the card the whole detector is one compiled program, as the
+reference's jitted ``detect_batch`` is (ar_slam_tpu/detect/tpu_detect.py:
+695): a call is a load (the frames copied into the program's own uint8
+buffer) and one replay of the CUDA graph of the stage ``detect`` (every
+step above, K1-K4 inside), captured once per (card, batch shape, dtype,
+``DetectParams``, dictionaries) (``programs.py``).  Nothing in the stage
+reads the card from the host or makes a tensor from host data: the
+threshold and dictionary tables are on the card before the capture, and
+the kernel wrappers read only shapes.  ``graphs=False`` and the CPU run
+the same stage eagerly.
+
 Every sort whose order reaches the output is a stable sort (the
 reference's ``lax.sort(is_stable=True)``, ``jnp.argsort`` and ``lax.top_k``
 are deterministic; ``torch.topk`` and unstable ``torch.sort`` are not).
@@ -36,6 +47,7 @@ import torch
 from ar_slam_tpu_torch.detect import box, ccl, extract
 from ar_slam_tpu_torch.detect.dictionaries import get_dictionary
 from ar_slam_tpu_torch.device import resolve_device
+from ar_slam_tpu_torch.programs import CACHE, Program
 
 BIG = 2**30
 # largest padded decimated plane (padded as the reference pads it) that goes
@@ -43,6 +55,13 @@ BIG = 2**30
 # the round cap params.ccl_iters (tpu_detect.py:775-786,
 # pallas_ccl.FUSED_CCL_PIXEL_LIMIT)
 FUSED_CCL_PIXEL_LIMIT = 1_000_000
+# the kernel wrappers' launch counts, which a replay adds to as the
+# captured stage did, and the per-plane rounds each replay points them at
+COUNTED = ((box, "launches"), (box, "threshold_launches"),
+           (ccl, "launches"), (ccl, "strip_launches"),
+           (ccl, "strip_kernel_launches"), (extract, "launches"))
+POINTERS = ((ccl, "_fused_rounds"), (ccl, "_strip_flags"))
+_TABLES = {}  # (dict_names, device) -> dict_tables
 
 
 class DetectParams(NamedTuple):
@@ -343,10 +362,11 @@ def otsu_batch(samples: torch.Tensor, bins: int = 32) -> torch.Tensor:
     span = torch.clamp(hi - lo, min=1e-6)
     q = torch.clamp(((samples - lo) / span * bins).to(torch.int32), 0,
                     bins - 1)
-    hist = torch.nn.functional.one_hot(q.long(), bins).to(
+    levels = torch.arange(bins, dtype=torch.float32, device=samples.device)
+    # one_hot's counts, without its range check (a host read on the CPU)
+    hist = (q[..., None] == levels.to(torch.int32)).to(
         torch.float32).sum(dim=-2)
-    centers = lo + (torch.arange(bins, dtype=torch.float32,
-                                 device=samples.device) + 0.5) / bins * span
+    centers = lo + (levels + 0.5) / bins * span
     w0 = torch.cumsum(hist, dim=-1)
     w1 = w0[..., -1:] - w0
     m0 = torch.cumsum(hist * centers, dim=-1)
@@ -388,8 +408,9 @@ def decode_bits(samples, quads, valid, table, params: DetectParams):
     strong_ok = ((dev_c >= params.strong_cell_dev).to(torch.float32).mean(-1)
                  >= params.min_strong_cell_frac)
 
-    border = torch.ones((n, n), dtype=torch.bool, device=samples.device)
-    border[1:-1, 1:-1] = False
+    cell = torch.arange(n, device=samples.device)
+    inside = (cell > 0) & (cell < n - 1)
+    border = ~(inside[:, None] & inside[None, :])
     border_frac = (grid_dark & border).sum(dim=(-2, -1)) / border.sum()
     border_ok = border_frac > params.border_frac
 
@@ -436,8 +457,18 @@ def suppress_duplicates(ids, corners, ok):
 # ---------------------------------------------------------------------------
 
 
+def dict_tables(dict_names, device) -> dict:
+    """``make_tables`` on ``device``, kept per (dict_names, card) from its
+    first call on: a compiled program holds the tables it was built with,
+    since an upload cannot be captured."""
+    key = (tuple(dict_names), torch.device(device))
+    if key not in _TABLES:
+        _TABLES[key] = make_tables(key[0], key[1])
+    return _TABLES[key]
+
+
 def detect_batch(images, *, params: DetectParams = DetectParams(),
-                 dict_names=("4X4_50", "5X5_100"), device=None):
+                 dict_names=("4X4_50", "5X5_100"), device=None, graphs=None):
     """Detect markers in a batch of grayscale images.
 
     Args:
@@ -445,24 +476,75 @@ def detect_batch(images, *, params: DetectParams = DetectParams(),
       device: where to run (default: the card; raises without one unless
         "cpu" is asked for).  On a CUDA device the kernels run; on the CPU
         their plain versions.
+      graphs: on a CUDA device (None or True) the call replays the
+        detector's CUDA graph for this (card, batch shape, dtype,
+        ``params``, ``dict_names``), captured at its first call
+        (``programs.CACHE``, kind ``"detect"``); False runs the same stage
+        eagerly.  The CPU always runs it eagerly.
 
     Returns {dict_name: {"ids" (N, K') int64 (-1 invalid), "corners"
     (N, K', 4, 2) float32 pixel coords in canonical corner order, "valid"
-    (N, K') bool}}.
+    (N, K') bool}}, tensors of their own (a later call does not overwrite
+    them).
     """
     device = resolve_device(device)
+    frames = (images if isinstance(images, torch.Tensor)
+              else torch.as_tensor(np.asarray(images)))
+    graphed = device.type == "cuda" if graphs is None else bool(graphs)
+    if graphed and device.type != "cuda":
+        raise ValueError(f"CUDA graphs need a CUDA device, not {device}")
+    if device.type != "cuda":
+        return _detect_call(frames, params, tuple(dict_names), device, False)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    # the kernels launch on the current device's stream: make it the
+    # frames' card (a mesh shard may live on any of them)
+    with torch.cuda.device(device):
+        return _detect_call(frames, params, tuple(dict_names), device,
+                            graphed)
+
+
+def _detect_call(frames, params: DetectParams, dict_names: tuple, device,
+                 graphed: bool) -> dict:
+    """One call of the detector's program: load the frames (an upload
+    into the program's own buffer when graphed), run its stage, return
+    copies of its outputs."""
+    def make():
+        return Program({"detect": _stage(params, dict_names, device)},
+                       graphed, counted=COUNTED, pointers=POINTERS,
+                       label=f"detect {tuple(frames.shape)} {frames.dtype}")
+
+    if graphed:
+        prog = CACHE.get("detect", device, (tuple(frames.shape),
+                                            frames.dtype, params,
+                                            dict_names), make)
+    else:
+        prog = make()
+        frames = frames.to(device).contiguous()
+    with prog.lock:
+        prog.load(frames=frames)
+        prog.run("detect")
+        return {name: dict(zip(("ids", "corners", "valid"),
+                               map(prog.out, prog.t[name])))
+                for name in dict_names}
+
+
+def _stage(params: DetectParams, dict_names: tuple, device):
+    """The detector as one stage over a program's tensors: every table it
+    reads is on the card before the first capture."""
+    tables = dict_tables(dict_names, device)
+    windows = tuple(params.win_sizes) or (params.win,)
     if device.type == "cuda":
-        # the kernels launch on the current device's stream: make it the
-        # frames' card (a mesh shard may live on any of them)
-        with torch.cuda.device(device):
-            return _detect_batch(images, params, dict_names, device)
-    return _detect_batch(images, params, dict_names, device)
+        box.device_table(windows, params.thresh_c, device)
+
+    def detect(t):
+        out = _detect(t["frames"], tables, params, dict_names, device)
+        return {name: (d["ids"], d["corners"], d["valid"])
+                for name, d in out.items()}
+    return detect
 
 
-def _detect_batch(images, params: DetectParams, dict_names, device):
-    frames = torch.as_tensor(np.asarray(images) if not isinstance(
-        images, torch.Tensor) else images).to(device).contiguous()
-    tables = make_tables(dict_names, device)
+def _detect(frames, tables, params: DetectParams, dict_names, device):
     windows = tuple(params.win_sizes) or (params.win,)
     n, h, w = frames.shape
     k = params.max_candidates
@@ -531,7 +613,7 @@ def _detect_batch(images, params: DetectParams, dict_names, device):
                            quads_b, valid_b, tables[name], params)
                for i, name in enumerate(dict_names)]
     if len(dict_names) > 1 and params.cross_dict_arbitration:
-        inf = torch.tensor(math.inf, device=device)
+        inf = torch.full((), math.inf, device=device)
         soft = torch.stack([torch.where(ok, sd, inf)
                             for (_, _, _, ok, sd) in decoded])
         best = torch.argmin(soft, dim=0)

@@ -4,7 +4,12 @@ ar_slam_tpu/parallel/detect.py).
 The whole detector is one batched device program (detect/detect.py), so
 the scaling axis is the IMAGE axis: the batch splits over the mesh's
 shards and each runs the unchanged ``detect_batch`` (K1-K4 at its
-shard's local shapes) on its contiguous slice.  Under a process group
+shard's local shapes) on its contiguous slice: on the card it replays
+the detector's CUDA graph, the counterpart of the reference's jitted
+``shard_map`` (ar_slam_tpu/parallel/detect.py:61).  The shards get equal
+slices after padding, so the shards of one card share one program,
+replayed once a shard, and each card of the mesh captures its own (a
+graph records on one card).  Under a process group
 (``--multihost``) the mesh spans every process's shards, as the
 reference's image mesh spans every process's devices: each process
 detects its own shards' slices, and one all-gather gives every process
@@ -51,7 +56,7 @@ def _all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 def detect_batch_sharded(images, *, mesh: Mesh,
                          params: DetectParams = DetectParams(),
                          dict_names=("4X4_50", "5X5_100"),
-                         gather: bool = True):
+                         gather: bool = True, graphs=None):
     """detect_batch with the image axis split over ``mesh``.
 
     Args:
@@ -65,6 +70,7 @@ def detect_batch_sharded(images, *, mesh: Mesh,
         process of a process group; False keeps this process's shards'
         outputs, on each shard's device: a list of dicts, leading axes
         each shard's share of the N images.
+      graphs: ``detect_batch``'s, for every shard.
     """
     frames = torch.as_tensor(images)
     n = frames.shape[0]
@@ -74,7 +80,7 @@ def detect_batch_sharded(images, *, mesh: Mesh,
         frames = torch.cat([frames, frames.new_zeros((pad,)
                                                      + frames.shape[1:])])
     outs = [detect_batch(frames[g * per:(g + 1) * per], params=params,
-                         dict_names=dict_names, device=dev)
+                         dict_names=dict_names, device=dev, graphs=graphs)
             for g, dev in zip(mesh.shard_ids(), mesh.devices)]
     if not gather:
         keep = [min(per, max(n - g * per, 0)) for g in mesh.shard_ids()]

@@ -525,7 +525,7 @@ def lm_solve_sharded(prob: TagShardedProblem, aruco_size, config: LMConfig,
             else None,
             # the budget is the host's: one capture serves every budget
             config._replace(max_iterations=0), float(aruco_size)), make)
-        prog.counter = mesh
+        prog.counted = ((mesh, "reductions"),)
     else:
         prog = make()
     prog.load(in_camera=camera, in_cap_poses=cap_poses,
@@ -685,7 +685,7 @@ class DistWaveSolver:
             prog = CACHE.get("mesh_seed", mesh.home, _signature(
                 prob, cap_poses.dtype, cap_poses.shape[0], *tables.shape,
                 float(self.aruco_size), self.seed_mode), make)
-            prog.counter = mesh
+            prog.counted = ((mesh, "reductions"),)
         else:
             prog = make()
         prog.load(camera=camera, in_cap_poses=cap_poses,

@@ -179,11 +179,27 @@ class ArSlamEngine:
                         for tid, c in flat])
         return out
 
+    def detect_params(self):
+        """The device detector's DetectParams, from the config's detect
+        section (as the JAX engine builds them)."""
+        from ar_slam_tpu_torch.detect.detect import DetectParams
+
+        dcfg = self.config.detect
+        return DetectParams(
+            win=dcfg.adaptive_thresh_win_sizes[0],
+            win_sizes=tuple(dcfg.adaptive_thresh_win_sizes),
+            thresh_c=dcfg.adaptive_thresh_constant,
+            max_candidates=dcfg.max_candidates,
+            min_corner_distance_rate=dcfg.min_corner_distance_rate,
+            min_perimeter_rate=dcfg.min_marker_perimeter_rate,
+            max_perimeter_rate=dcfg.max_marker_perimeter_rate,
+        )
+
     def _run_detector(self, images, dict_names):
         """One dict per image: {"aruco_<dict>": [(tag_id, centered
         corners), ...]}, from detect.detect_batch on the engine's device
         (split over ``detect_mesh`` when set), or from the NumPy oracle."""
-        from ar_slam_tpu_torch.detect.detect import DetectParams, detect_batch
+        from ar_slam_tpu_torch.detect.detect import detect_batch
 
         h, w = images.shape[1:]
         center = np.array([w / 2.0, h / 2.0])
@@ -199,16 +215,18 @@ class ArSlamEngine:
                     per_image[i].setdefault(det_type, []).append(
                         (d.id, d.corners - center))
             return per_image
-        dcfg = self.config.detect
-        params = DetectParams(
-            win=dcfg.adaptive_thresh_win_sizes[0],
-            win_sizes=tuple(dcfg.adaptive_thresh_win_sizes),
-            thresh_c=dcfg.adaptive_thresh_constant,
-            max_candidates=dcfg.max_candidates,
-            min_corner_distance_rate=dcfg.min_corner_distance_rate,
-            min_perimeter_rate=dcfg.min_marker_perimeter_rate,
-            max_perimeter_rate=dcfg.max_marker_perimeter_rate,
-        )
+        params = self.detect_params()
+        # pad the batch to a power-of-two bucket with zero frames (whose
+        # detections are dropped): each batch shape is a program of its own
+        # (a CUDA graph's capture on the card), and a serve loop sees
+        # arbitrary sizes
+        n = len(images)
+        n_pad = 1
+        while n_pad < n:
+            n_pad *= 2
+        if n_pad > n:
+            images = np.concatenate([images, np.zeros(
+                (n_pad - n, *images.shape[1:]), dtype=images.dtype)])
         if self.detect_mesh is not None:
             from ar_slam_tpu_torch.parallel.detect import detect_batch_sharded
 
@@ -218,9 +236,8 @@ class ArSlamEngine:
             out = detect_batch(images, params=params, dict_names=dict_names,
                                device=self.device)
         for name in dict_names:
-            ids = out[name]["ids"].cpu().numpy()
-            corners = out[name]["corners"].cpu().numpy()
-            valid = out[name]["valid"].cpu().numpy()
+            ids, corners, valid = (out[name][key][:n].cpu().numpy()
+                                   for key in ("ids", "corners", "valid"))
             for i in range(len(per_image)):
                 for k in np.nonzero(valid[i])[0]:
                     per_image[i][f"aruco_{name}"].append(

@@ -10,14 +10,10 @@ and ``while_loop``.  PyTorch runs eagerly, so an LM iteration was some
 one host read, with the results of the eager loop bit for bit (the same
 kernels on the same values, in the same order).
 
-A ``Program`` holds a program's stage functions and one dict of the
-tensors they read and write.  Graphed, the stages are captured once, in
-their order, into one memory pool, after two warm-up rounds on the
-capture stream (cuBLAS and cuSOLVER set up their workspaces outside the
-capture); a replay then writes the same tensors in place, and the
-caller's inputs are copied into the program's own before each call.
-Eagerly (the CPU tests' mode) each stage's outputs replace the dict's
-entries.
+The machinery (``Program``, the cache ``CACHE``, the capture and the
+replay) is ``ar_slam_tpu_torch/programs.py``, which the detector shares;
+this module holds the solver's stages and re-exports what its callers
+use.
 
 - seeds (``seed_waves_graphed``): one stage ``seed``, a flush's padded
   seed tables (solve/batch.py ``seed_waves``) applied in one replay.
@@ -40,228 +36,27 @@ entries.
 
 - the mesh (parallel/dist_lm.py, on shards of one card): the kinds
   ``"mesh_lm"`` (the tag-sharded LM's stages, with the fused quality,
-  through ``lm_iterate``) and ``"mesh_seed"``; a program counts the packed reductions its
-  replays run on the mesh (``Program.counter``).
+  through ``lm_iterate``) and ``"mesh_seed"``; a program counts the
+  packed reductions its replays run on the mesh (``Program.counted``).
 
-The cache (``CACHE``) holds one captured program per kind (``"seed"``,
-``"lm"``, ``"localize"``, ``"mesh_seed"``, ``"mesh_lm"``) and device, as
-``jax.jit`` caches its compiles: a solve's waves, its warmups and its
-polish share one LM capture, and ``serve``'s per-batch solves reuse it
-while their bucketed shapes repeat.  A call with another static signature (dtype, padded
-shapes, slot bounds, ``LMConfig``, tag size, seed mode) replaces the
-kind's program: the old graphs and tensors are freed into the kind's
-memory pool, which the new capture reuses, so a map that grows through
-its buckets holds one pool of about its largest signature's size, not
-one per bucket.  Each stage is recorded with ``capture_begin`` /
-``capture_end`` on the kind's own stream, in
-``capture_error_mode="thread_local"``, after that stream has waited for
-the current one (which waits for it after the recording): no
-``torch.cuda.synchronize`` and no ``empty_cache``, which the
-``torch.cuda.graph`` context manager would make, so the detect thread of
-``serve`` keeps its queued kernels and cached blocks meanwhile.  One
-thread solves at a time.  A capture or replay error raises; there is no
-eager fallback on the card.
+Each kind keeps one program per card (``programs.CACHE``): a solve's
+waves, its warmups and its polish share one LM capture, and ``serve``'s
+per-batch solves reuse it while their bucketed shapes repeat; a call with
+another static signature (dtype, padded shapes, slot bounds,
+``LMConfig``, tag size, seed mode) replaces the kind's program in the
+kind's memory pool.  One thread solves at a time.
 """
 
 from __future__ import annotations
 
-import time
-
 import torch
 
+from ar_slam_tpu_torch.programs import CACHE, Program, _clone  # noqa: F401
 from ar_slam_tpu_torch.solve.lm import (LMConfig, LMState, _grad_inf_norm,
                                         grouped_solver, lm_accept, lm_init,
                                         lm_reject, lm_step)
 from ar_slam_tpu_torch.solve.batch import seed_waves
 from ar_slam_tpu_torch.solve.localize import localize_init, localize_iteration
-
-WARMUP_ROUNDS = 2
-
-
-class GraphCache:
-    """The captured programs, one per (kind, device), with counts:
-    captures, replays, and per capture the host milliseconds of each
-    warm-up round's stages and of the graphs' recording."""
-
-    def __init__(self):
-        self._programs: dict = {}
-        self._pools: dict = {}  # (kind, device) -> (MemPool, capture stream)
-        self._retired: dict = {}  # (kind, device) -> dropped graphs
-        self.captures = 0
-        self.replays = 0
-        self.capture_ms: list = []  # per capture: program, warmup, record
-
-    def get(self, kind: str, device, signature, make) -> "Program":
-        """The kind's program on ``device`` for ``signature``; another
-        signature's program is dropped first, into the kind's pool."""
-        key = (kind, str(device))
-        prog = self._programs.get(key)
-        if prog is None or prog.signature != signature:
-            self._programs.pop(key, None)
-            if prog is not None and prog.graphs:
-                # the dropped graphs live on (their tensors are freed) until
-                # the next capture into the pool has ended: the host
-                # allocator asserts when a capture begins on a pool that no
-                # graph holds any more (torch.cuda.graph empties the host
-                # cache before each capture, which this module does not)
-                self._retired[key] = prog.graphs
-            del prog
-            prog = self._programs[key] = make()
-            prog.key, prog.signature = key, signature
-        return prog
-
-    def pool(self, key, device) -> tuple:
-        """The (memory pool, capture stream) of a (kind, device)."""
-        if key not in self._pools:
-            with torch.cuda.device(device):
-                self._pools[key] = (torch.cuda.MemPool(),
-                                    torch.cuda.Stream(device))
-        return self._pools[key]
-
-    def stats(self) -> dict:
-        """The counts, the programs held and their pools' reserved bytes
-        (the allocator's segments of those pools)."""
-        ids = {tuple(p.id) for p, _ in self._pools.values()}
-        pool_bytes = sum(
-            s["total_size"] for s in torch.cuda.memory_snapshot()
-            if tuple(s.get("segment_pool_id", ())) in ids) if ids else 0
-        return {"captures": self.captures, "replays": self.replays,
-                "capture_ms": sum(sum(sum(r.values()) for r in c["warmup"])
-                                  + c["record"] for c in self.capture_ms),
-                "capture_split_ms": [dict(c) for c in self.capture_ms],
-                "programs": len(self._programs), "pool_bytes": pool_bytes}
-
-    def clear(self) -> None:
-        self._programs.clear()
-        self._retired.clear()
-        self._pools.clear()
-        self.captures = self.replays = 0
-        self.capture_ms = []
-
-
-CACHE = GraphCache()
-
-
-def _copy_into(dst, src) -> None:
-    """Copy ``src`` into the tensors of ``dst``, a tensor or a tuple or
-    list of them (nested: NamedTuples, ``Sharded`` shards), leaf by leaf;
-    None leaves stay."""
-    if isinstance(dst, torch.Tensor):
-        dst.copy_(src)
-    elif isinstance(dst, (tuple, list)):
-        for d, s in zip(dst, src):
-            _copy_into(d, s)
-
-
-def _clone(x):
-    """A copy of ``x`` (as ``_copy_into`` takes it) in memory of its
-    own."""
-    if isinstance(x, torch.Tensor):
-        return x.clone(memory_format=torch.contiguous_format)
-    if isinstance(x, tuple) and hasattr(x, "_fields"):
-        return type(x)(*map(_clone, x))
-    if isinstance(x, (tuple, list)):
-        return type(x)(map(_clone, x))
-    return x
-
-
-def _write(t: dict, out: dict) -> None:
-    """Store stage outputs: in place into tensors ``t`` already holds (a
-    replayed graph writes the same memory), else as new entries."""
-    for k, v in out.items():
-        if t.get(k) is None:
-            t[k] = v
-        else:
-            _copy_into(t[k], v)
-
-
-class Program:
-    """A loop's stages over one dict of tensors ``t``, run eagerly or as
-    CUDA graphs (``graphed``, held by ``CACHE``; see the module
-    docstring).  An entry of ``t`` is a tensor or a (nested) tuple or
-    list of them: the mesh's ``Sharded`` state is copied, selected and
-    cloned shard by shard.  ``counter``, which the caller of a graphed
-    program sets to the call's ``parallel.Mesh``, counts the packed
-    reductions the stages run: eagerly they count themselves; a captured
-    stage records how many it holds and each replay adds that many (a
-    capture's warm-up rounds and recording count none)."""
-
-    def __init__(self, stages: dict, graphed: bool):
-        self.stages = stages  # in capture order
-        self.graphed = graphed
-        self.counter = None
-        self.key = self.signature = None
-        self.t: dict = {}
-        self.graphs: dict = {}
-        self.reductions: dict = {}  # per captured stage
-
-    def load(self, **inputs) -> None:
-        """The call's inputs: copied into the program's own tensors when
-        graphed (captured at the first call), taken as they are eagerly."""
-        if not self.graphed:
-            self.t.update(inputs)
-            return
-        for k, v in inputs.items():
-            if k in self.t:
-                _copy_into(self.t[k], v)
-            else:
-                self.t[k] = _clone(v)
-        if not self.graphs:
-            self._capture()
-
-    def run(self, name: str) -> None:
-        if self.graphed:
-            self.graphs[name].replay()
-            CACHE.replays += 1
-            if self.counter is not None:
-                self.counter.reductions += self.reductions[name]
-        else:
-            self.t.update(self.stages[name](self.t))
-
-    def _capture(self) -> None:
-        dev = torch.device(self.key[1])
-        counter = self.counter
-        counted = counter.reductions if counter is not None else 0
-        pool, stream = CACHE.pool(self.key, dev)
-        # the inputs were copied in on the current stream; the replays run
-        # there too, after the capture
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        warmup = []
-        with torch.cuda.stream(stream):
-            for _ in range(WARMUP_ROUNDS):
-                scratch, ms = dict(self.t), {}
-                for name, fn in self.stages.items():
-                    t0 = time.perf_counter()
-                    scratch.update(fn(scratch))
-                    ms[name] = (time.perf_counter() - t0) * 1e3
-                warmup.append(ms)
-                del scratch
-        t0 = time.perf_counter()
-        with torch.cuda.stream(stream):
-            for name, fn in self.stages.items():
-                g = torch.cuda.CUDAGraph()
-                before = counter.reductions if counter is not None else 0
-                g.capture_begin(pool=pool.id,
-                                capture_error_mode="thread_local")
-                try:
-                    _write(self.t, fn(self.t))
-                finally:
-                    g.capture_end()
-                self.graphs[name] = g
-                if counter is not None:
-                    self.reductions[name] = counter.reductions - before
-        if counter is not None:
-            counter.reductions = counted
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        CACHE._retired.pop(self.key, None)
-        CACHE.captures += 1
-        CACHE.capture_ms.append({"program": self.key[0], "warmup": warmup,
-                                 "record": (time.perf_counter() - t0) * 1e3})
-
-    def out(self, x):
-        """A result that outlives the next replay: a copy when graphed."""
-        return _clone(x) if self.graphed else x
-
 
 _STATE = ("camera", "cap_poses", "tag_poses", "lam", "nu", "cost",
           "converged", "term")

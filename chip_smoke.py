@@ -140,7 +140,18 @@ Phases (each prints one JSON line; any failure exits non-zero):
    profiled last, ``mesh_graphs_profile``); and room-16's map solve over
    2 shards, eager once and graphed twice (the first captures), beside
    the single-device graphed solve: seconds, the mesh LM's iterations and
-   the ms of its LM calls per iteration, the same map bit for bit.
+   the ms of its LM calls per iteration, the same map bit for bit;
+22. detect_graphs (run after solve_graphs) — the detector through its
+   CUDA graphs (detect/detect.py, programs.py) against its eager stage
+   (``graphs=False``): room-16's two batches of (8, 768, 1020), phone_12mp's
+   map batch of (8, 3024, 4032) and localize batch of 4, and mesh_detect's
+   two batches over three shards of the card; per cell the outputs bit
+   for bit, one capture per (card, shape) with a replay a shard's call
+   after it, host ms per call (median of 3 after a first call), capture
+   ms, the pools' and the peak GB; launches, graph launches, device ms
+   and the idle share per call profiled last (``detect_graphs_profile``).
+   Phases 4-6 and 13 detect through replays too: each detection call of
+   theirs must be one replay of the detector's graph.
 
 A mesh of k shards puts shard i on card i mod the card count: on one
 card all shards share it and run one after another on its stream (their
@@ -662,6 +673,21 @@ def check_graphs(cell: str, stats: dict) -> None:
         fail(f"{cell}: no CUDA graph was replayed: {stats}")
 
 
+def detect_replays() -> int:
+    """Replays of the detector's programs since the cache's last clear."""
+    from ar_slam_tpu_torch import programs
+
+    return programs.CACHE.kinds.get("detect", {}).get("replays", 0)
+
+
+def check_detect_replays(cell: str, replays: int, calls: int) -> None:
+    """Every detect_batch call of a main path replayed the detector's CUDA
+    graph (detect/detect.py), one replay a call."""
+    if replays != calls:
+        fail(f"{cell}: {calls} detection calls made {replays} replays of "
+             "the detector's graph")
+
+
 def check_rmse(cell: str, rmse: float) -> None:
     """rmse within JET_RMSE_TOL_PX of the cell's JACFWD_RMSE_PX."""
     if not abs(rmse - JACFWD_RMSE_PX[cell]) <= JET_RMSE_TOL_PX:
@@ -762,10 +788,14 @@ def phase_main_path(frames, truth):
     reset_counts()
     engine = ArSlamEngine(device=DEVICE)
     torch.cuda.synchronize()
+    replays = detect_replays()
     t0 = time.perf_counter()
     for b in batches:
         engine.add_decoded(b)
     t_detect = time.perf_counter() - t0
+    detect_graphs = graphs.CACHE.stats()
+    check_detect_replays("room-16 detect", detect_replays() - replays,
+                         len(batches))
     graphs.CACHE.clear()
     t0 = time.perf_counter()
     summary = engine.solve()
@@ -795,7 +825,7 @@ def phase_main_path(frames, truth):
          rmse_px=rmse, focal=float(engine.store.camera.params[0]),
          detect_seconds=t_detect,
          detect_frames_per_s=len(frames) / t_detect, solve_seconds=t_solve,
-         solve_graphs=solve_graphs)
+         detect_graphs=detect_graphs, solve_graphs=solve_graphs)
     check_graphs("room-16 solve", solve_graphs)
     return launches, engine.store, rmse
 
@@ -821,10 +851,14 @@ def phase_phone_12mp(frames, truth, tag_m: float):
     engine = ArSlamEngine(config, device=DEVICE)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    replays = detect_replays()
     t0 = time.perf_counter()
     engine.add_decoded(caps[:8])
     t_detect = time.perf_counter() - t0
     detect_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    detect_graphs = graphs.CACHE.stats()
+    check_detect_replays("phone_12mp map detect", detect_replays() - replays,
+                         1)
     graphs.CACHE.clear()
     t0 = time.perf_counter()
     summary = engine.solve()
@@ -842,6 +876,7 @@ def phase_phone_12mp(frames, truth, tag_m: float):
     result = loc.localize_decoded(caps[8:])
     t_loc_total = time.perf_counter() - t0
     localize_graphs = graphs.CACHE.stats()
+    check_detect_replays("phone_12mp localize detect", detect_replays(), 1)
     t_loc = loc.metrics.timings["localize"][-1]
     launches = read_counts()
 
@@ -889,7 +924,7 @@ def phase_phone_12mp(frames, truth, tag_m: float):
          f64_localize_rmse_px=ref.get("rmse"), f32_f64_pose_diff=d_pose,
          f32_f64_rmse_diff_px=d_rmse,
          detect_seconds=t_detect, detect_frames_per_s=8 / t_detect,
-         detect_peak_memory_gb=detect_peak_gb,
+         detect_peak_memory_gb=detect_peak_gb, detect_graphs=detect_graphs,
          solve_seconds=t_solve, localize_seconds=t_loc,
          localize_with_detection_seconds=t_loc_total,
          solve_graphs=solve_graphs, localize_graphs=localize_graphs)
@@ -1072,6 +1107,9 @@ def phase_serve_12mp(frames, truth, tag_m: float) -> None:
          replay_rmse_px=replay_rmse, replay_blocks=len(replayed.blocks),
          replay_seconds=t_replay, solve_graphs=solve_graphs)
     check_graphs("serve_12mp solve_incremental", solve_graphs)
+    check_detect_replays("serve_12mp detect thread",
+                         solve_graphs["kinds"].get("detect", {}).get(
+                             "replays", 0), len(detect_calls))
 
     if sum(s.get("waves", 0) for s in summaries) != len(frames) or (
             summaries[-1].get("unsolved") != 0):
@@ -1368,8 +1406,10 @@ def _launch_profile(fn) -> tuple:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     out = dict(launches=0, graph_launches=0, device_items=0, device_ms=0.0)
     for a in prof.key_averages():
         if a.device_type == DeviceType.CUDA:
@@ -1379,6 +1419,8 @@ def _launch_profile(fn) -> tuple:
             out["launches"] += a.count
             if a.key == "cudaGraphLaunch":
                 out["graph_launches"] += a.count
+    out.update(wall_ms=wall_ms,
+               device_idle_share=1.0 - out["device_ms"] / wall_ms)
     return result, out
 
 
@@ -1674,6 +1716,110 @@ def phase_solve_graphs(store16, phone, arrs10k):
         fail("solve_graphs phone_12mp localize: graphed differs from eager")
     graphs.CACHE.clear()
     return jobs
+
+
+def phase_detect_graphs(frames16, frames12) -> list:
+    """Detection through its CUDA graphs (detect/detect.py) against the
+    eager stage (``graphs=False``), on the card, per cell: room-16's two
+    batches of 8, phone_12mp's map batch of 8 and localize batch of 4,
+    and mesh_detect's two batches over three shards of one card.  Each
+    mode from an empty cache: the first call (the graphs' capture), then
+    host ms per call (median of 3 after a first call), the outputs bit
+    for bit, one capture per (card, shape) and a replay a shape's call
+    after it, capture ms, the pools' and the peak GB.  Returns the profile
+    jobs (launches, device ms and idle share, profiled last)."""
+    import torch
+
+    from ar_slam_tpu_torch import programs
+    from ar_slam_tpu_torch.detect.detect import detect_batch
+    from ar_slam_tpu_torch.parallel import detect as pdet
+    from ar_slam_tpu_torch.pipeline.engine import ArSlamEngine
+
+    mesh = pdet.image_mesh(devices=[MESH_CARD] * 3)
+    params = ArSlamEngine(device=DEVICE).detect_params()  # the main path's
+
+    def batches(frames, n):
+        return lambda g: [detect_batch(frames[i:i + n], params=params,
+                                       device=DEVICE, graphs=g)
+                          for i in range(0, len(frames), n)]
+
+    def sharded(frames):
+        return lambda g: pdet.detect_batch_sharded(
+            frames, mesh=mesh, params=params, graphs=g)
+
+    cells = [("room-16, 2 batches of (8, 768, 1020)", batches(frames16, 8),
+              2),
+             ("phone_12mp map, (8, 3024, 4032)", batches(frames12[:8], 8),
+              1),
+             ("phone_12mp localize, (4, 3024, 4032)",
+              batches(frames12[8:], 4), 1),
+             ("mesh_detect room-16, 16 frames over 3 shards of the card",
+              sharded(frames16), 3),
+             ("mesh_detect phone_12mp, 8 frames over 3 shards of the card",
+              sharded(frames12[:8]), 3)]
+    jobs = []
+    for name, call, replays_per_call in cells:
+        cell, results = {"cell": name}, {}
+        for graphed in (False, True):
+            mode = "graphed" if graphed else "eager"
+            programs.CACHE.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            results[mode] = call(graphed)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            first = programs.CACHE.stats()
+            host_ms = _wall_ms(lambda: call(graphed), 3)
+            last = call(graphed)
+            stats = programs.CACHE.stats()
+            cell[mode] = dict(
+                first_call_ms=first_ms, host_ms_per_call=host_ms,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                reserved_gb=torch.cuda.memory_reserved() / 1e9)
+            if graphed:
+                cell[mode].update(
+                    captures=stats["captures"],
+                    replays_first_call=first["replays"],
+                    replays=stats["replays"], capture_ms=first["capture_ms"],
+                    capture_split_ms=first["capture_split_ms"],
+                    pool_gb=stats["pool_bytes"] / 1e9,
+                    programs=[{"program": h["program"],
+                               "pool_gb": (h["pool_bytes"] or 0) / 1e9}
+                              for h in stats["held"]])
+                # six calls: the first, _wall_ms' four and the last
+                ok = (stats["captures"] == 1
+                      and first["replays"] == replays_per_call
+                      and stats["replays"] == 6 * replays_per_call
+                      and _same(last, results[mode]))
+                if not ok:
+                    fail(f"detect_graphs {name}: not one capture and a "
+                         f"replay a shard's call: {cell[mode]}")
+            jobs.append((name, mode, lambda c=call, g=graphed: c(g)))
+        cell["bit_for_bit"] = _same(results["eager"], results["graphed"])
+        cell["detections"] = int(sum(
+            int(d[n]["valid"].sum()) for d in (
+                results["eager"] if isinstance(results["eager"], list)
+                else [results["eager"]]) for n in d))
+        cell["host_speedup"] = (cell["eager"]["host_ms_per_call"]
+                                / cell["graphed"]["host_ms_per_call"])
+        emit("detect_graphs", **cell)
+        if not cell["bit_for_bit"]:
+            fail(f"detect_graphs {name}: graphed outputs differ from the "
+                 "eager stage's")
+    programs.CACHE.clear()
+    return jobs
+
+
+def phase_detect_graphs_profile(jobs) -> None:
+    """Per detect_graphs cell and mode, one call under torch.profiler
+    (after an unprofiled one, so that no capture is profiled): the
+    runtime launches, graph launches, device items, device ms, wall ms
+    and the device's idle share."""
+    for name, mode, fn in jobs:
+        fn()
+        _, prof = _launch_profile(fn)
+        emit("detect_graphs_profile", cell=name, mode=mode, per_call=prof)
 
 
 def _mesh_runner(arrs, shards: int, config):
@@ -1987,16 +2133,19 @@ def phase_mesh_detect(frames16, frames12):
         try:
             torch.cuda.synchronize()
             reset_counts()
+            replays = detect_replays()
             t0 = time.perf_counter()
             got = pdet.detect_batch_sharded(frames, mesh=mesh)
             torch.cuda.synchronize()
             t_sharded = time.perf_counter() - t0
             launches = read_counts()
+            replays = detect_replays() - replays
         finally:
             pdet.detect_batch = plain
         check_launches(f"mesh_detect {cell}", launches,
                        ("box", "box_threshold", k_ccl, "extract"),
                        (k_unused,))
+        check_detect_replays(f"mesh_detect {cell}", replays, 3)
         t0 = time.perf_counter()
         ref = detect_batch(frames, device=DEVICE)
         torch.cuda.synchronize()
@@ -2010,7 +2159,8 @@ def phase_mesh_detect(frames16, frames12):
              frames_per_shard=[min(per, len(frames) - i * per)
                                for i in range(3)],
              padding_frames=3 * per - len(frames), equal_to_unsharded=same, detections=n_found, launches=launches,
-             launches_per_shard=per_shard, sharded_seconds=t_sharded,
+             launches_per_shard=per_shard, detect_replays=replays,
+             sharded_seconds=t_sharded,
              unsharded_seconds=t_plain)
         if not same:
             fail(f"mesh_detect {cell}: sharded outputs differ from the "
@@ -2563,15 +2713,20 @@ def phase_profile(frames16, frames12, tag_m: float) -> None:
     def caps(frames, ks, prefix):
         return [IngestedCapture(f"{prefix}{k:02d}", "", frames[k]) for k in ks]
 
+    # each detection program is captured before its profile, so that no
+    # capture is profiled
     room = ArSlamEngine(device=DEVICE)
+    room.detect_decoded(caps(frames16, range(8), "frame"))
     _profiled("room-16 detect 8 frames",
               lambda: room.detect_decoded(caps(frames16, range(8), "frame")))
     config = ArSlamConfig(aruco_size=tag_m)
     phone = ArSlamEngine(config, device=DEVICE)
+    phone.detect_decoded(caps(frames12, range(8), "phone"))
     _profiled("phone_12mp detect 8 frames",
               lambda: phone.detect_decoded(caps(frames12, range(8), "phone")))
     loc = ArSlamEngine(config, device=DEVICE)
     loc.load_map(os.path.join(OUT_DIR, "phone_map.yaml"))
+    loc.detect_decoded(caps(frames12, range(8, 12), "phone"))
     _profiled("phone_12mp localize 4 frames (detect + pose-only LM)",
               lambda: loc.localize_decoded(caps(frames12, range(8, 12),
                                                 "phone")))
@@ -2637,6 +2792,8 @@ def main() -> int:
     timed("multihost_1", phase_multihost_1)
     graph_jobs = timed("solve_graphs", phase_solve_graphs, store16, phone,
                        arrs10k)
+    detect_jobs = timed("detect_graphs", phase_detect_graphs, frames16,
+                        frames12)
     mesh_jobs = timed("mesh_graphs", phase_mesh_graphs, arrs10k, store16)
     del arrs10k, phone
     timed("one_shot_map", phase_one_shot_map)
@@ -2649,6 +2806,7 @@ def main() -> int:
     timed("solve_graphs_profile", phase_solve_graphs_profile, graph_jobs)
     timed("mesh_graphs_profile", phase_solve_graphs_profile, mesh_jobs,
           "mesh_graphs_profile")
+    timed("detect_graphs_profile", phase_detect_graphs_profile, detect_jobs)
     for row in rows:
         row["launches"] = launches[row["cell"]][COUNTERS[row["name"]]]
         row["mesh_detect_launches"] = mesh_launches[row["cell"]][

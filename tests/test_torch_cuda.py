@@ -454,7 +454,8 @@ def test_graph_replays_do_not_sync(dev):
 
 def test_capture_beside_detect_thread(dev):
     """A capture succeeds while another thread runs detect_batch on the
-    card (the pipelined serve loop), and replays the eager results."""
+    card (the pipelined serve loop, which captures and replays its own
+    program), and replays the eager results."""
     import threading
 
     from ar_slam_tpu_torch.detect.detect import detect_batch
@@ -487,7 +488,8 @@ def test_capture_beside_detect_thread(dev):
         stop.set()
         th.join(timeout=120)
     assert not th.is_alive() and not errors, errors
-    assert graphs.CACHE.captures == 1 and runs[0] > 0
+    assert graphs.CACHE.stats()["kinds"]["lm"]["captures"] == 1
+    assert runs[0] > 0
     _equal_solves(got, ref)
 
 
@@ -797,3 +799,186 @@ def test_graphed_mesh_solve_equals_eager(dev):
     assert [c["program"] for c in stats["capture_split_ms"]] == [
         "mesh_seed", "mesh_lm"]
     graphs.CACHE.clear()
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    """Rendered frames of chip_smoke's cells: 8 of room-16 (1020x768:
+    K2) and 2 of phone_12mp (4032x3024, 50 mm tags: K3)."""
+    from ar_slam_tpu_torch.utils.render import PHONE_12MP, room_scene
+
+    return {"room": room_scene(n_frames=8)[0],
+            "phone": room_scene(n_frames=2, aruco_size=0.05,
+                                **PHONE_12MP)[0]}
+
+
+def _detect_counts():
+    from ar_slam_tpu_torch.detect.detect import COUNTED
+
+    return [getattr(obj, attr) for obj, attr in COUNTED]
+
+
+def _plane_rounds(cell):
+    return (ccl.fused_plane_rounds() if cell == "room"
+            else ccl.strip_plane_rounds())
+
+
+def _equal_detections(a, b):
+    return a.keys() == b.keys() and all(
+        torch.equal(a[n][k], b[n][k]) for n in a for k in a[n])
+
+
+@pytest.mark.parametrize("cell", ["room", "phone"])
+def test_graphed_detect_equals_eager(dev, scenes, cell):
+    """detect_batch replays one CUDA graph per batch shape, K1-K4 inside
+    (K2 on room-16's planes, K3 on 12 MP ones): bit for bit the eager
+    stage's outputs, the same launch counts and the same per-plane CCL
+    rounds after each replay; the first call captures, later calls of
+    the shape replay, another shape captures its own."""
+    from ar_slam_tpu_torch import programs
+    from ar_slam_tpu_torch.detect.detect import detect_batch
+
+    frames = scenes[cell]
+    programs.CACHE.clear()
+    before = _detect_counts()
+    ref = detect_batch(frames, device=dev, graphs=False)
+    torch.cuda.synchronize()
+    launched = [a - b for a, b in zip(_detect_counts(), before)]
+    rounds = _plane_rounds(cell)
+    assert all(launched[:2]) and launched[-1] == 1
+    assert int(sum(ref[n]["valid"].sum() for n in ref)) > 0
+    for call in range(3):
+        before = _detect_counts()
+        got = detect_batch(frames, device=dev)
+        torch.cuda.synchronize()
+        assert [a - b for a, b in zip(_detect_counts(), before)] == launched
+        assert _equal_detections(got, ref) and _plane_rounds(cell) == rounds
+    kinds = programs.CACHE.stats()["kinds"]
+    assert kinds == {"detect": {"captures": 1, "replays": 3}}
+    half = detect_batch(frames[:1], device=dev)
+    torch.cuda.synchronize()
+    assert _equal_detections(half, detect_batch(frames[:1], device=dev,
+                                                graphs=False))
+    assert programs.CACHE.stats()["kinds"]["detect"] == {"captures": 2,
+                                                         "replays": 4}
+    assert programs.CACHE.stats()["programs"] == 2
+    programs.CACHE.clear()
+
+
+def test_detect_replay_does_not_sync(dev, scenes):
+    """A graphed detect_batch call on frames on the card (the copy into
+    the program's buffer, the replay, the outputs' copies) runs under
+    set_sync_debug_mode("error"); only the outputs' copy to the host,
+    after it, reads the card."""
+    from ar_slam_tpu_torch import programs
+    from ar_slam_tpu_torch.detect.detect import detect_batch
+
+    frames = torch.from_numpy(scenes["room"]).to(dev)
+    programs.CACHE.clear()
+    ref = detect_batch(frames, device=dev, graphs=False)
+    detect_batch(frames, device=dev)  # captures
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = detect_batch(frames, device=dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    host = {n: {k: v.cpu() for k, v in d.items()} for n, d in got.items()}
+    assert _equal_detections(host, {n: {k: v.cpu() for k, v in d.items()}
+                                    for n, d in ref.items()})
+    programs.CACHE.clear()
+
+
+def test_detect_capture_beside_lm_capture(dev, scenes, monkeypatch):
+    """A worker thread captures and replays the detector while this
+    thread captures and replays an LM (serve's detect thread beside its
+    solve): neither capture disturbs the other's queued work, both
+    replay their eager results bit for bit, one capture of each, and
+    neither capture calls torch.cuda.synchronize or empty_cache."""
+    import threading
+
+    from ar_slam_tpu_torch import programs
+    from ar_slam_tpu_torch.detect.detect import detect_batch
+    from ar_slam_tpu_torch.solve.lm import lm_solve
+
+    frames = scenes["room"]
+    ref_det = detect_batch(frames, device=dev, graphs=False)
+    args, kw = _lm_case(dev, 500, 200, "dense")
+    ref = lm_solve(*args, graphs=False, **kw)
+    torch.cuda.synchronize()
+    programs.CACHE.clear()
+    syncs = CaptureSyncs(monkeypatch)
+    go, errors, found = threading.Event(), [], []
+
+    def detect_loop():
+        try:
+            go.wait(timeout=60)
+            for _ in range(4):
+                found.append(detect_batch(frames, device=dev))
+        except Exception as e:  # reported by the main thread
+            errors.append(e)
+
+    th = threading.Thread(target=detect_loop)
+    th.start()
+    try:
+        go.set()
+        got = [lm_solve(*args, **kw) for _ in range(2)]
+        torch.cuda.synchronize()
+    finally:
+        go.set()
+        th.join(timeout=120)
+    torch.cuda.synchronize()
+    assert not th.is_alive() and not errors, errors
+    kinds = programs.CACHE.stats()["kinds"]
+    assert kinds["detect"] == {"captures": 1, "replays": 4}
+    assert kinds["lm"]["captures"] == 1 and kinds["lm"]["replays"] > 0
+    assert syncs.captures == 2
+    assert syncs.counts == {"synchronize": 0, "empty_cache": 0}
+    for g in got:
+        _equal_solves(g, ref)
+    assert len(found) == 4 and all(_equal_detections(f, ref_det)
+                                   for f in found)
+    programs.CACHE.clear()
+
+
+def test_engine_padding_on_card(dev, scenes):
+    """The engine detects 3 frames as a padded batch of 4 (a zero frame
+    last, another program shape): the zero frame detects nothing, and
+    the 3 frames give the unpadded batch's ids and validity exactly and
+    its corners within 1e-4 px (the card's reductions may split
+    differently at another batch size), also through the engine."""
+    from ar_slam_tpu_torch import programs
+    from ar_slam_tpu_torch.detect.detect import detect_batch
+    from ar_slam_tpu_torch.pipeline.engine import ArSlamEngine
+
+    frames = scenes["room"][:3]
+    engine = ArSlamEngine(device=dev)
+    params = engine.detect_params()
+    names = tuple(engine.config.detect.dictionaries)
+    programs.CACHE.clear()
+    padded = np.concatenate([frames, np.zeros_like(frames[:1])])
+    got = detect_batch(padded, params=params, dict_names=names, device=dev)
+    ref = detect_batch(frames, params=params, dict_names=names, device=dev)
+    for name in names:
+        assert not got[name]["valid"][3].any()
+        valid = ref[name]["valid"]
+        assert torch.equal(got[name]["valid"][:3], valid)
+        assert torch.equal(got[name]["ids"][:3], ref[name]["ids"])
+        assert valid.any()
+        diff = (got[name]["corners"][:3] - ref[name]["corners"])[valid]
+        assert diff.abs().max().item() <= 1e-4
+    per_image = engine._run_detector(frames, names)
+    center = np.array([frames.shape[2] / 2.0, frames.shape[1] / 2.0])
+    for i, by_dict in enumerate(per_image):
+        for name in names:
+            v = ref[name]["valid"][i].cpu().numpy()
+            want = dict(zip(ref[name]["ids"][i].cpu().numpy()[v],
+                            ref[name]["corners"][i].cpu().numpy()[v]))
+            dets = by_dict[f"aruco_{name}"]
+            assert sorted(int(t.rsplit("_", 1)[1]) for t, _ in dets) \
+                == sorted(want)
+            for tag, c in dets:
+                assert np.abs(c + center - want[int(tag.rsplit("_", 1)[1])]
+                              ).max() <= 1e-4
+    assert programs.CACHE.stats()["kinds"]["detect"]["captures"] == 2
+    programs.CACHE.clear()
