@@ -17,11 +17,13 @@ observations (``partition.prepare_tag_shards``).  Each LM iteration then:
   poses stay sharded (``Sharded``) for the whole solve.
 
 Each shard's work is a function over that shard, enqueued on its device
-by a loop over the shards.  ``_psum_packed`` is the one reduction: the
-shards' arrays raveled into one vector each, summed over the local shards
-on the home device, then, with a process group of several processes,
-one ``all_reduce``.  A dense LM iteration costs exactly TWO reductions
-(the solve's, and the fused step quality + speculative relinearization of
+through ``Mesh.map``; values replicated on the home device reach the
+shards' cards through ``Mesh.put``, outside the shards' work.
+``_psum_packed`` is the one reduction: the shards' arrays raveled into
+one vector each, summed over the local shards on the home device in
+shard order, then, with a process group of several processes, one
+``all_reduce``.  A dense LM iteration costs exactly TWO reductions (the
+solve's, and the fused step quality + speculative relinearization of
 ``make_quality_lin``); a CG solve one at setup and one per matvec.  The
 tag-side sums the LM loop itself needs (the parameter test's norms, the
 gradient test's max) ride the same packs, so processes agree on every
@@ -32,16 +34,16 @@ The loop runs as the stages of solve/graphs.py (``setup``, ``step``,
 ``accept``, ``reject``) with the fused quality (``lm.lm_step``'s
 ``quality_lin_fn``) and their host loop (``graphs.lm_iterate``);
 a flush's seeds as one stage ``seed`` over the padded wave tables
-(``seed_waves_sharded``).  On a CUDA mesh whose local shards all sit on
-one card (``[cuda:0] * k``, and every ``--multihost`` process, pinned to
-its own card) the stages are captured once per signature and replayed
-as CUDA graphs, the packed reductions (with a process group, the NCCL
-``all_reduce``) inside them: the counterparts of the JAX package's
-jitted ``_dist_lm_runner`` and ``_dist_wave_solver``.  A CUDA graph
-records on one device, so a mesh that spreads one process's shards over
-several cards, and the CPU, run the same stages eagerly; so does
-``graphs=False``.  Graphed and eager give the same values bit for bit,
-and the eager stages those of ``lm_core`` over the same hooks
+(``seed_waves_sharded``).  On a CUDA mesh the stages are captured once
+per signature and replayed as CUDA graphs, the counterparts of the JAX
+package's jitted ``_dist_lm_runner`` and ``_dist_wave_solver`` (one XLA
+executable over ``shard_map``): one graph a stage spans the mesh's cards
+(``programs.Program`` with ``mesh``), each shard's work on a branch
+stream of its own that forks from its card's stream and rejoins it at
+each packed reduction, the copies between cards and, with a process
+group, the NCCL ``all_reduce`` inside it.  The CPU and ``graphs=False``
+run the same stages eagerly.  Graphed and eager give the same values bit
+for bit, and the eager stages those of ``lm_core`` over the same hooks
 (``_lm_sharded``, the plain loop).
 """
 
@@ -100,9 +102,11 @@ def _psum_packed(mesh: Mesh, shard_arrs):
     assert len(dtypes) == 1, (
         f"_psum_packed requires one dtype, got {sorted(map(str, dtypes))}: "
         "concatenate would silently promote and change downstream dtypes")
+    flats = mesh.map(lambda arrs: torch.cat([a.reshape(-1) for a in arrs]),
+                     shard_arrs)
     flat = None
-    for arrs in shard_arrs:
-        f = torch.cat([a.reshape(-1) for a in arrs]).to(mesh.home)
+    for f in flats:  # in shard order, on the home device
+        f = f.to(mesh.home)
         flat = f if flat is None else flat + f
     if mesh.group is not None and mesh.world > 1:
         import torch.distributed as dist
@@ -157,15 +161,13 @@ def make_tag_sharded_hooks(mesh: Mesh, t_per, n_caps, aruco_size,
     s_max = row_slots if use_rows else obs_per_tag
     max_rows = -(-obs_per_tag // row_slots) if use_rows else 1
     max_cap_rows = -(-obs_per_cap // row_slots) if use_cap_rows else 1
-    shards = list(zip(mesh.shard_ids(), mesh.devices))
+    gs = list(mesh.shard_ids())
 
     def make_group(cap_idx, tag_idx, corners, block_mask):
         """Regroup each shard's blocks by local tag into (t_per * S) slots
         (row-split: shard_rows * row_slots) and by capture: one ``_Group``
         a shard, built once a solve."""
-        out = []
-        for (g, _), ci, ti, crn, bm in zip(shards, cap_idx, tag_idx,
-                                           corners, block_mask):
+        def one(g, ci, ti, crn, bm):
             til = ti - g * t_per
             dev = til.device
             if use_rows:
@@ -187,16 +189,17 @@ def make_tag_sharded_hooks(mesh: Mesh, t_per, n_caps, aruco_size,
                 cap_gather, cap_gmask = group_blocks_by_tag(
                     ci_g, mask_g, n_caps, obs_per_cap)
                 cap_rows = None
-            out.append(_Group(ci_g, til_g, crn[gather], mask_g, cap_gather,
-                              cap_gmask, rows, cap_rows))
-        return out
+            return _Group(ci_g, til_g, crn[gather], mask_g, cap_gather,
+                          cap_gmask, rows, cap_rows)
+
+        return mesh.map(one, gs, cap_idx, tag_idx, corners, block_mask)
 
     def _assemble(camera, cap_poses, tags, grp):
-        dev = tags.device
+        """One shard's linearization and tag-grouped assembly, ``camera``
+        and ``cap_poses`` on its device."""
         r, jc, jp, jt, rho = linearize(
-            camera.to(dev), cap_poses.to(dev), tags, grp.cap_idx,
-            grp.tag_idx, grp.corners, grp.mask, aruco_size, distortion,
-            loss, loss_scale)
+            camera, cap_poses, tags, grp.cap_idx, grp.tag_idx, grp.corners,
+            grp.mask, aruco_size, distortion, loss, loss_scale)
         eqs = assemble_grouped(r, jc, jp, jt, grp.cap_gather, grp.cap_gmask,
                                n_caps, t_per, s_max, rows=grp.rows,
                                cap_rows=grp.cap_rows)
@@ -217,15 +220,17 @@ def make_tag_sharded_hooks(mesh: Mesh, t_per, n_caps, aruco_size,
 
     def make_lin(grouped, tag_active):
         def lin_fn(camera, cap_poses, tag_poses):
-            packs, tag_side = [], []
-            for (g, _), tags, grp, ta in zip(shards, tag_poses, grouped,
-                                             tag_active):
-                e, cost = _assemble(camera, cap_poses, tags, grp)
-                tag_side.append((e.hct, e.wt_s, e.htt, e.g_t))
-                packs.append([e.hcc, e.hcp, e.hpp, e.g_c, e.g_p, cost,
-                              _g_t_max(g, e.g_t, ta), torch.sum(tags ** 2),
-                              torch.zeros_like(cost)])
-            return _eqs(_psum_packed(mesh, packs), tag_side)
+            def one(g, cam, caps, tags, grp, ta):
+                e, cost = _assemble(cam, caps, tags, grp)
+                return (e.hct, e.wt_s, e.htt, e.g_t), [
+                    e.hcc, e.hcp, e.hpp, e.g_c, e.g_p, cost,
+                    _g_t_max(g, e.g_t, ta), torch.sum(tags ** 2),
+                    torch.zeros_like(cost)]
+
+            out = mesh.map(one, gs, mesh.put(camera), mesh.put(cap_poses),
+                           tag_poses, grouped, tag_active)
+            return _eqs(_psum_packed(mesh, [o[1] for o in out]),
+                        [o[0] for o in out])
 
         return lin_fn
 
@@ -238,20 +243,21 @@ def make_tag_sharded_hooks(mesh: Mesh, t_per, n_caps, aruco_size,
         are local work."""
         def quality_lin_fn(eqs, new_camera, new_caps, new_tags, d_cam,
                            d_cap, d_tag):
-            packs, tag_side = [], []
-            for (g, dev), tags, dt_, grp, ta, old in zip(
-                    shards, new_tags, d_tag, grouped, tag_active, eqs.tags):
-                e, cost = _assemble(new_camera, new_caps, tags, grp)
-                gd_t, q_t = quad_form_tag_side(
-                    *old, grp.cap_idx, d_cam.to(dev), d_cap.to(dev), dt_,
-                    rows=grp.rows)
-                tag_side.append((e.hct, e.wt_s, e.htt, e.g_t))
-                packs.append([e.hcc, e.hcp, e.hpp, e.g_c, e.g_p, cost,
-                              _g_t_max(g, e.g_t, ta), torch.sum(tags ** 2),
-                              torch.sum(dt_ ** 2), gd_t, q_t])
-            packed = _psum_packed(mesh, packs)
+            def one(g, cam, caps, dcam, dcap, tags, dt_, grp, ta, old):
+                e, cost = _assemble(cam, caps, tags, grp)
+                gd_t, q_t = quad_form_tag_side(*old, grp.cap_idx, dcam, dcap,
+                                               dt_, rows=grp.rows)
+                return (e.hct, e.wt_s, e.htt, e.g_t), [
+                    e.hcc, e.hcp, e.hpp, e.g_c, e.g_p, cost,
+                    _g_t_max(g, e.g_t, ta), torch.sum(tags ** 2),
+                    torch.sum(dt_ ** 2), gd_t, q_t]
+
+            out = mesh.map(one, gs, mesh.put(new_camera), mesh.put(new_caps),
+                           mesh.put(d_cam), mesh.put(d_cap), new_tags, d_tag,
+                           grouped, tag_active, eqs.tags)
+            packed = _psum_packed(mesh, [o[1] for o in out])
             gd_t, q_t = packed[-2:]
-            new_eqs, new_cost = _eqs(packed[:-2], tag_side)
+            new_eqs, new_cost = _eqs(packed[:-2], [o[0] for o in out])
             # the capture side is replicated: added after the reduction
             gd_c, q_c = quad_form_cap_side(*eqs.cap, d_cam, d_cap)
             return new_cost, gd_c + gd_t, q_c + q_t, new_eqs
@@ -270,7 +276,7 @@ def make_tag_sharded_hooks(mesh: Mesh, t_per, n_caps, aruco_size,
                     eqs.cap, cg_shards, lam, cam_active, cap_active,
                     lambda per_shard: _psum_packed(mesh, per_shard),
                     jacobi_scaling=jacobi_scaling, cg_tol=cg_tol,
-                    cg_iters=cg_iters, x0=x0)
+                    cg_iters=cg_iters, x0=x0, fan=mesh)
                 return d_cam, d_cap, Sharded(d_tags), delta_r
 
             return solve_fn
@@ -278,23 +284,27 @@ def make_tag_sharded_hooks(mesh: Mesh, t_per, n_caps, aruco_size,
         def solve_fn(eqs, lam):
             s_c, s_p = cap_scale_vectors(eqs.cap, cam_active, cap_active,
                                          jacobi_scaling)
-            packs, ctxs = [], []
-            for (_, dev), side, grp, ta in zip(shards, eqs.tags, grouped,
-                                               tag_active):
+
+            def eliminate(side, grp, ta, sc, sp, lm):
                 hct, wt_s, htt, g_t = side
                 wvw, wvg, ctx = eliminate_tags_grouped(
-                    hct, wt_s, grp.cap_idx, htt, g_t, s_c.to(dev),
-                    s_p.to(dev), ta, lam.to(dev), jacobi_scaling)
-                packs.append([wvw, wvg])
-                ctxs.append(ctx)
-            wvw, wvg = _psum_packed(mesh, packs)
+                    hct, wt_s, grp.cap_idx, htt, g_t, sc, sp, ta, lm,
+                    jacobi_scaling)
+                return [wvw, wvg], ctx
+
+            out = mesh.map(eliminate, eqs.tags, grouped, tag_active,
+                           mesh.put(s_c), mesh.put(s_p), mesh.put(lam))
+            wvw, wvg = _psum_packed(mesh, [o[0] for o in out])
             delta_r, d_cam, d_cap = reduced_solve(
                 eqs.cap, s_c, s_p, cam_active, cap_active, lam, wvw, wvg)
-            d_tag = Sharded(
-                backsub_tags_sparse(v_inv, hct_s, wt_ss, grp.cap_idx, g_t_s,
-                                    s_t, ta, delta_r.to(grp.cap_idx.device))
-                for (v_inv, hct_s, wt_ss, g_t_s, s_t), grp, ta
-                in zip(ctxs, grouped, tag_active))
+
+            def backsub(ctx, grp, ta, dr):
+                v_inv, hct_s, wt_ss, g_t_s, s_t = ctx
+                return backsub_tags_sparse(v_inv, hct_s, wt_ss, grp.cap_idx,
+                                           g_t_s, s_t, ta, dr)
+
+            d_tag = Sharded(mesh.map(backsub, [o[1] for o in out], grouped,
+                                     tag_active, mesh.put(delta_r)))
             return d_cam, d_cap, d_tag
 
         return solve_fn
@@ -399,12 +409,11 @@ def _numpy(a):
 
 
 def graphed_mesh(mesh: Mesh, graphs: bool = True) -> bool:
-    """Whether the mesh's stages replay CUDA graphs: ``graphs`` and every
-    local shard on one card.  A rule of layout: a CUDA graph records on
-    one device, so the CPU and a mesh that spreads this process's shards
-    over several cards run the same stages eagerly."""
-    return (graphs and mesh.home.type == "cuda"
-            and all(d == mesh.home for d in mesh.devices))
+    """Whether the mesh's stages replay CUDA graphs: ``graphs`` on a CUDA
+    mesh, its shards on one card or spread over several (one graph a
+    stage spans them).  The CPU and ``graphs=False`` run the same stages
+    eagerly."""
+    return graphs and mesh.home.type == "cuda"
 
 
 def _signature(prob: TagShardedProblem, dtype, n_caps: int, *rest) -> tuple:
@@ -514,7 +523,8 @@ def lm_solve_sharded(prob: TagShardedProblem, aruco_size, config: LMConfig,
     graphed = graphed_mesh(mesh, graphs)
 
     def make():
-        return Program(_lm_stages(prob, aruco_size, config, n_caps), graphed)
+        return Program(_lm_stages(prob, aruco_size, config, n_caps), graphed,
+                       mesh=mesh)
 
     if graphed:
         cg = config.linear_solver == "cg"
@@ -551,9 +561,9 @@ def lm_solve_dist(mesh: Mesh, camera, cap_poses, tag_poses, cap_idx,
     the original tag numbering, numpy or tensors); tags and their
     observations are sharded internally, and the results come back in the
     original numbering on the mesh's home device, in the dtype of
-    ``cap_poses``.  The LM replays CUDA graphs on a mesh whose shards
-    share one card (``graphed_mesh``); ``graphs=False`` runs the same
-    stages eagerly, bit for bit."""
+    ``cap_poses``.  The LM replays CUDA graphs on a CUDA mesh
+    (``graphed_mesh``); ``graphs=False`` runs the same stages eagerly,
+    bit for bit."""
     dtype = (cap_poses.dtype if isinstance(cap_poses, torch.Tensor)
              else torch.from_numpy(np.asarray(cap_poses)).dtype)
     n_tags = tag_poses.shape[0]
@@ -590,10 +600,8 @@ def seed_waves_sharded(mesh: Mesh, t_per: int, b_shard: int, camera,
     seed_caps, seed_blocks = tables[:, 0], tables[:, 1]
     anchor_mask = tables[:, 2 + 4 * s:] != 0
     cap_poses = cap_poses.clone()
-    shards = []
-    for g, dev, tp, ti, crn in zip(mesh.shard_ids(), mesh.devices,
-                                   tag_poses, tag_idx, corners):
-        tab = tables.to(dev)
+
+    def prepare(g, tp, ti, crn, tab):
         w_tags, w_rows, w_mask, a_rows, a_mask = (
             tab[:, 2 + k * s:2 + (k + 1) * s] for k in range(5))
         lo = g * b_shard
@@ -601,22 +609,26 @@ def seed_waves_sharded(mesh: Mesh, t_per: int, b_shard: int, camera,
         own_w = (w_mask != 0) & (w_rows >= lo) & (w_rows < lo + b_shard)
         own_a = (a_mask != 0) & (a_rows >= lo) & (a_rows < lo + b_shard)
         loc_a = torch.where(own_a, a_rows - lo, zero)
-        shards.append(dict(
-            dev=dev, tags=torch.cat([tp, tp[:1]]), own_a=own_a[..., None],
+        return dict(
+            tags=torch.cat([tp, tp[:1]]), own_a=own_a[..., None],
             anc_tags=ti[loc_a] - g * t_per,  # (W, S) local ids
             anc_corners=crn[loc_a].reshape(*loc_a.shape, 8),
             init_corners=crn[torch.where(own_w, w_rows - lo, zero)],
             targets=torch.where(own_w, w_tags - g * t_per,
-                                torch.full_like(w_tags, t_per))))
+                                torch.full_like(w_tags, t_per)))
+
+    shards = mesh.map(prepare, list(mesh.shard_ids()), tag_poses, tag_idx,
+                      corners, mesh.put(tables))
+    cameras = mesh.put(camera)
     for w in range(tables.shape[0]):
-        packs = []
-        for sh in shards:
+        def anchors(sh):
             own = sh["own_a"][w]
             poses = sh["tags"].index_select(0, sh["anc_tags"][w])
             crn = sh["anc_corners"][w]
-            packs.append([torch.where(own, poses, torch.zeros_like(poses)),
-                          torch.where(own, crn, torch.zeros_like(crn))])
-        anc_poses, anc_corners = _psum_packed(mesh, packs)
+            return [torch.where(own, poses, torch.zeros_like(poses)),
+                    torch.where(own, crn, torch.zeros_like(crn))]
+
+        anc_poses, anc_corners = _psum_packed(mesh, mesh.map(anchors, shards))
         cap = seed_caps[w:w + 1]
         pose = seed_capture_pose_multi(
             anc_corners.reshape(s, 4, 2), camera, anc_poses, anchor_mask[w],
@@ -624,11 +636,12 @@ def seed_waves_sharded(mesh: Mesh, t_per: int, b_shard: int, camera,
         pose = torch.where(seed_blocks[w] >= 0, pose,
                            cap_poses.index_select(0, cap)[0])
         cap_poses.index_copy_(0, cap, pose[None])
-        for sh in shards:
-            dev = sh["dev"]
+
+        def init_tags(sh, cam, p):
             sh["tags"].index_copy_(0, sh["targets"][w], seed_tag_pose(
-                sh["init_corners"][w], camera.to(dev), pose.to(dev),
-                aruco_size, mode=seed_mode))
+                sh["init_corners"][w], cam, p, aruco_size, mode=seed_mode))
+
+        mesh.map(init_tags, shards, cameras, mesh.put(pose))
     return cap_poses, Sharded(sh["tags"][:t_per] for sh in shards)
 
 
@@ -679,7 +692,7 @@ class DistWaveSolver:
             return {"cap_poses": cap, "tag_poses": tag}
 
         def make():
-            return Program({"seed": seed}, graphed)
+            return Program({"seed": seed}, graphed, mesh=mesh)
 
         if graphed:
             prog = CACHE.get("mesh_seed", mesh.home, _signature(

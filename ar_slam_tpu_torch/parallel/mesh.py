@@ -9,8 +9,11 @@ the shards.  Camera and capture poses are small and stay replicated.
 A ``Mesh`` is the ordered list of this process's shard devices, the axis
 name and the process group (or None for one process).  A device may
 repeat: the CPU tests shard over ``[cpu] * 8`` and one card can hold
-several shards (``[cuda:0] * k``), which run one after another on its
-stream; that is correct and not a speedup.  With a process group every
+several shards (``[cuda:0] * k``).  ``Mesh.map`` runs a function over
+the shards, ``Mesh.put`` copies a replicated value to their cards; inside
+a graphed program's stages each shard's work runs on a stream of its own
+(``programs.Branches``), so one card's shards and the cards run side by
+side, else one after another.  With a process group every
 process holds the same number of shards, and the global shard count is
 that times the world size.
 """
@@ -41,7 +44,7 @@ class Mesh:
     def __init__(self, devices, axis_name: str = BLOCK_AXIS, group=None):
         if not devices:
             raise ValueError("a mesh needs at least one device")
-        self.devices = [torch.device(d) for d in devices]
+        self.devices = [_indexed(torch.device(d)) for d in devices]
         self.axis_name = axis_name
         self.group = group
         self.world = 1
@@ -50,6 +53,29 @@ class Mesh:
             self.world = group.size()
             self.rank = group.rank()
         self.reductions = 0
+        # a graphed program's shard streams while it records its stages
+        # (programs.Branches); None: the shards run on the current streams
+        self.branches = None
+
+    def put(self, x) -> list:
+        """``x`` (a tensor on the home device, or a number) on each local
+        shard's device: one copy a card, on the current streams."""
+        if not isinstance(x, torch.Tensor):
+            return [x] * self.n_local
+        copies: dict = {}
+        for d in self.devices:
+            if d not in copies:
+                copies[d] = x.to(d)
+        return [copies[d] for d in self.devices]
+
+    def map(self, fn, *cols) -> list:
+        """``fn`` over the local shards: call i takes the i-th item of
+        each column, all on shard i's device.  Within a graphed program's
+        stages each call runs on its shard's stream (``branches``), else
+        one after another on the current streams."""
+        if self.branches is None:
+            return [fn(*args) for args in zip(*cols)]
+        return self.branches.map(fn, *cols)
 
     @property
     def home(self) -> torch.device:
@@ -72,6 +98,13 @@ class Mesh:
     def __repr__(self) -> str:
         return (f"Mesh({[str(d) for d in self.devices]}, "
                 f"{self.axis_name!r}, world={self.world})")
+
+
+def _indexed(d: torch.device) -> torch.device:
+    """A CUDA device with its index (``cuda`` is the current card)."""
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
 
 
 def _group():

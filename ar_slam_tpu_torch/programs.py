@@ -42,11 +42,21 @@ the ``torch.cuda.graph`` context manager would make, so another thread
 queued kernels and cached blocks meanwhile.  The cache's lock guards its
 programs, pools and counts; a program's own lock (``Program.lock``)
 serialises the calls of threads that share it.  A capture or replay
-error raises; there is no eager fallback on the card.
+error raises; there is no eager fallback on the card.  A stage that
+reads the host inside its capture raises its own error, and its
+program's key gets new pools (``GraphCache.discard``).
+
+A mesh's program (``Program(..., mesh=)``) records one graph a stage
+over all the mesh's cards, as ``jax.jit`` of a ``shard_map`` compiles
+one executable: each shard's work on a branch stream of its own
+(``Branches``, through ``parallel.Mesh.map``), every other card on a
+stream forked from the capture stream, the copies between cards inside
+the graph, and a memory pool on each card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 
@@ -66,7 +76,8 @@ class GraphCache:
     def __init__(self):
         self._lock = threading.RLock()
         self._programs: dict = {}  # key -> program, least recent first
-        self._pools: dict = {}  # key -> (MemPool, capture stream)
+        self._pools: dict = {}  # key -> card -> (MemPool, stream)
+        self._streams: dict = {}  # key -> (card, slot) -> branch stream
         self._retired: dict = {}  # key -> dropped graphs
         self.kinds: dict = {}  # kind -> {"captures": n, "replays": n}
         self.capture_ms: list = []  # per capture: program, warmup, record
@@ -110,21 +121,46 @@ class GraphCache:
         if prog is None:
             held = [k for k in self._programs if k[:2] == key[:2]]
             for old in held[:max(len(held) + 1 - KEEP[kind], 0)]:
-                del self._programs[old]  # its graphs, then its pool
+                del self._programs[old]  # its graphs, then its pools
                 self._pools.pop(old, None)
+                self._streams.pop(old, None)
             prog = make()
             prog.key, prog.signature = key, signature
         self._programs[key] = prog  # the most recently used last
         return prog
 
     def pool(self, key, device) -> tuple:
-        """The (memory pool, capture stream) of a program's key."""
+        """The (memory pool, stream) of a program's key on ``device``: on
+        its card the capture stream, on another card of its mesh the
+        stream that card's work runs on between its branches."""
+        device = torch.device(device)
         with self._lock:
-            if key not in self._pools:
+            pools = self._pools.setdefault(key, {})
+            if str(device) not in pools:
                 with torch.cuda.device(device):
-                    self._pools[key] = (torch.cuda.MemPool(),
-                                        torch.cuda.Stream(device))
-            return self._pools[key]
+                    pools[str(device)] = (torch.cuda.MemPool(),
+                                          torch.cuda.Stream(device))
+            return pools[str(device)]
+
+    def discard(self, key) -> None:
+        """Forget a program key's pools after a failed capture: its next
+        capture makes new ones."""
+        with self._lock:
+            self._pools.pop(key, None)
+            self._retired.pop(key, None)
+
+    def branch_streams(self, key, plan) -> list:
+        """One stream a shard (``branch_plan``'s (card, slot) pairs),
+        held with the key's pools and reused by its later captures."""
+        with self._lock:
+            held = self._streams.setdefault(key, {})
+            out = []
+            for device, slot in plan:
+                name = (str(device), slot)
+                if name not in held:
+                    held[name] = torch.cuda.Stream(device)
+                out.append(held[name])
+            return out
 
     def _count(self, kind: str, what: str) -> None:
         with self._lock:
@@ -132,28 +168,34 @@ class GraphCache:
                 what] += 1
 
     def stats(self) -> dict:
-        """The counts (also by kind), the programs held (each program's label and its
-        pool's reserved bytes, where it has its own) and the pools'
-        reserved bytes (the allocator's segments of those pools)."""
+        """The counts (also by kind), the programs held (each program's
+        label, its pools' reserved bytes in all and per card) and the
+        pools' reserved bytes (the allocator's segments of those
+        pools)."""
         with self._lock:
-            ids = {tuple(p.id): key for key, (p, _) in self._pools.items()}
+            ids = {tuple(p.id): (key, card)
+                   for key, pools in self._pools.items()
+                   for card, (p, _) in pools.items()}
             per_pool = dict.fromkeys(ids.values(), 0)
             if ids:
                 for s in torch.cuda.memory_snapshot():
-                    key = ids.get(tuple(s.get("segment_pool_id", ())))
-                    if key is not None:
-                        per_pool[key] += s["total_size"]
+                    where = ids.get(tuple(s.get("segment_pool_id", ())))
+                    if where is not None:
+                        per_pool[where] += s["total_size"]
+            held = []
+            for key, p in self._programs.items():
+                cards = {card: n for (k, card), n in per_pool.items()
+                         if k == key}
+                held.append({"program": p.label or key[0], "device": key[1],
+                             "pool_bytes": sum(cards.values()) if cards
+                             else None, "pool_bytes_per_card": cards})
             return {"captures": self.captures, "replays": self.replays,
                     "kinds": {k: dict(c) for k, c in self.kinds.items()},
                     "capture_ms": sum(
                         sum(sum(r.values()) for r in c["warmup"])
                         + c["record"] for c in self.capture_ms),
                     "capture_split_ms": [dict(c) for c in self.capture_ms],
-                    "programs": len(self._programs),
-                    "held": [{"program": p.label or key[0],
-                              "device": key[1],
-                              "pool_bytes": per_pool.get(key)}
-                             for key, p in self._programs.items()],
+                    "programs": len(self._programs), "held": held,
                     "pool_bytes": sum(per_pool.values())}
 
     def clear(self) -> None:
@@ -161,6 +203,7 @@ class GraphCache:
             self._programs.clear()
             self._retired.clear()
             self._pools.clear()
+            self._streams.clear()
             self.kinds = {}
             self.capture_ms = []
 
@@ -181,14 +224,17 @@ def _copy_into(dst, src) -> None:
 
 def _clone(x, device=None):
     """A copy of ``x`` (as ``_copy_into`` takes it) in memory of its own,
-    on ``device`` (default: where each tensor is)."""
+    on ``device`` (default: where each tensor is); the items of a list (a
+    mesh's ``Sharded`` shards) each stay on their own device."""
     if isinstance(x, torch.Tensor):
         if device is None:
             return x.clone(memory_format=torch.contiguous_format)
         return x.to(device, memory_format=torch.contiguous_format, copy=True)
+    if isinstance(x, list):
+        return type(x)(_clone(v) for v in x)
     if isinstance(x, tuple) and hasattr(x, "_fields"):
         return type(x)(*(_clone(v, device) for v in x))
-    if isinstance(x, (tuple, list)):
+    if isinstance(x, tuple):
         return type(x)(_clone(v, device) for v in x)
     return x
 
@@ -203,12 +249,62 @@ def _write(t: dict, out: dict) -> None:
             _copy_into(t[k], v)
 
 
+def _abandon(device: torch.device, pool) -> None:
+    """Undo what a capture whose ``capture_end`` raised (a stage that read
+    the host invalidated it) leaves in the card's allocator: its routing
+    of allocations into the pool and the pool's reference that
+    ``capture_begin`` took (a graph whose capture never ended gives
+    neither back).  The host allocator's routing, which no binding can
+    end, stays: the pool is not captured into again
+    (``GraphCache.discard``)."""
+    torch._C._cuda_endAllocateToPool(device.index, pool.id)
+    torch._C._cuda_releasePool(device.index, pool.id)
+
+
+def branch_plan(devices) -> list:
+    """Each shard's (card, stream slot), in shard order (the home shard
+    first): a card's shards take its slots 0, 1, ... in their order.
+    Needs no card."""
+    taken: dict = {}
+    plan = []
+    for d in map(torch.device, devices):
+        plan.append((d, taken.get(d, 0)))
+        taken[d] = taken.get(d, 0) + 1
+    return plan
+
+
+class Branches:
+    """The streams over which a mesh program's stages fork the work of
+    its shards while it warms up and records: ``map`` runs shard i on its
+    stream ``streams[i]`` (on its card), each forked from its card's
+    current stream when the shards start and joined back to it when they
+    end, so that one card's shards, and the cards, run side by side
+    inside one graph."""
+
+    def __init__(self, streams):
+        self.streams = streams
+
+    def map(self, fn, *cols) -> list:
+        outer = {}
+        for s in self.streams:
+            outer.setdefault(s.device, torch.cuda.current_stream(s.device))
+        for s in self.streams:
+            s.wait_stream(outer[s.device])
+        outs = []
+        for s, args in zip(self.streams, zip(*cols)):
+            with torch.cuda.stream(s):
+                outs.append(fn(*args))
+        for s in self.streams:
+            outer[s.device].wait_stream(s)
+        return outs
+
+
 class Program:
     """A loop's stages over one dict of tensors ``t``, run eagerly or as
     CUDA graphs (``graphed``, held by ``CACHE``; see the module
     docstring).  An entry of ``t`` is a tensor or a (nested) tuple or
     list of them: the mesh's ``Sharded`` state is copied, selected and
-    cloned shard by shard.
+    cloned shard by shard, each shard on its own card.
 
     ``counted`` names the counts the stages keep, as (object, attribute)
     pairs (a kernel wrapper's module and its launch count; the call's
@@ -218,15 +314,26 @@ class Program:
     nothing).  ``pointers`` names (object, attribute) pairs that a stage
     sets to a tensor it made (a kernel's last per-plane rounds): each
     replay sets them to the captured stage's tensors, which the replay
-    has just written."""
+    has just written.
+
+    ``mesh`` (a ``parallel.Mesh``) makes one graph a stage span the
+    mesh's cards: while the stages warm up and record, ``mesh.branches``
+    gives each shard a stream of its own (``Branches``), every other card
+    of the mesh runs on a stream forked from the capture stream at each
+    stage's start and joined to it at its end (so that the copies between
+    cards find both cards' current streams inside the capture), and each
+    card allocates from a memory pool of the program's own.  A replay
+    launches on the home card's current stream, after the other cards'
+    current streams (the inputs' copies), which then wait for it."""
 
     def __init__(self, stages: dict, graphed: bool, counted=(),
-                 pointers=(), label: str = ""):
+                 pointers=(), label: str = "", mesh=None):
         self.stages = stages  # in capture order
         self.graphed = graphed
         self.counted = tuple(counted)
         self.pointers = tuple(pointers)
         self.label = label
+        self.mesh = mesh
         self.lock = threading.Lock()
         self.key = self.signature = None
         self.t: dict = {}
@@ -234,10 +341,20 @@ class Program:
         self.deltas: dict = {}  # per captured stage, one per counted
         self.pointed: dict = {}  # per captured stage: (obj, attr, tensor)
 
+    def _cards(self) -> list:
+        """The program's cards, its own first."""
+        home = torch.device(self.key[1])
+        cards = [home]
+        for d in (self.mesh.devices if self.mesh is not None else ()):
+            if d not in cards:
+                cards.append(d)
+        return cards
+
     def load(self, **inputs) -> None:
         """The call's inputs: copied into the program's own tensors when
-        graphed (made on the program's card and captured at the first
-        call), taken as they are eagerly."""
+        graphed (made at the first call, on the program's card or, a
+        mesh's shards, each on its own, and captured then), taken as they
+        are eagerly."""
         if not self.graphed:
             self.t.update(inputs)
             return
@@ -253,7 +370,14 @@ class Program:
         if not self.graphed:
             self.t.update(self.stages[name](self.t))
             return
+        home, *others = self._cards()
+        for d in others:
+            torch.cuda.current_stream(home).wait_stream(
+                torch.cuda.current_stream(d))
         self.graphs[name].replay()
+        for d in others:
+            torch.cuda.current_stream(d).wait_stream(
+                torch.cuda.current_stream(home))
         with CACHE._lock:
             CACHE._count(self.key[0], "replays")
             for (obj, attr), d in zip(self.counted, self.deltas[name]):
@@ -264,57 +388,113 @@ class Program:
     def _counts(self) -> list:
         return [getattr(obj, attr) for obj, attr in self.counted]
 
+    @contextlib.contextmanager
+    def _streams(self, pools: dict):
+        """The stages' streams: each other card's on it, the capture
+        stream last (the current card then is the program's own), and the
+        mesh's branches."""
+        home, *others = self._cards()
+        with contextlib.ExitStack() as stack:
+            for d in others + [home]:
+                stack.enter_context(torch.cuda.stream(pools[d][1]))
+            if self.mesh is not None:
+                self.mesh.branches = Branches(CACHE.branch_streams(
+                    self.key, branch_plan(self.mesh.devices)))
+            try:
+                yield
+            finally:
+                if self.mesh is not None:
+                    self.mesh.branches = None
+
+    def _stage(self, fn, t: dict, pools: dict, store) -> None:
+        """One stage's work: the other cards' streams forked from the
+        capture stream before it and joined to it after its outputs are
+        stored (``store(t, out)``)."""
+        home, *others = self._cards()
+        for d in others:
+            pools[d][1].wait_stream(pools[home][1])
+        store(t, fn(t))
+        for d in others:
+            pools[home][1].wait_stream(pools[d][1])
+
     def _capture(self) -> None:
-        dev = torch.device(self.key[1])
+        cards = self._cards()
+        home = cards[0]
         counted = self._counts()
-        pool, stream = CACHE.pool(self.key, dev)
-        # the inputs were copied in on the current stream; the replays run
-        # there too, after the capture
-        stream.wait_stream(torch.cuda.current_stream(dev))
+        pools = {d: CACHE.pool(self.key, d) for d in cards}
+        pool, stream = pools[home]
+        # the inputs were copied in on the cards' current streams; the
+        # replays run there too, after the capture
+        for d in cards:
+            stream.wait_stream(torch.cuda.current_stream(d))
         warmup = []
-        # the warm-up rounds allocate from the program's pool too, so the
+        # the warm-up rounds allocate from the program's pools too, so the
         # capture reuses their freed blocks: a capture then needs no memory
         # beyond what the warm-ups took, outside the capture, where the
         # allocator may still free cached blocks to make room
-        with torch.cuda.stream(stream), torch.cuda.use_mem_pool(
-                pool, stream.device):
+        with self._streams(pools), contextlib.ExitStack() as routed:
+            for d in cards:
+                routed.enter_context(torch.cuda.use_mem_pool(pools[d][0], d))
             for _ in range(WARMUP_ROUNDS):
                 scratch, ms = dict(self.t), {}
                 for name, fn in self.stages.items():
                     t0 = time.perf_counter()
-                    scratch.update(fn(scratch))
+                    self._stage(fn, scratch, pools, dict.update)
                     ms[name] = (time.perf_counter() - t0) * 1e3
                 warmup.append(ms)
                 del scratch
         t0 = time.perf_counter()
-        with torch.cuda.stream(stream):
-            for name, fn in self.stages.items():
-                g = torch.cuda.CUDAGraph()
-                before = self._counts()
-                pointed = [getattr(obj, attr) for obj, attr in self.pointers]
-                g.capture_begin(pool=pool.id,
-                                capture_error_mode="thread_local")
-                try:
-                    _write(self.t, fn(self.t))
-                finally:
-                    g.capture_end()
-                self.graphs[name] = g
-                self.deltas[name] = [a - b for a, b in
-                                     zip(self._counts(), before)]
-                self.pointed[name] = [
-                    (obj, attr, getattr(obj, attr))
-                    for (obj, attr), old in zip(self.pointers, pointed)
-                    if getattr(obj, attr) is not old]
+        try:
+            with self._streams(pools), contextlib.ExitStack() as routed:
+                # the capture stream's card allocates from its pool through
+                # capture_begin, the mesh's other cards from theirs
+                for d in cards[1:]:
+                    routed.enter_context(
+                        torch.cuda.use_mem_pool(pools[d][0], d))
+                for name, fn in self.stages.items():
+                    self._record(name, fn, pools)
+        except BaseException:
+            self.graphs, self.deltas, self.pointed = {}, {}, {}
+            raise
+        finally:
+            for (obj, attr), n in zip(self.counted, counted):
+                setattr(obj, attr, n)
         record_ms = (time.perf_counter() - t0) * 1e3
-        for (obj, attr), n in zip(self.counted, counted):
-            setattr(obj, attr, n)
-        torch.cuda.current_stream(dev).wait_stream(stream)
+        for d in cards:
+            torch.cuda.current_stream(d).wait_stream(stream)
         with CACHE._lock:
             CACHE._retired.pop(self.key, None)
             CACHE._count(self.key[0], "captures")
             CACHE.capture_ms.append({"program": self.key[0],
                                      "label": self.label, "warmup": warmup,
                                      "record": record_ms})
+
+    def _record(self, name: str, fn, pools: dict) -> None:
+        """Capture one stage into its graph.  A stage that fails inside
+        the capture (a host read) ends the capture and raises its own
+        error."""
+        g = torch.cuda.CUDAGraph()
+        before = self._counts()
+        pointed = [getattr(obj, attr) for obj, attr in self.pointers]
+        g.capture_begin(pool=pools[torch.device(self.key[1])][0].id,
+                        capture_error_mode="thread_local")
+        try:
+            self._stage(fn, self.t, pools, _write)
+        except BaseException:
+            try:
+                g.capture_end()
+            except RuntimeError:
+                _abandon(torch.device(self.key[1]),
+                         pools[torch.device(self.key[1])][0])
+                CACHE.discard(self.key)
+            raise
+        g.capture_end()
+        self.graphs[name] = g
+        self.deltas[name] = [a - b for a, b in zip(self._counts(), before)]
+        self.pointed[name] = [
+            (obj, attr, getattr(obj, attr))
+            for (obj, attr), old in zip(self.pointers, pointed)
+            if getattr(obj, attr) is not old]
 
     def out(self, x):
         """A result that outlives the next replay: a copy when graphed."""

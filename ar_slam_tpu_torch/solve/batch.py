@@ -17,24 +17,25 @@ optimizing wave per attachment, until none is left that can be.
 With ``linear_solver="cg"`` every LM runs the implicit-Schur CG on the
 row-split slot packing, its row budgets sized from the whole store.  With
 ``minimizer_progress_to_stdout`` the joint LM of each flush runs one
-iteration per call, eagerly, and prints a ceres-style line per iteration.
+iteration per call and prints a ceres-style line per iteration.
 
 A flush uploads its seed tables in one copy (``pack_waves``: the JAX
 package's (W, S) slot tables) and its activity masks in another
 (``_WaveRunner._masks``); ``seed_waves`` applies the tables with no host
 read.  On a CUDA device the seeds and every single-device LM (the waves,
-the warmups, the polish) replay CUDA graphs (solve/graphs.py), one
-capture of each serving every flush of a runner; ``graphs=False`` runs
-the same stages eagerly, bit for bit the same.
+the warmups, the polish, the host-stepped progress calls, the flat hooks
+of an ``assemble_fn``) replay CUDA graphs (solve/graphs.py), one capture
+of each serving every flush of a runner; ``graphs=False`` runs the same
+stages eagerly, bit for bit the same.
 
 With a ``mesh`` (or ``config.dist.num_devices > 1``) the tags are sharded
 over it and every LM runs the tag-sharded distributed solve
 (parallel/dist_lm.py) on the grouped hooks, and a flush's seeds its one
 ``seed`` stage over the same padded tables in the shards' numbering; the
-waves and warmups are the single-device path's.  On a mesh whose shards
-share one card both replay CUDA graphs (``dist_lm.graphed_mesh``), one
-capture of each serving every flush; ``graphs=False``, the CPU and a
-mesh spread over several cards run the same stages eagerly.  Progress
+waves and warmups are the single-device path's.  On a CUDA mesh, its
+shards on one card or spread over several, both replay CUDA graphs
+(``dist_lm.graphed_mesh``), one capture of each serving every flush;
+``graphs=False`` and the CPU run the same stages eagerly.  Progress
 printing is single-device only, as in the reference.
 """
 
@@ -275,7 +276,7 @@ class _WaveRunner:
         return list(torch.split(flat, [a.size for a in arrays]))
 
     def _lm(self, cam_active, cap_active, tag_active, enabled, budget,
-            block_mask=None, lam0=None, nu0=None, graphs=None):
+            block_mask=None, lam0=None, nu0=None):
         """One LM over the active sets: numpy masks on the mesh path, else
         device masks (``block_mask`` the active blocks' one, ``cam_active``
         a bool tensor) from one ``_masks`` upload a flush."""
@@ -297,7 +298,7 @@ class _WaveRunner:
             iter_budget=budget, obs_per_tag=self.obs_per_tag,
             obs_per_cap=self.obs_per_cap, row_slots=self.row_slots,
             tag_rows=self.tag_rows, cap_rows=self.cap_rows, lam0=lam0,
-            nu0=nu0, graphs=self.graphs if graphs is None else graphs)
+            nu0=nu0, graphs=self.graphs)
         return info
 
     def polish(self, budget: int):
@@ -386,8 +387,10 @@ class _WaveRunner:
         """One LM iteration per call, printing ceres-style progress lines
         (≙ minimizer_progress_to_stdout, ar_slam_util.cpp:1012).  lam and
         nu carry over through lam0 / nu0, so the damping schedule is the
-        one-call solve's.  ``budget`` is the wave's iteration budget.  The
-        reference's own host-stepped mode: eager, not graphed."""
+        one-call solve's.  ``budget`` is the wave's iteration budget.  On
+        the card each call is a load and replays of the LM program (as
+        the JAX package jits each call), the costs bit for bit the eager
+        stepping's."""
         lam, nu = self.config.initial_lambda, 2.0
         prev_cost = None
         t_start = time.time()
@@ -397,7 +400,7 @@ class _WaveRunner:
         for it in range(min(budget, self.config.max_iterations)):
             t0 = time.time()
             info = self._lm(cam_active, cap_active, tag_active, True, 1,
-                            block_mask, lam0=lam, nu0=nu, graphs=False)
+                            block_mask, lam0=lam, nu0=nu)
             cost = float(info["cost"])
             lam, nu = float(info["lambda"]), float(info["nu"])
             dcost = 0.0 if prev_cost is None else prev_cost - cost
@@ -474,10 +477,10 @@ def solve(store: MapStore, config=None, dtype=None, device=None,
     ``assemble_fn`` overrides the normal-equation assembly (the flat
     hooks then run; see lm.lm_solve; the mesh path ignores it).  With
     ``mesh`` (or config.dist.num_devices > 1) each LM runs tag-sharded
-    over it.  On a CUDA device the grouped LM and the seeds replay CUDA
-    graphs (solve/graphs.py; on a mesh, where its shards share one card:
-    parallel/dist_lm.py); ``graphs=False`` runs the eager loop instead,
-    bit for bit the same.  Returns {"waves", "cost", "rmse"}."""
+    over it.  On a CUDA device the LM and the seeds replay CUDA graphs
+    (solve/graphs.py; on a mesh parallel/dist_lm.py); ``graphs=False``
+    runs the eager loop instead, bit for bit the same.  Returns {"waves",
+    "cost", "rmse"}."""
     config, dtype, device, mesh = _resolve(config, dtype, device, mesh)
     if not store.captures:
         return {"waves": 0}

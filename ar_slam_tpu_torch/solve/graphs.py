@@ -17,8 +17,11 @@ use.
 
 - seeds (``seed_waves_graphed``): one stage ``seed``, a flush's padded
   seed tables (solve/batch.py ``seed_waves``) applied in one replay.
-- LM (``lm_solve_graphed``): stages ``setup`` (the regroup of the block
-  table, the first linearization, the gradient test, the initial state),
+- LM (``lm_solve_graphed``), over the grouped hooks or the flat ones
+  (``lm.flat_solver``, an ``assemble_fn`` among them, keyed by it as
+  JAX's ``static_argnames`` key it): stages ``setup`` (the regroup of the
+  block table or the flat sums' plans, the first linearization, the
+  gradient test, the initial state),
   ``step`` (the damped solve, the proposal, its quality and the tests),
   ``accept`` (relinearize at an accepted proposal, the gradient test, the
   state update) and ``reject`` (the state update of any other step).
@@ -34,10 +37,11 @@ use.
   then ``iterate`` once an iteration, each replay followed by one flag
   read (any query active).
 
-- the mesh (parallel/dist_lm.py, on shards of one card): the kinds
-  ``"mesh_lm"`` (the tag-sharded LM's stages, with the fused quality,
-  through ``lm_iterate``) and ``"mesh_seed"``; a program counts the
-  packed reductions its replays run on the mesh (``Program.counted``).
+- the mesh (parallel/dist_lm.py, its shards on one card or several):
+  the kinds ``"mesh_lm"`` (the tag-sharded LM's stages, with the fused
+  quality, through ``lm_iterate``) and ``"mesh_seed"``; a program counts
+  the packed reductions its replays run on the mesh
+  (``Program.counted``), and one graph a stage spans the mesh's cards.
 
 Each kind keeps one program per card (``programs.CACHE``): a solve's
 waves, its warmups and its polish share one LM capture, and ``serve``'s
@@ -53,8 +57,9 @@ import torch
 
 from ar_slam_tpu_torch.programs import CACHE, Program, _clone  # noqa: F401
 from ar_slam_tpu_torch.solve.lm import (LMConfig, LMState, _grad_inf_norm,
-                                        grouped_solver, lm_accept, lm_init,
-                                        lm_reject, lm_step)
+                                        flat_solver, grouped_solver,
+                                        lm_accept, lm_init, lm_reject,
+                                        lm_step)
 from ar_slam_tpu_torch.solve.batch import seed_waves
 from ar_slam_tpu_torch.solve.localize import localize_init, localize_iteration
 
@@ -110,18 +115,22 @@ def lm_iterate(prog: Program, config: LMConfig, iter_budget=None) -> int:
 
 
 def _lm_stages(aruco_size: float, config: LMConfig, n_caps: int, n_tags: int,
-               bounds: dict) -> dict:
+               bounds: dict | None, assemble_fn=None) -> dict:
     """The LM loop's stages over the tensors ``setup`` makes from the
-    inputs; the hooks built by ``setup`` (its regroup tables) serve the
-    later stages."""
+    inputs: the grouped hooks at the slot ``bounds``, or with ``bounds``
+    None the flat hooks (``lm.flat_solver``, with ``assemble_fn``); the
+    hooks built by ``setup`` (its regroup tables, the flat sums' plans)
+    serve the later stages."""
     hooks = {}
 
     def setup(t):
-        lin_fn, quality_fn, solve_fn, sol = grouped_solver(
+        make = grouped_solver if bounds is not None else flat_solver
+        lin_fn, quality_fn, solve_fn, sol = make(
             t["cap_idx"], t["tag_idx"], t["corners"], t["block_mask"],
             t["cam_active"], t["cap_active"], t["tag_active"],
             aruco_size=aruco_size, config=config, n_caps=n_caps,
-            n_tags=n_tags, **bounds)
+            n_tags=n_tags, **(bounds if bounds is not None
+                              else dict(assemble_fn=assemble_fn)))
         hooks.update(lin=lin_fn, quality=quality_fn, solve=solve_fn)
         state, eqs = lm_init(t["in_camera"], t["in_cap_poses"],
                              t["in_tag_poses"], t["cam_active"],
@@ -149,32 +158,42 @@ def _lm_stages(aruco_size: float, config: LMConfig, n_caps: int, n_tags: int,
 
 def lm_solve_graphed(camera, cap_poses, tag_poses, cap_idx, tag_idx, corners,
                      block_mask, cam_active, cap_active, tag_active, *,
-                     aruco_size: float, config: LMConfig, obs_per_tag: int,
-                     obs_per_cap: int, row_slots=None, tag_rows=None,
-                     cap_rows=None, enabled=True, iter_budget=None, lam0=None,
-                     nu0=None, graphed: bool = True):
-    """``lm_solve``'s grouped LM through the split stages: replayed CUDA
-    graphs (``graphed``, a CUDA device), or the same stages run eagerly.
-    Bounds as ``lm.grouped_bounds`` gives them.  Returns (camera,
-    cap_poses, tag_poses, info) as ``lm_core`` does, bit for bit."""
+                     aruco_size: float, config: LMConfig,
+                     obs_per_tag: int | None = None,
+                     obs_per_cap: int | None = None, row_slots=None,
+                     tag_rows=None, cap_rows=None, assemble_fn=None,
+                     enabled=True, iter_budget=None, lam0=None, nu0=None,
+                     graphed: bool = True):
+    """``lm_solve``'s LM through the split stages: replayed CUDA graphs
+    (``graphed``, a CUDA device), or the same stages run eagerly.  The
+    grouped hooks at the bounds ``lm.grouped_bounds`` gives; without
+    ``obs_per_tag``, or with an ``assemble_fn``, the flat hooks.  Returns
+    (camera, cap_poses, tag_poses, info) as ``lm_core`` does, bit for
+    bit."""
     dev = cap_poses.device
     if graphed and dev.type != "cuda":
         raise ValueError(f"CUDA graphs need a CUDA device, not {dev}")
     n_caps, n_tags = cap_poses.shape[0], tag_poses.shape[0]
-    bounds = dict(obs_per_tag=obs_per_tag, obs_per_cap=obs_per_cap,
-                  row_slots=row_slots, tag_rows=tag_rows, cap_rows=cap_rows)
+    bounds = None
+    if obs_per_tag is not None and assemble_fn is None:
+        bounds = dict(obs_per_tag=obs_per_tag, obs_per_cap=obs_per_cap,
+                      row_slots=row_slots, tag_rows=tag_rows,
+                      cap_rows=cap_rows)
     if not isinstance(cam_active, torch.Tensor):
         cam_active = torch.full((), bool(cam_active), dtype=torch.bool,
                                 device=dev)
 
     def make():
-        return Program(_lm_stages(aruco_size, config, n_caps, n_tags, bounds),
-                       graphed)
+        return Program(_lm_stages(aruco_size, config, n_caps, n_tags, bounds,
+                                  assemble_fn), graphed)
 
     if graphed:
+        # the flat hooks keyed by their assemble_fn, as JAX's static_argnames
+        hooks = ("flat", assemble_fn) if bounds is None else tuple(
+            bounds.items())
         prog = CACHE.get("lm", dev, (cap_poses.dtype, n_caps, n_tags,
-                                     cap_idx.shape[0], tuple(bounds.items()),
-                                     config, float(aruco_size)), make)
+                                     cap_idx.shape[0], hooks, config,
+                                     float(aruco_size)), make)
     else:
         prog = make()
     prog.load(in_camera=camera, in_cap_poses=cap_poses,

@@ -16,7 +16,8 @@ The assembled normal equations are carried between iterations and rebuilt
 only after an accepted step; step quality comes from quad forms on them.
 ``lm_solve`` runs the tag-grouped hooks when given ``obs_per_tag`` (with
 the dense Schur solve, or implicit-Schur CG for ``linear_solver="cg"``)
-and the flat block hooks otherwise, as the reference does.
+and the flat block hooks otherwise, as the reference does; both replay
+CUDA graphs on the card.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import torch
 
 from ar_slam_tpu_torch.solve.residuals import linearize, residuals_and_rho
 from ar_slam_tpu_torch.solve.schur import (assemble, assemble_grouped,
-                                           group_blocks_by_tag,
+                                           flat_plans, group_blocks_by_tag,
                                            group_blocks_by_tag_rows,
                                            quad_form_flat, quad_form_grouped,
                                            schur_solve, schur_solve_grouped,
@@ -102,13 +103,17 @@ def _grad_inf_norm(eqs, cam_active, cap_active, tag_active):
 def make_block_hooks(cap_idx, tag_idx, corners, block_mask, aruco_size,
                      n_caps, n_tags, distortion=False, loss="trivial",
                      loss_scale=1.0):
-    """Hooks over the flat (padded) block table: (lin_fn, quality_fn)."""
+    """Hooks over the flat (padded) block table: (lin_fn, quality_fn).
+    The assembly's fixed-order sums (``schur.flat_plans``) are planned
+    once here."""
+    plans = flat_plans(cap_idx, tag_idx, n_caps, n_tags, block_mask)
 
     def lin_fn(camera, cap_poses, tag_poses):
         r, jc, jp, jt, rho = linearize(
             camera, cap_poses, tag_poses, cap_idx, tag_idx, corners,
             block_mask, aruco_size, distortion, loss, loss_scale)
-        eqs = assemble(r, jc, jp, jt, cap_idx, tag_idx, n_caps, n_tags)
+        eqs = assemble(r, jc, jp, jt, cap_idx, tag_idx, n_caps, n_tags,
+                       plans=plans)
         return eqs, 0.5 * torch.sum(rho)
 
     def quality_fn(eqs, new_camera, new_caps, new_tags, d_cam, d_cap, d_tag):
@@ -517,6 +522,45 @@ def grouped_solver(cap_idx, tag_idx, corners, block_mask, cam_active,
     return lin_fn, quality_fn, solve_fn, sol0
 
 
+def flat_solver(cap_idx, tag_idx, corners, block_mask, cam_active,
+                cap_active, tag_active, *, aruco_size: float,
+                config: LMConfig, n_caps: int, n_tags: int,
+                assemble_fn=None):
+    """The flat block hooks and the flat dense Schur solve: (lin_fn,
+    quality_fn, solve_fn, None).  ``assemble_fn(r, jc, jp, jt, cap_idx,
+    tag_idx, n_caps, n_tags) -> NormalEqs`` replaces the assembly; inside
+    a CUDA graph's capture it must not read the host (as JAX's jit
+    requires it to trace), and an error it raises there names it."""
+    lin_fn, quality_fn = make_block_hooks(
+        cap_idx, tag_idx, corners, block_mask, aruco_size, n_caps, n_tags,
+        distortion=config.enable_distortion, loss=config.loss,
+        loss_scale=config.loss_scale)
+    if assemble_fn is not None:
+        def lin_fn(camera, cap_poses, tag_poses):  # noqa: F811
+            r, jc, jp, jt, rho = linearize(
+                camera, cap_poses, tag_poses, cap_idx, tag_idx, corners,
+                block_mask, aruco_size, config.enable_distortion,
+                config.loss, config.loss_scale)
+            try:
+                eqs = assemble_fn(r, jc, jp, jt, cap_idx, tag_idx, n_caps,
+                                  n_tags)
+            except RuntimeError as e:
+                if r.is_cuda and torch.cuda.is_current_stream_capturing():
+                    name = getattr(assemble_fn, "__qualname__", assemble_fn)
+                    raise RuntimeError(
+                        f"assemble_fn {name!r} cannot be captured into a "
+                        "CUDA graph: it reads the host or synchronises the "
+                        "card (graphs=False runs it eagerly)") from e
+                raise
+            return eqs, 0.5 * torch.sum(rho)
+
+    def solve_fn(eqs, lam):
+        return schur_solve(eqs, lam, cam_active, cap_active, tag_active,
+                           jacobi_scaling=config.jacobi_scaling)
+
+    return lin_fn, quality_fn, solve_fn, None
+
+
 def lm_solve(camera, cap_poses, tag_poses, cap_idx, tag_idx, corners,
              block_mask, cam_active, cap_active, tag_active, *,
              aruco_size: float, config: LMConfig = LMConfig(),
@@ -535,51 +579,39 @@ def lm_solve(camera, cap_poses, tag_poses, cap_idx, tag_idx, corners,
     obs_per_tag: safe but wasteful).  ``row_slots`` / ``tag_rows`` /
     ``cap_rows`` switch the CG solve to the row-split packing (callers
     size tag_rows >= sum_t ceil(obs_t / row_slots), cap_rows likewise);
-    the dense solve ignores them.  On a CUDA device the grouped LM replays
-    CUDA graphs (solve/graphs.py), bit for bit the eager loop
-    (``lm_core``), which ``graphs=False`` runs instead.
+    the dense solve ignores them.
 
     Without ``obs_per_tag``, or with ``assemble_fn(r, jc, jp, jt, cap_idx,
     tag_idx, n_caps, n_tags) -> NormalEqs`` overriding the assembly, the
-    flat block hooks and the flat dense Schur solve run, eagerly.  ``lam0``
-    / ``nu0`` resume the damping schedule (host-stepped progress
+    flat block hooks and the flat dense Schur solve run (``flat_solver``).
+    ``lam0`` / ``nu0`` resume the damping schedule (host-stepped progress
     printing).
+
+    On a CUDA device either LM replays CUDA graphs (solve/graphs.py), bit
+    for bit the eager loop (``lm_core``), which ``graphs=False`` and the
+    CPU run instead.
     """
     n_caps = cap_poses.shape[0]
     n_tags = tag_poses.shape[0]
-    if obs_per_tag is not None and assemble_fn is None:
-        bounds = grouped_bounds(n_tags, config, obs_per_tag, obs_per_cap,
-                                row_slots, tag_rows, cap_rows)
-        if graphs and cap_poses.device.type == "cuda":
-            from ar_slam_tpu_torch.solve.graphs import lm_solve_graphed
+    flat = obs_per_tag is None or assemble_fn is not None
+    bounds = {} if flat else grouped_bounds(
+        n_tags, config, obs_per_tag, obs_per_cap, row_slots, tag_rows,
+        cap_rows)
+    if graphs and cap_poses.device.type == "cuda":
+        from ar_slam_tpu_torch.solve.graphs import lm_solve_graphed
 
-            return lm_solve_graphed(
-                camera, cap_poses, tag_poses, cap_idx, tag_idx, corners,
-                block_mask, cam_active, cap_active, tag_active,
-                aruco_size=aruco_size, config=config, enabled=enabled,
-                iter_budget=iter_budget, lam0=lam0, nu0=nu0, **bounds)
-        lin_fn, quality_fn, solve_fn, sol0 = grouped_solver(
-            cap_idx, tag_idx, corners, block_mask, cam_active, cap_active,
-            tag_active, aruco_size=aruco_size, config=config, n_caps=n_caps,
-            n_tags=n_tags, **bounds)
-        return lm_core(camera, cap_poses, tag_poses, cam_active, cap_active,
-                       tag_active, lin_fn, quality_fn, config,
-                       enabled=enabled, solve_fn=solve_fn,
-                       iter_budget=iter_budget, solver_state0=sol0,
-                       lam0=lam0, nu0=nu0)
-    lin_fn, quality_fn = make_block_hooks(
-        cap_idx, tag_idx, corners, block_mask, aruco_size, n_caps, n_tags,
-        distortion=config.enable_distortion, loss=config.loss,
-        loss_scale=config.loss_scale)
-    if assemble_fn is not None:
-        def lin_fn(camera, cap_poses, tag_poses):  # noqa: F811
-            r, jc, jp, jt, rho = linearize(
-                camera, cap_poses, tag_poses, cap_idx, tag_idx, corners,
-                block_mask, aruco_size, config.enable_distortion,
-                config.loss, config.loss_scale)
-            eqs = assemble_fn(r, jc, jp, jt, cap_idx, tag_idx, n_caps, n_tags)
-            return eqs, 0.5 * torch.sum(rho)
-
+        return lm_solve_graphed(
+            camera, cap_poses, tag_poses, cap_idx, tag_idx, corners,
+            block_mask, cam_active, cap_active, tag_active,
+            aruco_size=aruco_size, config=config, enabled=enabled,
+            iter_budget=iter_budget, lam0=lam0, nu0=nu0,
+            assemble_fn=assemble_fn, **bounds)
+    make = flat_solver if flat else grouped_solver
+    lin_fn, quality_fn, solve_fn, sol0 = make(
+        cap_idx, tag_idx, corners, block_mask, cam_active, cap_active,
+        tag_active, aruco_size=aruco_size, config=config, n_caps=n_caps,
+        n_tags=n_tags, **(dict(assemble_fn=assemble_fn) if flat else bounds))
     return lm_core(camera, cap_poses, tag_poses, cam_active, cap_active,
                    tag_active, lin_fn, quality_fn, config, enabled=enabled,
-                   iter_budget=iter_budget, lam0=lam0, nu0=nu0)
+                   solve_fn=solve_fn, iter_budget=iter_budget,
+                   solver_state0=sol0, lam0=lam0, nu0=nu0)

@@ -20,7 +20,9 @@ Three solvers share the scaling and damping conventions:
   (the tag-sharded distributed solve, parallel/dist_lm.py).
 - flat (``assemble`` / ``schur_solve``): segment sums over the block
   table and a dense (6C, 6T) coupling; for ``lm_solve`` without
-  observation bounds and custom ``assemble_fn`` hooks.
+  observation bounds and custom ``assemble_fn`` hooks.  Its sums run in
+  an order that the indices fix (``segment_plan``: a stable sort, then a
+  pairwise tree within each key), so they too repeat bit for bit.
 """
 
 from __future__ import annotations
@@ -114,43 +116,136 @@ def _outer_rsum(a, b):
     return (a[:, :, :, None] * b[:, :, None, :]).sum(dim=1)
 
 
-def _segment_sum(x, idx, n: int):
-    """sum of the rows of ``x`` per index into (n, ...)."""
-    return x.new_zeros((n,) + x.shape[1:]).index_add_(0, idx, x)
+class SegmentSum(NamedTuple):
+    """A sum of table rows into ``n`` keys whose order is fixed by the
+    indices alone (``segment_plan``): the rows sorted stably by (key,
+    minor key), then a pairwise tree within each key's run, pass p adding
+    row i + 2^p into row i where ``steps[p][i]``; ``start`` is each key's
+    first sorted row and ``has`` whether the key has one.  Unlike
+    ``index_add_``, whose atomics reorder a sum from run to run on CUDA,
+    it repeats bit for bit, and rows fed in another order give the same
+    bits wherever each key's (minor key) rows are distinct."""
+
+    order: torch.Tensor  # (B,) rows in (key, minor) order
+    steps: tuple  # per pass: (B - 2^p,) bool
+    start: torch.Tensor  # (n,) int64
+    has: torch.Tensor  # (n,) bool
 
 
-def assemble_cap_side(r, jc, jp, cap_idx, n_caps) -> CapEqs:
-    """Camera/capture blocks of J^T J and J^T r from a flat block table."""
-    hcc = _outer_rsum(jc, jc).sum(dim=0)
-    hcp = _segment_sum(_outer_rsum(jc, jp), cap_idx, n_caps)
-    hpp = _segment_sum(_outer_rsum(jp, jp), cap_idx, n_caps)
-    g_c = (jc * r[:, :, None]).sum(dim=(0, 1))
-    g_p = _segment_sum((jp * r[:, :, None]).sum(dim=1), cap_idx, n_caps)
-    return CapEqs(hcc, hcp, hpp, g_c, g_p)
+def segment_plan(idx, n: int, minor=None, n_minor: int = 1) -> SegmentSum:
+    """The fixed-order sum of rows indexed by ``idx`` (B,) into ``n``
+    keys, ordered within a key by ``minor`` (B,) in [0, n_minor).  Its
+    shape is static (log2 B passes); it reads nothing back to the host."""
+    b = idx.shape[0]
+    dev = idx.device
+    key = idx.to(torch.int64)
+    sort_key = key if minor is None else key * n_minor + minor.to(torch.int64)
+    order = torch.sort(sort_key, stable=True).indices
+    sk = key[order]
+    pos = torch.arange(b, device=dev)
+    is_start = torch.cat([torch.ones(min(b, 1), dtype=torch.bool,
+                                     device=dev), sk[1:] != sk[:-1]])
+    rank = pos - torch.cummax(torch.where(is_start, pos,
+                                          torch.full_like(pos, -1)), 0).values
+    steps, stride = [], 1
+    while stride < b:
+        steps.append((rank[:-stride] % (2 * stride) == 0)
+                     & (sk[stride:] == sk[:-stride]))
+        stride *= 2
+    keys = torch.arange(n, device=dev)
+    start = torch.searchsorted(sk, keys).clamp(max=max(b - 1, 0))
+    has = sk[start] == keys if b else torch.zeros(n, dtype=torch.bool,
+                                                  device=dev)
+    return SegmentSum(order, tuple(steps), start, has)
 
 
-def assemble_tag_side(r, jc, jp, jt, cap_idx, tag_idx, n_caps, n_tags):
+def segment_sum(x, plan: SegmentSum):
+    """Sum the rows of ``x`` (B, ...) per key: (n, ...), in the plan's
+    fixed order."""
+    v = x[plan.order]
+    stride = 1
+    for step in plan.steps:
+        m = step.reshape((-1,) + (1,) * (v.ndim - 1))
+        v[:-stride] += torch.where(m, v[stride:], v.new_zeros(()))
+        stride *= 2
+    out = v[plan.start]
+    return torch.where(plan.has.reshape((-1,) + (1,) * (v.ndim - 1)), out,
+                       torch.zeros_like(out))
+
+
+class FlatPlans(NamedTuple):
+    """The flat assembly's fixed-order sums over one block table: by
+    capture (tags within), by tag (captures within) and by (capture,
+    tag) pair."""
+
+    cap: SegmentSum
+    tag: SegmentSum
+    pair: SegmentSum
+
+
+def flat_plans(cap_idx, tag_idx, n_caps: int, n_tags: int,
+               block_mask=None) -> FlatPlans:
+    """``assemble``'s sums for a block table, built once a solve.  With
+    ``block_mask`` the masked blocks (zero rows) sort last and join no
+    key, so that each sum depends only on the set of real blocks, not on
+    their order in the table."""
+    cap_idx = cap_idx.to(torch.int64)
+    tag_idx = tag_idx.to(torch.int64)
+    if block_mask is not None:
+        cap_idx = cap_idx.masked_fill(~block_mask, n_caps)
+        tag_idx = tag_idx.masked_fill(~block_mask, n_tags)
+    return FlatPlans(
+        segment_plan(cap_idx, n_caps, tag_idx, n_tags + 1),
+        segment_plan(tag_idx, n_tags, cap_idx, n_caps + 1),
+        segment_plan(cap_idx * n_tags + tag_idx, n_caps * n_tags))
+
+
+def assemble_cap_side(r, jc, jp, cap_idx, n_caps,
+                      plan: SegmentSum | None = None) -> CapEqs:
+    """Camera/capture blocks of J^T J and J^T r from a flat block table;
+    the capture sums in ``plan``'s fixed order (by default built here,
+    the blocks of a capture taken in block order)."""
+    if plan is None:
+        plan = segment_plan(cap_idx, n_caps)
+    b = r.shape[0]
+    per = segment_sum(torch.cat([
+        _outer_rsum(jc, jp).reshape(b, 18), _outer_rsum(jp, jp).reshape(b, 36),
+        (jp * r[:, :, None]).sum(dim=1)], dim=1), plan)
+    # the camera's sums over every block, taken in the plan's order too
+    cam = torch.cat([_outer_rsum(jc, jc).reshape(b, 9),
+                     (jc * r[:, :, None]).sum(dim=1)], dim=1)
+    cam = cam[plan.order].sum(dim=0)
+    return CapEqs(cam[:9].reshape(3, 3), per[:, :18].reshape(-1, 3, 6),
+                  per[:, 18:54].reshape(-1, 6, 6), cam[9:], per[:, 54:])
+
+
+def assemble_tag_side(r, jc, jp, jt, cap_idx, tag_idx, n_caps, n_tags,
+                      plans: FlatPlans | None = None):
     """Tag-indexed blocks (hct, hpt, htt, g_t) from a flat block table;
-    each (capture, tag) pair is one block, so the coupling is a plain
-    scatter-add into the flat (6C, 6T) matrix."""
-    hct = _segment_sum(_outer_rsum(jc, jt), tag_idx, n_tags)
-    hpt_b = _outer_rsum(jp, jt)  # (B, 6, 6)
-    six = torch.arange(6, device=r.device)
-    rows = cap_idx.to(torch.int64)[:, None, None] * 6 + six[None, :, None]
-    cols = tag_idx.to(torch.int64)[:, None, None] * 6 + six[None, None, :]
-    flat = (rows * (6 * n_tags) + cols).expand(hpt_b.shape).reshape(-1)
-    hpt = hpt_b.new_zeros(36 * n_caps * n_tags).index_add_(
-        0, flat, hpt_b.reshape(-1)).reshape(6 * n_caps, 6 * n_tags)
-    htt = _segment_sum(_outer_rsum(jt, jt), tag_idx, n_tags)
-    g_t = _segment_sum((jt * r[:, :, None]).sum(dim=1), tag_idx, n_tags)
-    return hct, hpt, htt, g_t
+    each (capture, tag) pair sums into its 6x6 block of the flat (6C, 6T)
+    coupling.  Sums in ``plans``' fixed order (by default built here)."""
+    if plans is None:
+        plans = flat_plans(cap_idx, tag_idx, n_caps, n_tags)
+    b = r.shape[0]
+    per = segment_sum(torch.cat([
+        _outer_rsum(jc, jt).reshape(b, 18), _outer_rsum(jt, jt).reshape(b, 36),
+        (jt * r[:, :, None]).sum(dim=1)], dim=1), plans.tag)
+    hpt = segment_sum(_outer_rsum(jp, jt).reshape(b, 36), plans.pair)
+    hpt = hpt.reshape(n_caps, n_tags, 6, 6).permute(0, 2, 1, 3).reshape(
+        6 * n_caps, 6 * n_tags)
+    return (per[:, :18].reshape(-1, 3, 6), hpt,
+            per[:, 18:54].reshape(-1, 6, 6), per[:, 54:])
 
 
-def assemble(r, jc, jp, jt, cap_idx, tag_idx, n_caps, n_tags) -> NormalEqs:
-    """Segment-reduce the per-block Jacobian products into H blocks."""
-    cap = assemble_cap_side(r, jc, jp, cap_idx, n_caps)
+def assemble(r, jc, jp, jt, cap_idx, tag_idx, n_caps, n_tags,
+             plans: FlatPlans | None = None) -> NormalEqs:
+    """Reduce the per-block Jacobian products into H blocks in a fixed
+    order (``flat_plans``, built here unless given)."""
+    if plans is None:
+        plans = flat_plans(cap_idx, tag_idx, n_caps, n_tags)
+    cap = assemble_cap_side(r, jc, jp, cap_idx, n_caps, plans.cap)
     hct, hpt, htt, g_t = assemble_tag_side(r, jc, jp, jt, cap_idx, tag_idx,
-                                           n_caps, n_tags)
+                                           n_caps, n_tags, plans)
     return NormalEqs(cap.hcc, cap.hcp, cap.hpp, hct, hpt, htt, cap.g_c,
                      cap.g_p, g_t)
 
@@ -656,10 +751,9 @@ def _cg_shard_ops(sh: CgShard, s_c, s_p, lam, c: int, jacobi_scaling,
     (downdate, setup, backsub) with downdate(v) = W V^-1 W^T v (3 + 6C,)
     for this shard's tags, setup = [W V^-1 g_t (cam, cap), the
     preconditioner's diagonal corrections (cam, cap)] and backsub(delta_r)
-    this shard's tag steps.  The first two are additive over shards."""
-    dev = sh.hct.device
-    s_c, s_p = s_c.to(dev), s_p.to(dev)
-    lam = lam.to(dev) if isinstance(lam, torch.Tensor) else lam
+    this shard's tag steps.  The first two are additive over shards.
+    ``s_c``, ``s_p``, ``lam`` and the vectors the closures take are on
+    the shard's device."""
     rows, cap_rows = sh.rows, sh.cap_rows
     lead, s_max = sh.wt_s.shape[:2]  # (T, S_max) or row-split (R, S_row)
     hct_s, wt_ss, v_inv, g_t_s, s_t = _scale_and_damp_tags(
@@ -691,7 +785,6 @@ def _cg_shard_ops(sh: CgShard, s_c, s_p, lam, c: int, jacobi_scaling,
                                    cap_rows)
 
     def downdate(vm):
-        vm = vm.to(dev)
         z = torch.einsum("tkj,tj->tk", v_inv,
                          wt_v(vm[:3], vm[3:].reshape(c, 6)))
         down_c, down_p = w_z(z)
@@ -709,10 +802,26 @@ def _cg_shard_ops(sh: CgShard, s_c, s_p, lam, c: int, jacobi_scaling,
 
     def backsub(delta_r):
         return backsub_tags_sparse(v_inv, hct_s, wt_ss, sh.slot_cap, g_t_s,
-                                   s_t, sh.tag_active, delta_r.to(dev),
-                                   rows=rows)
+                                   s_t, sh.tag_active, delta_r, rows=rows)
 
     return downdate, [wvg_c, wvg_p, dg_c, dg_p], backsub
+
+
+class OneByOne:
+    """Shards run one after another on the current streams: ``put``
+    copies a value to each shard's device, ``map`` calls a function over
+    the shards (``parallel.Mesh`` has the same two, with its branch
+    streams)."""
+
+    def __init__(self, devices):
+        self.devices = list(devices)
+
+    def put(self, x) -> list:
+        return [x.to(d) if isinstance(x, torch.Tensor) else x
+                for d in self.devices]
+
+    def map(self, fn, *cols) -> list:
+        return [fn(*args) for args in zip(*cols)]
 
 
 def schur_solve_sharded_cg(cap_eqs: CapEqs, shards, lam, cam_active,
@@ -720,21 +829,26 @@ def schur_solve_sharded_cg(cap_eqs: CapEqs, shards, lam, cam_active,
                            jacobi_scaling: bool = True,
                            min_diag: float = 1e-6, max_diag: float = 1e32,
                            cg_tol: float = 1e-2, cg_iters: int = 100,
-                           x0=None):
+                           x0=None, fan=None):
     """ITERATIVE_SCHUR over tags split into ``shards`` (``CgShard``s):
     the camera/capture side and the CG vectors are replicated on the
     device of ``cap_eqs``, each shard applies its tags' part of the
     implicit Schur complement on its own device, and
     ``reduce_fn(per_shard_lists) -> list`` sums the shards' additive
-    values: once at setup, once per matvec.  Returns (d_cam, d_cap,
+    values: once at setup, once per matvec.  ``fan`` runs the shards'
+    work and copies the replicated vectors to them (default
+    ``OneByOne``; the mesh's ``parallel.Mesh``).  Returns (d_cam, d_cap,
     [d_tag of each shard], delta_r).  Nothing reads a value back to the
     host."""
     c = cap_eqs.hpp.shape[0]
     dtype, dev = cap_eqs.hcc.dtype, cap_eqs.hcc.device
+    if fan is None:
+        fan = OneByOne(sh.hct.device for sh in shards)
     s_c, s_p = cap_scale_vectors(cap_eqs, cam_active, cap_active,
                                  jacobi_scaling)
-    ops = [_cg_shard_ops(sh, s_c, s_p, lam, c, jacobi_scaling, min_diag,
-                         max_diag) for sh in shards]
+    ops = fan.map(lambda sh, sc, sp, lm: _cg_shard_ops(
+        sh, sc, sp, lm, c, jacobi_scaling, min_diag, max_diag), shards,
+        fan.put(s_c), fan.put(s_p), fan.put(lam))
     hcc, hcp, hpp, g_c, g_p, cam_m, cap_m, m_r = _reduced_blocks(
         cap_eqs, s_c, s_p, cam_active, cap_active, lam, min_diag, max_diag)
 
@@ -745,7 +859,8 @@ def schur_solve_sharded_cg(cap_eqs: CapEqs, shards, lam, cam_active,
         out_c = hcc @ vc + torch.einsum("cij,cj->i", hcp, vp)
         out_p = (torch.einsum("cij,i->cj", hcp, vc)
                  + torch.einsum("cij,cj->ci", hpp, vp))
-        (down,) = reduce_fn([[downdate(vm)] for downdate, _, _ in ops])
+        (down,) = reduce_fn(fan.map(lambda op, v: [op[0](v)], ops,
+                                    fan.put(vm)))
         av = torch.cat([out_c, out_p.reshape(-1)]) - down
         return av * m_r + (1.0 - m_r) * v
 
@@ -770,8 +885,8 @@ def schur_solve_sharded_cg(cap_eqs: CapEqs, shards, lam, cam_active,
     delta_r = delta_r * m_r
     delta_cam = delta_r[0:3] * s_c
     delta_cap = delta_r[3:].reshape(c, 6) * s_p
-    return delta_cam, delta_cap, [backsub(delta_r) for _, _, backsub in ops], \
-        delta_r
+    return delta_cam, delta_cap, fan.map(lambda op, dr: op[2](dr), ops,
+                                         fan.put(delta_r)), delta_r
 
 
 def schur_solve_grouped_cg(eqs: GroupedEqs, slot_cap, cap_gather, cap_gmask,

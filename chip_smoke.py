@@ -68,12 +68,19 @@ Phases (each prints one JSON line; any failure exits non-zero):
 9. solver_cg_vs_dense_2000 — 2 000 tags / 800 captures in float32, CG and
    dense each to convergence: both rmse < 1 px, costs within 1e-2;
 10. solver_flat_500 — the 500-tag problem through lm_solve without
-   observation bounds (the flat hooks): cost within 1e-3 of 3771.57;
+   observation bounds (the flat hooks, their sums in a fixed order),
+   replaying CUDA graphs: cost within 1e-3 of 3771.57, one capture and
+   1 + 2 x iterations replays a call, and the same LM eager and graphed
+   bit for bit (host ms per iteration; launches and device ms profiled
+   last, ``solver_flat_500_profile``);
 11. map_cg_room16 — room-16's detections (from phase 4) mapped again with
    linear_solver="cg": rmse < 1 px, every tag in the map;
 12. progress — room-16's first 4 captures solved with
    minimizer_progress_to_stdout, in float64: >= 2 iteration lines and a
-   terminating line, rmse within 1e-3 px of the ordinary solve;
+   terminating line, rmse within 1e-3 px of the ordinary solve; each
+   one-iteration LM call a load and replays of the LM program (1 + 2 x
+   iterations), its cost and printed line bit for bit the eager
+   stepping's (``graphs=False``);
 13. mesh_detect — room-16's 16 frames and phone_12mp's 8 frames through
    parallel.detect.detect_batch_sharded over three shards of the card
    (neither batch divides by 3: padding); every output bit for bit the
@@ -82,26 +89,26 @@ Phases (each prints one JSON line; any failure exits non-zero):
 14. mesh_solver_500 — the 500-tag problem through the tag-sharded
    lm_solve_dist over 1, 2 and 4 shards of the card: final cost within
    1e-3 of 3771.57, exactly 1 + 2 x iterations reductions, LM
-   iterations/s beside the single-device rate; on shards of one card
-   the LM replays CUDA graphs (parallel/dist_lm.py): one capture, then a
-   call replays ``setup`` and per iteration ``step`` and ``accept`` or
-   ``reject``;
+   iterations/s beside the single-device rate; the LM replays CUDA
+   graphs (parallel/dist_lm.py; its shards on one card or spread over
+   several): one capture, then a call replays ``setup`` and per iteration
+   ``step`` and ``accept`` or ``reject``;
 15. mesh_cg_10k — the 10k map of phase 8 (not generated again), CG over
    two shards for 12 LM iterations: cost finite and below the initial
    one, rmse within 1e-2 px of phase 8's, the replays as in phase 14,
    one sharded CG solve with no synchronising call, peak memory and LM
    iterations/s;
 16. mesh_map_room16 — room-16's detections mapped again through
-   solve(store, mesh=block_mesh(devices=[cuda:0] * 2)): rmse within 1e-3
-   px of the dense map's, every tag, the mesh's seeds and LM replayed
-   (two captures);
+   solve(store, mesh=block_mesh(devices=_shard_devices(2))): rmse within
+   1e-3 px of the dense map's, every tag, the mesh's seeds and LM
+   replayed (two captures);
 17. multihost_1 — ``arslam-torch map`` of phone_12mp's saved map with
    ``--multihost 127.0.0.1:<port>,1,0`` in a subprocess (one NCCL
    process; ``chip_smoke.py --mesh-map``), eager and graphed: rmse equal
    to the in-process solve's within 1e-3 px, the two maps the same text,
    the graphed process replaying its graphs (and two and four NCCL
-   processes where the machine has as many cards, graphed where each
-   takes one card: their NCCL all_reduce inside the graphs);
+   processes where the machine has as many cards, graphed whatever cards
+   each owns: their NCCL all_reduce inside the graphs);
 18. solve_graphs — the single-device LM and localize through their CUDA
    graphs (solve/graphs.py) against the eager loops (``graphs=False``):
    synthetic-500 dense (budgets 8 and 32), room-16's LM over its 16
@@ -132,15 +139,20 @@ Phases (each prints one JSON line; any failure exits non-zero):
    (two: the seeds' and the LM's), the graph pools' and the reserved
    memory; rmse < 1 px and no capture unsolved at the end;
 21. mesh_graphs (run after solve_graphs) — the tag-sharded LM through its
-   CUDA graphs against its eager stages on shards of one card:
+   CUDA graphs (one graph a stage, each shard's work on a branch stream
+   of its own) against its eager stages on shards of one card:
    synthetic-500 dense over 1, 2 and 4 shards (budgets 8 and 32), the
    10k CG map over 2 (budgets 3 and 12): results bit for bit, host ms per
-   LM iteration, one capture and 1 + 2 x iterations replays a call, capture
-   ms, pool and peak memory (launches and device ms per iteration
-   profiled last, ``mesh_graphs_profile``); and room-16's map solve over
-   2 shards, eager once and graphed twice (the first captures), beside
-   the single-device graphed solve: seconds, the mesh LM's iterations and
-   the ms of its LM calls per iteration, the same map bit for bit;
+   LM iteration and LM iterations/s, one capture and 1 + 2 x iterations
+   replays a call, capture ms, pool and peak memory (launches and device
+   ms per iteration profiled last, ``mesh_graphs_profile``, per card on
+   several); and room-16's map solve over 2 shards, eager once and
+   graphed twice (the first captures), beside the single-device graphed
+   solve: seconds, the mesh LM's iterations and the ms of its LM calls
+   per iteration, the same map bit for bit.  On several cards the same
+   cells also spread over them (synthetic-500 over 2 and 4 shards, 10k CG
+   over 2 and, with 4 cards, 4, room-16's map over 2), with each card's
+   peak and pool;
 22. detect_graphs (run after solve_graphs) — the detector through its
    CUDA graphs (detect/detect.py, programs.py) against its eager stage
    (``graphs=False``): room-16's two batches of (8, 768, 1020), phone_12mp's
@@ -154,10 +166,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
    theirs must be one replay of the detector's graph.
 
 A mesh of k shards puts shard i on card i mod the card count: on one
-card all shards share it and run one after another on its stream (their
-times are what they are, not a speedup); on a machine with several cards
-the same phases spread over them, mesh_cg_10k also runs 4 shards and
-multihost_1 also 2 (and 4) NCCL processes.
+card all shards share it (graphed, each on a branch stream of its own;
+their times are what they are, not a speedup); on a machine with several
+cards the same phases spread over them, one graph a stage spanning the
+cards, mesh_cg_10k also runs 4 shards and multihost_1 also 2 (and 4)
+NCCL processes.
 
 Last, where the time goes in one CG LM iteration at 10k (the CG solve,
 the step quality, the relinearization): wall ms on the host clock (taken
@@ -253,6 +266,15 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+def sync_cards() -> None:
+    """Wait for every card (torch.cuda.synchronize waits for the current
+    one only)."""
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
     """Median milliseconds of fn() over reps, by CUDA events."""
     import torch
@@ -289,8 +311,11 @@ def phase_device():
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     line = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
     print(line, flush=True)
+    n = torch.cuda.device_count()
     emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=line,
-         torch=torch.__version__, cuda=torch.version.cuda)
+         torch=torch.__version__, cuda=torch.version.cuda, cards=n,
+         peer_access={f"{i}->{j}": torch.cuda.can_device_access_peer(i, j)
+                      for i in range(n) for j in range(n) if i != j})
     return line
 
 
@@ -1246,26 +1271,47 @@ def phase_solver() -> float:
     return rate
 
 
-def phase_solver_flat_500(grouped_rate: float) -> None:
+def phase_solver_flat_500(grouped_rate: float) -> list:
     """The 500-tag synthetic through lm_solve without observation bounds:
-    the flat block hooks and the flat dense Schur solve."""
+    the flat block hooks and the flat dense Schur solve, replaying CUDA
+    graphs (its sums in a fixed order, solve/schur.py ``segment_plan``):
+    the rate and cost of the graphed LM (one capture, then replays), and
+    a ``_graph_cell`` of the same LM eager and graphed, bit for bit.
+    Returns the cell's profile jobs."""
+    from ar_slam_tpu_torch.solve import graphs
     from ar_slam_tpu_torch.solve.lm import LMConfig
 
     t, arrs, gen_s = _synthetic(500, 200)
     config = LMConfig(max_iterations=32, function_tolerance=0.0,
                       parameter_tolerance=0.0)
+    graphs.CACHE.clear()
     rate, _, t_hi, info = _marginal_rate(t, config, 8, 32)
+    kinds = graphs.CACHE.stats()["kinds"].get("lm", {})
     cost = float(info["cost"])
     rel = abs(cost - F64_OPTIMUM_500) / F64_OPTIMUM_500
+    cell, jobs = _graph_cell("synthetic-500 flat", _lm_runner(t, config, {}),
+                             8, 32, phase="solver_flat_500_graphs")
     emit("solver_flat_500", tags=arrs.n_tags, captures=arrs.n_caps,
          blocks=arrs.n_blocks, dtype="float32", final_cost=cost,
          f64_optimum=F64_OPTIMUM_500, rel_err=rel,
          iterations=info["iterations"], lm_iterations_per_s=rate,
          grouped_lm_iterations_per_s=grouped_rate, seconds_32=t_hi,
+         graphs=kinds, bit_for_bit=cell["bit_for_bit"],
          problem_gen_s=gen_s)
     if not rel <= 1e-3:
         fail(f"flat 500-tag final cost {cost} is not within 1e-3 of "
              f"{F64_OPTIMUM_500}")
+    # three calls (budgets 2, 8, 32), one capture
+    want = sum(1 + 2 * it for it in (2, 8, info["iterations"]))
+    if not (kinds.get("captures") == 1 and kinds.get("replays") == want):
+        fail(f"solver_flat_500: the flat LM replayed {kinds}, want one "
+             f"capture and {want} replays")
+    g = cell["graphed"]
+    want = sum(1 + 2 * it for it in g["iterations"])
+    if not (g["captures"] == 1 and g["replays_first_calls"] == want):
+        fail(f"solver_flat_500: {g['captures']} captures, "
+             f"{g['replays_first_calls']} replays (want {want})")
+    return jobs
 
 
 def _wall_ms(fn, reps: int = 5) -> float:
@@ -1276,10 +1322,10 @@ def _wall_ms(fn, reps: int = 5) -> float:
     fn()
     times = []
     for _ in range(reps):
-        torch.cuda.synchronize()
+        sync_cards()
         t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        sync_cards()
         times.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(times))
 
@@ -1403,12 +1449,12 @@ def _launch_profile(fn) -> tuple:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
+    sync_cards()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         result = fn()
-        torch.cuda.synchronize()
+        sync_cards()
         wall_ms = (time.perf_counter() - t0) * 1e3
     out = dict(launches=0, graph_launches=0, device_items=0, device_ms=0.0)
     for a in prof.key_averages():
@@ -1419,8 +1465,16 @@ def _launch_profile(fn) -> tuple:
             out["launches"] += a.count
             if a.key == "cudaGraphLaunch":
                 out["graph_launches"] += a.count
+    per_card = {}
+    if torch.cuda.device_count() > 1:
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                card = f"cuda:{e.device_index}"
+                per_card[card] = (per_card.get(card, 0.0)
+                                  + e.self_device_time_total / 1e3)
     out.update(wall_ms=wall_ms,
-               device_idle_share=1.0 - out["device_ms"] / wall_ms)
+               device_idle_share=1.0 - out["device_ms"] / wall_ms,
+               **({"device_ms_per_card": per_card} if per_card else {}))
     return result, out
 
 
@@ -1444,36 +1498,43 @@ PROFILE_BUDGETS = (2, 4)  # a profiled eager 10k CG iteration is ~2 900
 
 
 def _graph_cell(name, run, lo: int, hi: int, reps: int = 3,
-                phase: str = "solve_graphs") -> tuple:
+                phase: str = "solve_graphs", cards=None) -> tuple:
     """One cell of ``phase``: ``run(budget, graphed)`` returns a function
     whose call solves and returns (loop iterations, its results).  For the
     eager loop and the graphs: the first calls at budgets lo and hi (the
-    graphs' capture), their results bit for bit, peak memory, and host ms
-    per LM iteration between the budgets.  Returns (the cell's line, the
-    profile jobs, at PROFILE_BUDGETS)."""
+    graphs' capture), their results bit for bit, peak memory (of each of
+    ``cards`` where given: a mesh spread over them, with its pools), and
+    host ms per LM iteration between the budgets and the LM iterations/s
+    it gives.  Returns (the cell's line, the profile jobs, at
+    PROFILE_BUDGETS)."""
     import torch
 
     from ar_slam_tpu_torch.solve import graphs
 
     cell, results, jobs = {"cell": name, "budgets": [lo, hi]}, {}, []
+    if cards:
+        cell["cards"] = cards
     for graphed in (False, True):
         mode = "graphed" if graphed else "eager"
         graphs.CACHE.clear()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        sync_cards()
+        for c in cards or [None]:
+            torch.cuda.reset_peak_memory_stats(c)
         t0 = time.perf_counter()
         first = {b: run(b, graphed)() for b in (lo, hi)}
-        torch.cuda.synchronize()
+        sync_cards()
         first_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 1e9
         stats = graphs.CACHE.stats()
         iters = {b: first[b][0] for b in (lo, hi)}
         wall = {b: _wall_ms(run(b, graphed), reps) for b in (lo, hi)}
         d_it = max(iters[hi] - iters[lo], 1)
+        per_it = (wall[hi] - wall[lo]) / d_it
         cell[mode] = dict(
             iterations=[iters[lo], iters[hi]],
             wall_ms=[wall[lo], wall[hi]],
-            host_ms_per_iteration=(wall[hi] - wall[lo]) / d_it,
+            host_ms_per_iteration=per_it,
+            lm_iterations_per_s=1e3 / per_it if per_it > 0 else None,
             first_calls_s=first_s, peak_memory_gb=peak, **(
                 dict(captures=stats["captures"],
                      capture_ms=stats["capture_ms"],
@@ -1481,6 +1542,13 @@ def _graph_cell(name, run, lo: int, hi: int, reps: int = 3,
                      pool_gb=stats["pool_bytes"] / 1e9,
                      replays_first_calls=stats["replays"])
                 if graphed else {}))
+        if cards:
+            cell[mode]["peak_memory_gb_per_card"] = {
+                c: torch.cuda.max_memory_allocated(c) / 1e9 for c in cards}
+            if graphed:
+                cell[mode]["pool_gb_per_card"] = {
+                    c: n / 1e9 for h in stats["held"]
+                    for c, n in h["pool_bytes_per_card"].items()}
         results[mode] = first[hi][1]
         jobs.append((name, mode, graphed,
                      [run(b, graphed) for b in PROFILE_BUDGETS]))
@@ -1822,16 +1890,16 @@ def phase_detect_graphs_profile(jobs) -> None:
         emit("detect_graphs_profile", cell=name, mode=mode, per_call=prof)
 
 
-def _mesh_runner(arrs, shards: int, config):
-    """run(budget, graphed) for _graph_cell over lm_solve_sharded on
-    ``shards`` shards of one card (``[cuda:0] * shards``), the problem
-    prepared and placed once."""
+def _mesh_runner(arrs, devices, config):
+    """run(budget, graphed) for _graph_cell over lm_solve_sharded on a
+    mesh of ``devices`` (shards of one card, ``[cuda:0] * k``, or spread
+    over cards), the problem prepared and placed once."""
     import torch
 
     from ar_slam_tpu_torch.parallel import TagShardedProblem, block_mesh
     from ar_slam_tpu_torch.parallel.dist_lm import lm_solve_sharded
 
-    mesh = block_mesh(devices=[MESH_CARD] * shards)
+    mesh = block_mesh(devices=devices)
     prob = TagShardedProblem(mesh, arrs.cap_idx, arrs.tag_idx, arrs.corners,
                              arrs.block_mask, arrs.tag_poses.shape[0],
                              dtype=torch.float32)
@@ -1851,12 +1919,15 @@ def _mesh_runner(arrs, shards: int, config):
     return run
 
 
-def _mesh_cell(name, arrs, shards, config, lo, hi) -> list:
-    """One mesh_graphs cell (_graph_cell over ``_mesh_runner``); its first
+def _mesh_cell(name, arrs, devices, config, lo, hi) -> list:
+    """One mesh_graphs cell (_graph_cell over ``_mesh_runner``): its first
     graphed calls must replay ``setup`` and per LM iteration one ``step``
-    and one ``accept`` or ``reject``.  Returns its profile jobs."""
-    cell, jobs = _graph_cell(name, _mesh_runner(arrs, shards, config), lo, hi,
-                             phase="mesh_graphs")
+    and one ``accept`` or ``reject``; spread over several cards it prints
+    each card's peak and pool.  Returns its profile jobs."""
+    cards = sorted(set(devices))
+    cell, jobs = _graph_cell(name, _mesh_runner(arrs, devices, config), lo,
+                             hi, phase="mesh_graphs",
+                             cards=cards if len(cards) > 1 else None)
     g = cell["graphed"]
     want = sum(1 + 2 * it for it in g["iterations"])
     if not (g["captures"] == 1 and g["replays_first_calls"] == want):
@@ -1867,31 +1938,45 @@ def _mesh_cell(name, arrs, shards, config, lo, hi) -> list:
 
 
 def phase_mesh_graphs(arrs10k, store16) -> list:
-    """Phase 21: the mesh's LM through its CUDA graphs against its eager
-    stages, on shards of one card: synthetic-500 dense on 1, 2 and 4
-    shards (budgets 8, 32), the 10k CG map on 2 (budgets 3, 12); and
+    """Phase 21: the mesh's LM through its CUDA graphs (one graph a
+    stage, each shard's work on a branch stream of its own) against its
+    eager stages, on shards of one card: synthetic-500 dense on 1, 2 and
+    4 shards (budgets 8, 32), the 10k CG map on 2 (budgets 3, 12); and
     room-16's whole map solve on 2 shards, eager once and graphed twice
     (the first call captures), beside the single-device graphed solve of
     the same map: the solve's seconds, and the host wall of its
     ``DistWaveSolver.lm`` calls (the captures of the first graphed call
     included; they end at its last flag read) over their LM iterations.
-    Returns the profile jobs."""
+    On a machine of several cards the same cells spread shard i on card
+    i mod the card count (``_shard_devices``): synthetic-500 over 2 and 4
+    shards, the 10k CG map over 2 (and 4 where there are 4 cards),
+    room-16's map over 2, each card's peak and pool printed.  Returns the
+    profile jobs."""
     import torch
 
-    from ar_slam_tpu_torch.config import ArSlamConfig
-    from ar_slam_tpu_torch.parallel import block_mesh, dist_lm
+    from ar_slam_tpu_torch.parallel import dist_lm
     from ar_slam_tpu_torch.solve import graphs
-    from ar_slam_tpu_torch.solve.batch import solve
     from ar_slam_tpu_torch.solve.lm import LMConfig
 
     jobs = []
     zero_tol = dict(function_tolerance=0.0, parameter_tolerance=0.0)
+    dense = LMConfig(max_iterations=32, **zero_tol)
+    cg = LMConfig(max_iterations=12, linear_solver="cg", **zero_tol)
     _, arrs500, _ = _synthetic(500, 200)
     for k in (1, 2, 4):
-        jobs += _mesh_cell(f"synthetic-500 dense, {k} shards", arrs500, k,
-                           LMConfig(max_iterations=32, **zero_tol), 8, 32)
-    jobs += _mesh_cell("synthetic-10k CG, 2 shards", arrs10k, 2, LMConfig(
-        max_iterations=12, linear_solver="cg", **zero_tol), 3, 12)
+        jobs += _mesh_cell(f"synthetic-500 dense, {k} shards", arrs500,
+                           [MESH_CARD] * k, dense, 8, 32)
+    jobs += _mesh_cell("synthetic-10k CG, 2 shards", arrs10k,
+                       [MESH_CARD] * 2, cg, 3, 12)
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        # the same cells with shard i on card i mod the card count
+        for k in (2, 4):
+            jobs += _mesh_cell(f"synthetic-500 dense, {k} shards spread",
+                               arrs500, _shard_devices(k), dense, 8, 32)
+        for k in (2, 4) if n_cards >= 4 else (2,):
+            jobs += _mesh_cell(f"synthetic-10k CG, {k} shards spread",
+                               arrs10k, _shard_devices(k), cg, 3, 12)
 
     iters, lm_sec, lm = [], [], dist_lm.DistWaveSolver.lm
 
@@ -1902,57 +1987,81 @@ def phase_mesh_graphs(arrs10k, store16) -> list:
         iters.append(res[3]["iterations"])
         return res
 
-    out = {}
     dist_lm.DistWaveSolver.lm = counted
     try:
-        for mode in ("eager", "graphed", "single-device graphed"):
-            graphs.CACHE.clear()
-            calls = []
-            for _ in range(1 if mode == "eager" else 2):
-                store = _store_from(store16, store16.captures)
-                mesh = (None if mode.startswith("single")
-                        else block_mesh(devices=[MESH_CARD] * 2))
-                iters.clear()
-                lm_sec.clear()
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                t0 = time.perf_counter()
-                summary = solve(store, ArSlamConfig(), device=DEVICE,
-                                mesh=mesh, graphs=mode != "eager")
-                torch.cuda.synchronize()
-                sec = time.perf_counter() - t0
-                calls.append(dict(
-                    seconds=sec,
-                    peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9))
-                if mesh is not None:
-                    calls[-1].update(
-                        mesh_lm_calls=len(iters),
-                        mesh_lm_iterations=sum(iters),
-                        lm_ms_per_mesh_lm_iteration=(
-                            sum(lm_sec) * 1e3 / sum(iters)))
-            stats = graphs.CACHE.stats()
-            out[mode] = dict(
-                calls=calls, rmse_px=summary["rmse"], waves=summary["waves"],
-                graphs={k: stats[k] for k in (
-                    "captures", "replays", "capture_ms", "capture_split_ms")},
-                pool_gb=stats["pool_bytes"] / 1e9,
-                poses=[c.inv_pose.copy() for c in store.captures]
-                + [a.pose.copy() for a in store.arucos]
-                + [store.camera.params.copy()])
+        layouts = [("2 shards", [MESH_CARD] * 2)]
+        if n_cards > 1:
+            layouts.append(("2 shards spread", _shard_devices(2)))
+        for label, devices in layouts:
+            _mesh_map_cell(store16, label, devices, iters, lm_sec)
     finally:
         dist_lm.DistWaveSolver.lm = lm
         graphs.CACHE.clear()
+    return jobs
+
+
+def _mesh_map_cell(store16, label, devices, iters, lm_sec) -> None:
+    """room-16's map solve over a mesh of ``devices``, eager once and
+    graphed twice, beside the single-device graphed solve: the same map
+    bit for bit, two captures (seeds, LM); per call the seconds, the peak
+    memory of each card and the mesh LM's ms per iteration."""
+    import torch
+
+    from ar_slam_tpu_torch.config import ArSlamConfig
+    from ar_slam_tpu_torch.parallel import block_mesh
+    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch.solve.batch import solve
+
+    cards = sorted(set(devices))
+    out = {}
+    for mode in ("eager", "graphed", "single-device graphed"):
+        graphs.CACHE.clear()
+        calls = []
+        for _ in range(1 if mode == "eager" else 2):
+            store = _store_from(store16, store16.captures)
+            mesh = (None if mode.startswith("single")
+                    else block_mesh(devices=devices))
+            iters.clear()
+            lm_sec.clear()
+            sync_cards()
+            for c in cards:
+                torch.cuda.reset_peak_memory_stats(c)
+            t0 = time.perf_counter()
+            summary = solve(store, ArSlamConfig(), device=DEVICE,
+                            mesh=mesh, graphs=mode != "eager")
+            sync_cards()
+            sec = time.perf_counter() - t0
+            calls.append(dict(seconds=sec, peak_memory_gb_per_card={
+                c: torch.cuda.max_memory_allocated(c) / 1e9 for c in cards}))
+            if mesh is not None:
+                calls[-1].update(
+                    mesh_lm_calls=len(iters),
+                    mesh_lm_iterations=sum(iters),
+                    lm_ms_per_mesh_lm_iteration=(
+                        sum(lm_sec) * 1e3 / sum(iters)))
+        stats = graphs.CACHE.stats()
+        out[mode] = dict(
+            calls=calls, rmse_px=summary["rmse"], waves=summary["waves"],
+            graphs={k: stats[k] for k in (
+                "captures", "replays", "capture_ms", "capture_split_ms")},
+            pool_gb=stats["pool_bytes"] / 1e9,
+            pool_gb_per_card=[{c: n / 1e9 for c, n in
+                               h["pool_bytes_per_card"].items()}
+                              for h in stats["held"]],
+            poses=[c.inv_pose.copy() for c in store.captures]
+            + [a.pose.copy() for a in store.arucos]
+            + [store.camera.params.copy()])
     same = _same(out["eager"]["poses"], out["graphed"]["poses"]) and (
         out["eager"]["rmse_px"] == out["graphed"]["rmse_px"])
     for v in out.values():
         del v["poses"]
-    emit("mesh_graphs", cell="room-16 map (solve), 2 shards",
+    emit("mesh_graphs", cell=f"room-16 map (solve), {label}", cards=cards,
          bit_for_bit=same, **out)
     if not same:
-        fail("mesh_graphs room-16 map: the graphed map differs from the eager")
+        fail(f"mesh_graphs room-16 map, {label}: the graphed map differs "
+             "from the eager")
     if out["graphed"]["graphs"]["captures"] != 2:
-        fail(f"mesh_graphs room-16 map: {out['graphed']['graphs']}")
-    return jobs
+        fail(f"mesh_graphs room-16 map, {label}: {out['graphed']['graphs']}")
 
 
 def phase_solve_graphs_profile(jobs,
@@ -1977,8 +2086,14 @@ def phase_solve_graphs_profile(jobs,
             runs.append((iters, prof))
         (it_lo, lo), (it_hi, hi) = runs
         d_it = max(it_hi - it_lo, 1)
+
+        def per_it(a, b):  # per card on several cards
+            if isinstance(a, dict):
+                return {c: (a[c] - b.get(c, 0.0)) / d_it for c in a}
+            return (a - b) / d_it
+
         emit(phase, cell=name, mode=mode, iterations=[it_lo, it_hi],
-             per_iteration={k: (hi[k] - lo[k]) / d_it for k in hi},
+             per_iteration={k: per_it(hi[k], lo[k]) for k in hi},
              at_budgets=[lo, hi])
 
 
@@ -2061,7 +2176,8 @@ def phase_progress(store16) -> None:
     float64 as the reference's own check (tests/test_lm.py:658-678, x64):
     the stepped solve skips the register-then-refine warmup, as the
     reference's does, and in float32 the two can stall in different basins
-    (PERF.md)."""
+    (PERF.md).  The stepping runs graphed (each call a load and replays)
+    and eagerly (``graphs=False``): the same costs and lines."""
     import contextlib
     import dataclasses
     import io
@@ -2071,31 +2187,70 @@ def phase_progress(store16) -> None:
     from ar_slam_tpu_torch.config import ArSlamConfig
     from ar_slam_tpu_torch.solve.batch import solve
 
+    from ar_slam_tpu_torch.solve import batch, graphs
+
     config = ArSlamConfig()
     caps = store16.captures[:4]
     plain = solve(_store_from(store16, caps), config, dtype=torch.float64,
                   device=DEVICE)
-    printed = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(printed):
-        stepped = solve(_store_from(store16, caps), dataclasses.replace(
-            config, solver=dataclasses.replace(
-                config.solver, minimizer_progress_to_stdout=True)),
-            dtype=torch.float64, device=DEVICE)
-    seconds = time.perf_counter() - t0
-    lines = printed.getvalue().splitlines()
-    iters = [ln for ln in lines if ln.split() and ln.split()[0].isdigit()]
-    terms = [ln for ln in lines if ln.startswith("terminating: ")]
+    stepping = dataclasses.replace(config, solver=dataclasses.replace(
+        config.solver, minimizer_progress_to_stdout=True))
+    runs, lm_solve = {}, batch.lm_solve
+    for graphed in (True, False):
+        costs = []
+
+        def recorded(*a, **kw):
+            out = lm_solve(*a, **kw)
+            costs.append((float(out[3]["cost"]), out[3]["iterations"]))
+            return out
+
+        graphs.CACHE.clear()
+        printed = io.StringIO()
+        batch.lm_solve = recorded
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(printed):
+                summary = solve(_store_from(store16, caps), stepping,
+                                dtype=torch.float64, device=DEVICE,
+                                graphs=graphed)
+        finally:
+            batch.lm_solve = lm_solve
+        lines = printed.getvalue().splitlines()
+        runs[graphed] = dict(
+            summary=summary, seconds=time.perf_counter() - t0, costs=costs,
+            graphs=graphs.CACHE.stats()["kinds"].get("lm", {}),
+            iters=[ln for ln in lines
+                   if ln.split() and ln.split()[0].isdigit()],
+            terms=[ln for ln in lines if ln.startswith("terminating: ")])
+    graphs.CACHE.clear()
+    stepped, iters, terms = (runs[True]["summary"], runs[True]["iters"],
+                             runs[True]["terms"])
+    # the lines but their times; each call's cost bit for bit
+    same = (runs[True]["costs"] == runs[False]["costs"]
+            and [ln.split()[:5] for ln in iters]
+            == [ln.split()[:5] for ln in runs[False]["iters"]]
+            and terms == runs[False]["terms"])
+    replays = runs[True]["graphs"].get("replays", 0)
     d_rmse = abs(stepped["rmse"] - plain["rmse"])
     emit("progress", captures=len(caps), dtype="float64",
          iteration_lines=len(iters),
          terminating=terms, rmse_px=stepped["rmse"],
          plain_rmse_px=plain["rmse"], rmse_diff_px=d_rmse,
-         tolerance_px=PROGRESS_RMSE_TOL_PX, seconds=seconds,
+         tolerance_px=PROGRESS_RMSE_TOL_PX, seconds=runs[True]["seconds"],
+         eager_seconds=runs[False]["seconds"], lm_calls=len(
+             runs[True]["costs"]), lm_graphs=runs[True]["graphs"],
+         equal_to_eager_stepping=same,
          last_line=iters[-1] if iters else None)
     if not (len(iters) >= 2 and terms and d_rmse <= PROGRESS_RMSE_TOL_PX):
         fail(f"progress: {len(iters)} iteration lines, {terms}, rmse "
              f"{stepped['rmse']} vs {plain['rmse']}")
+    # every LM call of the stepped solve a load and replays: setup, then
+    # a step and an accept or reject an iteration
+    want = sum(1 + 2 * it for _, it in runs[True]["costs"])
+    if not (same and replays == want
+            and runs[True]["graphs"].get("captures", 0) >= 1):
+        fail(f"progress: graphed stepping equal to the eager: {same}, LM "
+             f"graphs {runs[True]['graphs']} for {len(iters)} lines")
 
 
 def _shard_devices(k: int) -> list:
@@ -2437,9 +2592,9 @@ def phase_multihost_1() -> None:
     out among them),
     eager and graphed, against the in-process solve of the same map with
     the command's default config; each mode's maps the same text.  A
-    process replays graphs when its shards share one card (one card a
-    process); with several processes its packed reductions' NCCL
-    all_reduce is then inside the graphs."""
+    graphed process replays graphs whether its shards sit on one card or
+    several (one graph a stage spanning them); with several processes its
+    packed reductions' NCCL all_reduce is inside the graphs."""
     import torch
 
     from ar_slam_tpu_torch.config import ArSlamConfig
@@ -2456,7 +2611,6 @@ def phase_multihost_1() -> None:
     runs = {}
     count = torch.cuda.device_count()
     for world in [w for w in (1, 2, 4) if w <= count]:
-        graphed = max(count // world, 1) == 1
         maps = set()
         for mode in ("eager", "graphs"):
             port = _free_port()
@@ -2491,7 +2645,8 @@ def phase_multihost_1() -> None:
                         and r["graphs"]["replays"] > 0 for r in ranks]
             runs[f"{world}_{mode}"] = dict(
                 rmse_px=rmse, costs=costs, seconds=seconds, backend="nccl",
-                graphed=graphed and mode == "graphs",
+                graphed=mode == "graphs",
+                cards_per_process=max(count // world, 1),
                 solve_s=[r["solve_s"] for r in ranks],
                 graphs=[{k: r["graphs"][k] for k in (
                     "captures", "replays", "capture_ms", "pool_bytes")}
@@ -2500,8 +2655,7 @@ def phase_multihost_1() -> None:
                 maps.add(f.read())
             if not (abs(rmse - ref) <= MESH_RMSE_TOL_PX and len(costs) == 1
                     and len(ranks) == world
-                    and all(x == (graphed and mode == "graphs")
-                            for x in replayed)):
+                    and all(x == (mode == "graphs") for x in replayed)):
                 fail(f"multihost_{world} {mode}: rmse {rmse} against {ref}, "
                      f"costs {costs}, graphs replayed {replayed}")
         runs[f"{world}_same_maps"] = len(maps) == 1
@@ -2781,7 +2935,7 @@ def main() -> int:
     grouped_rate = timed("solver", phase_solver)
     cg_10k, (arrs10k, rmse10k) = timed("solver_cg_10k", phase_solver_cg_10k)
     timed("solver_cg_vs_dense_2000", phase_solver_cg_vs_dense_2000)
-    timed("solver_flat_500", phase_solver_flat_500, grouped_rate)
+    flat_jobs = timed("solver_flat_500", phase_solver_flat_500, grouped_rate)
     timed("map_cg_room16", phase_map_cg_room16, store16, rmse16, truth16)
     timed("progress", phase_progress, store16)
     mesh_launches = timed("mesh_detect", phase_mesh_detect, frames16,
@@ -2806,6 +2960,8 @@ def main() -> int:
     timed("solve_graphs_profile", phase_solve_graphs_profile, graph_jobs)
     timed("mesh_graphs_profile", phase_solve_graphs_profile, mesh_jobs,
           "mesh_graphs_profile")
+    timed("solver_flat_500_profile", phase_solve_graphs_profile, flat_jobs,
+          "solver_flat_500_profile")
     timed("detect_graphs_profile", phase_detect_graphs_profile, detect_jobs)
     for row in rows:
         row["launches"] = launches[row["cell"]][COUNTERS[row["name"]]]

@@ -801,6 +801,210 @@ def test_graphed_mesh_solve_equals_eager(dev):
     graphs.CACHE.clear()
 
 
+def _cards(n):
+    """The first ``n`` cards, or a skip where the machine has fewer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA devices")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+@pytest.mark.parametrize("solver,n_tags,n_caps",
+                         [("dense", 500, 200), ("cg", 300, 120)])
+def test_spread_mesh_graphs_equal_eager(solver, n_tags, n_caps):
+    """The tag-sharded LM over shards spread on two cards (and over
+    [cuda:0, cuda:1, cuda:0, cuda:1]): one graph a stage spanning the
+    cards gives the eager stages' results bit for bit, counts the same
+    reductions, and replays setup and two stages an iteration."""
+    from ar_slam_tpu_torch.parallel import block_mesh, dist_lm
+    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch.solve.lm import LMConfig
+
+    c0, c1 = _cards(2)
+    args = _mesh_case(n_tags, n_caps)
+    for devices in ([c0, c1], [c0, c1, c0, c1]):
+        graphs.CACHE.clear()
+        meshes = [block_mesh(devices=devices) for _ in range(2)]
+        for budget, cam in ((3, True), (12, True), (12, False)):
+            a = args[:7] + (cam,) + args[8:]
+            kw = dict(aruco_size=0.0635, config=LMConfig(
+                max_iterations=budget, linear_solver=solver))
+            ref = dist_lm.lm_solve_dist(meshes[0], *a, graphs=False, **kw)
+            replays = graphs.CACHE.replays
+            got = dist_lm.lm_solve_dist(meshes[1], *a, **kw)
+            torch.cuda.synchronize(c0)
+            torch.cuda.synchronize(c1)
+            _equal_solves(got, ref)
+            assert meshes[0].reductions == meshes[1].reductions
+            assert graphs.CACHE.replays - replays == (
+                1 + 2 * got[3]["iterations"])
+        assert graphs.CACHE.captures == 1
+    graphs.CACHE.clear()
+
+
+def test_spread_mesh_replays_do_not_sync():
+    """The spread mesh's CG stages, replayed, read nothing back to the
+    host (set_sync_debug_mode("error")) and give the eager stages'
+    state; each card holds a pool of the program's own."""
+    from ar_slam_tpu_torch.parallel import block_mesh, dist_lm
+    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch.solve.lm import LMConfig
+
+    cards = _cards(2)
+    graphs.CACHE.clear()
+    args = _mesh_case(200, 80)
+    config = LMConfig(max_iterations=2, linear_solver="cg")
+    mesh = block_mesh(devices=cards)
+    dist_lm.lm_solve_dist(mesh, *args, aruco_size=0.0635, config=config)
+    (prog,) = graphs.CACHE._programs.values()
+    (held,) = graphs.CACHE.stats()["held"]
+    assert sorted(held["pool_bytes_per_card"]) == [str(c) for c in cards]
+    assert all(n > 0 for n in held["pool_bytes_per_card"].values())
+    prob = dist_lm.TagShardedProblem(mesh, *args[3:7], args[2].shape[0],
+                                     dtype=torch.float32)
+    eager = graphs.Program(dist_lm._lm_stages(prob, 0.0635, config,
+                                              args[1].shape[0]), False)
+    eager.load(**{k: graphs._clone(v) for k, v in prog.t.items() if k in (
+        "in_camera", "in_cap_poses", "in_tag_poses", "cap_idx", "tag_idx",
+        "corners", "block_mask", "cam_active", "cap_active", "tag_active")})
+    for c in cards:
+        torch.cuda.synchronize(c)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for p in (eager, prog):
+            for name in ("setup", "step", "accept", "step", "reject"):
+                p.run(name)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for c in cards:
+        torch.cuda.synchronize(c)
+    for k in ("camera", "cap_poses", "lam", "nu", "cost"):
+        assert torch.equal(prog.t[k], eager.t[k]), k
+    assert all(torch.equal(g, e) for g, e in zip(prog.t["tag_poses"],
+                                                 eager.t["tag_poses"]))
+    graphs.CACHE.clear()
+
+
+def test_spread_mesh_solve_equals_eager():
+    """A room-16-sized map solved with its tags over two cards: the
+    graphed seeds and LM give the eager stages' map bit for bit, one
+    capture of each."""
+    from ar_slam_tpu_torch.config import ArSlamConfig
+    from ar_slam_tpu_torch.parallel import block_mesh
+    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch.solve.batch import solve
+    from ar_slam_tpu_torch.utils.synthetic import make_synthetic_map
+
+    cards = _cards(2)
+    out = {}
+    for graphed in (False, True):
+        graphs.CACHE.clear()
+        store, _ = make_synthetic_map(n_tags=24, n_caps=16, seed=5,
+                                      noise_px=0.3)
+        summary = solve(store, ArSlamConfig(), graphs=graphed,
+                        mesh=block_mesh(devices=cards))
+        out[graphed] = (summary, [c.inv_pose for c in store.captures],
+                        [t.pose for t in store.arucos], store.camera.params)
+        stats = graphs.CACHE.stats()
+    assert out[True][0] == out[False][0] and out[True][0]["rmse"] < 1.0
+    for g, e in zip(out[True][1:], out[False][1:]):
+        assert np.array_equal(np.asarray(g), np.asarray(e))
+    assert stats["captures"] == 2 and stats["programs"] == 2
+    graphs.CACHE.clear()
+
+
+@pytest.mark.parametrize("custom", [False, True])
+def test_graphed_flat_lm_equals_eager(dev, custom):
+    """lm_solve without bounds (the flat hooks) and with an assemble_fn
+    replays CUDA graphs with the eager loop's results bit for bit (its
+    sums in a fixed order), budgets 3 then 12 through one capture, and
+    host-stepped calls (lam0 / nu0) the same."""
+    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch.solve.lm import lm_solve
+    from ar_slam_tpu_torch.solve.schur import assemble
+
+    graphs.CACHE.clear()
+    args, kw = _lm_case(dev, 120, 40, "dense")
+    kw = dict(aruco_size=kw["aruco_size"], config=kw["config"])
+    if custom:
+        kw.update(assemble_fn=assemble, obs_per_tag=16)
+    for budget, extra in ((3, {}), (12, {}), (1, dict(lam0=3e-3, nu0=8.0))):
+        ref = lm_solve(*args, iter_budget=budget, graphs=False, **extra,
+                       **kw)
+        got = lm_solve(*args, iter_budget=budget, **extra, **kw)
+        torch.cuda.synchronize()
+        _equal_solves(got, ref)
+        assert got[3]["iterations"] >= 1
+    stats = graphs.CACHE.stats()
+    assert stats["captures"] == 1 and stats["replays"] > 0
+    graphs.CACHE.clear()
+
+
+def test_assemble_fn_reading_the_host_raises(dev):
+    """An assemble_fn that reads a value to the host cannot be captured:
+    the solve raises, naming it."""
+    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch.solve.lm import lm_solve
+    from ar_slam_tpu_torch.solve.schur import assemble
+
+    def reads_host(*a):
+        float(a[0].sum())
+        return assemble(*a)
+
+    graphs.CACHE.clear()
+    args, kw = _lm_case(dev, 60, 20, "dense")
+    kw = dict(aruco_size=0.0635, config=kw["config"], iter_budget=2)
+    with pytest.raises(RuntimeError, match="reads_host"):
+        lm_solve(*args, assemble_fn=reads_host, **kw)
+    # the failed capture left its pool: the next program captures into it
+    got = lm_solve(*args, assemble_fn=assemble, **kw)
+    ref = lm_solve(*args, assemble_fn=assemble, graphs=False, **kw)
+    torch.cuda.synchronize()
+    _equal_solves(got, ref)
+    assert graphs.CACHE.captures == 1
+    graphs.CACHE.clear()
+
+
+def test_progress_replays_graphs(dev, capsys):
+    """Host-stepped progress on the card: each printed iteration is a
+    load and replays of the LM program, its cost bit for bit the eager
+    stepping's."""
+    import dataclasses
+
+    from ar_slam_tpu_torch.config import ArSlamConfig
+    from ar_slam_tpu_torch.solve import batch, graphs
+    from ar_slam_tpu_torch.utils.synthetic import make_synthetic_map
+
+    config = ArSlamConfig()
+    config = dataclasses.replace(config, solver=dataclasses.replace(
+        config.solver, minimizer_progress_to_stdout=True))
+    costs = {}
+    orig = batch.lm_solve
+    for graphed in (False, True):
+        graphs.CACHE.clear()
+        costs[graphed] = []
+
+        def rec(*a, **k):
+            out = orig(*a, **k)
+            costs[graphed].append(float(out[3]["cost"]))
+            return out
+
+        store, _ = make_synthetic_map(n_tags=16, n_caps=6, seed=3,
+                                      noise_px=0.3)
+        batch.lm_solve = rec
+        try:
+            batch.solve(store, config, dtype=torch.float64, device=dev,
+                        graphs=graphed)
+        finally:
+            batch.lm_solve = orig
+        stats = graphs.CACHE.stats()
+    capsys.readouterr()
+    assert costs[True] == costs[False] and len(costs[True]) >= 2
+    assert stats["kinds"]["lm"]["replays"] >= len(costs[True])
+    graphs.CACHE.clear()
+
+
 @pytest.fixture(scope="module")
 def scenes():
     """Rendered frames of chip_smoke's cells: 8 of room-16 (1020x768:

@@ -245,14 +245,17 @@ def test_mesh_stages_read_nothing_back(arrs, monkeypatch, solver):
 
 
 def test_graphed_mesh_is_a_rule_of_layout():
-    """Graphs need every local shard on one card: ``[cuda:0] * k``
-    replays them; shards spread over cards, the CPU and ``graphs=False``
-    run the stages eagerly; and a graphed program needs a card."""
+    """Graphs need a CUDA mesh and ``graphs``: shards on one card
+    (``[cuda:0] * k``) and shards spread over cards (``[cuda:0,
+    cuda:1]``, one graph a stage spanning them) replay them; the CPU and
+    ``graphs=False`` run the stages eagerly."""
     one = Mesh([torch.device("cuda", 0)] * 3)
+    spread = Mesh(["cuda:0", "cuda:1"])
     assert dist_lm.graphed_mesh(one) and dist_lm.graphed_mesh(
         Mesh([torch.device("cuda", 1)]))
+    assert dist_lm.graphed_mesh(spread)
     assert not dist_lm.graphed_mesh(one, graphs=False)
-    assert not dist_lm.graphed_mesh(Mesh(["cuda:0", "cuda:1"]))
+    assert not dist_lm.graphed_mesh(spread, graphs=False)
     assert not dist_lm.graphed_mesh(Mesh(["cpu"] * 2))
 
 
