@@ -43,8 +43,10 @@ def _is_yaml(fn: str) -> bool:
 
 def _maybe_print_metrics(args, engine) -> None:
     if getattr(args, "metrics", False):
-        print(json.dumps({"metrics": engine.metrics.summary()}),
-              file=sys.stderr)
+        from ar_slam_tpu_torch.utils.metrics import TRACE
+
+        print(json.dumps({"metrics": engine.metrics.summary(),
+                          "trace": TRACE.summary()}), file=sys.stderr)
 
 
 def _config(args):
@@ -496,7 +498,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "for the CPU)")
         sp.add_argument("--metrics", action="store_true",
                         help="print the per-stage metrics summary (counts "
-                             "and timings) as JSON on stderr at exit")
+                             "and timings) and the tracer's spans, device "
+                             "times, counters and host waits as JSON on "
+                             "stderr at exit")
         sp.add_argument("--parity", action="store_true",
                         help="reference-parity mode: fixed focal init 3000 "
                              "+ frontal-only single-anchor seeding")
@@ -517,7 +521,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "capture wave (always the last)")
         sp.add_argument("--profile", default="",
                         help="write a torch.profiler chrome trace of each "
-                             "solve (host and card) into this directory")
+                             "detection, localize and solve call (host, "
+                             "card and the program's spans) into this "
+                             "directory")
         sp.add_argument("--iterative-schur", action="store_true",
                         help="solve the reduced camera system with "
                              "implicit-Schur preconditioned CG instead of "
@@ -663,6 +669,10 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO,
                         format="[%(levelname)s] %(name)s: %(message)s")
     args = build_parser().parse_args(argv)
+    if getattr(args, "metrics", False):
+        from ar_slam_tpu_torch.utils.metrics import TRACE
+
+        TRACE.enabled = True
     _maybe_multihost(args)
     try:
         return args.fn(args)

@@ -178,7 +178,7 @@ class PipelineConfig:
     # periodic durable checkpoint cadence during long incremental runs
     # (map.yaml is the checkpoint format); 0 disables
     snapshot_every_s: float = 0.0
-    profile_trace_dir: str = ""  # jax.profiler trace output (xprof)
+    profile_trace_dir: str = ""  # torch.profiler chrome traces (--profile)
 
 
 @dataclass(frozen=True)

@@ -14,6 +14,7 @@ import torch
 
 from ar_slam_tpu_torch.device import resolve_device, resolve_dtype
 from ar_slam_tpu_torch.graph.store import MapStore
+from ar_slam_tpu_torch.utils.metrics import TRACE
 
 
 def store_from_jax(jax_store, native: bool | None = None) -> MapStore:
@@ -52,10 +53,14 @@ def arrays_from_numpy(block_arrays, device=None, dtype=None) -> dict:
     for name, v in block_arrays._asdict().items():
         if not isinstance(v, np.ndarray):
             out[name] = v
-        elif v.dtype == np.bool_:
-            out[name] = torch.as_tensor(v, device=device)
+            continue
+        if v.dtype == np.bool_:
+            dt = None
         elif np.issubdtype(v.dtype, np.integer):
-            out[name] = torch.as_tensor(v.astype(np.int64), device=device)
+            v, dt = v.astype(np.int64), None
         else:
-            out[name] = torch.as_tensor(v, device=device, dtype=dtype)
+            dt = dtype
+        # a blocking copy to the card
+        out[name] = TRACE.wait("arrays.upload", torch.as_tensor, v,
+                               device=device, dtype=dt)
     return out

@@ -509,13 +509,16 @@ def _detect_call(frames, params: DetectParams, dict_names: tuple, device,
     """One call of the detector's program: load the frames (an upload
     into the program's own buffer when graphed), run its stage, return
     copies of its outputs."""
+    kind = "detect"
+
     def make():
         return Program({"detect": _stage(params, dict_names, device)},
                        graphed, counted=COUNTED, pointers=POINTERS,
-                       label=f"detect {tuple(frames.shape)} {frames.dtype}")
+                       label=f"detect {tuple(frames.shape)} {frames.dtype}",
+                       kind=kind)
 
     if graphed:
-        prog = CACHE.get("detect", device, (tuple(frames.shape),
+        prog = CACHE.get(kind, device, (tuple(frames.shape),
                                             frames.dtype, params,
                                             dict_names), make)
     else:

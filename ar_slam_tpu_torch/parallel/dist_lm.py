@@ -522,13 +522,15 @@ def lm_solve_sharded(prob: TagShardedProblem, aruco_size, config: LMConfig,
     n_caps = cap_poses.shape[0]
     graphed = graphed_mesh(mesh, graphs)
 
+    kind = "mesh_lm"
+
     def make():
         return Program(_lm_stages(prob, aruco_size, config, n_caps), graphed,
-                       mesh=mesh)
+                       mesh=mesh, kind=kind)
 
     if graphed:
         cg = config.linear_solver == "cg"
-        prog = CACHE.get("mesh_lm", mesh.home, _signature(
+        prog = CACHE.get(kind, mesh.home, _signature(
             prob, cap_poses.dtype, n_caps, prob.obs_per_tag,
             prob.obs_per_cap,
             (prob.row_slots, prob.shard_rows, prob.shard_cap_rows) if cg
@@ -691,11 +693,13 @@ class DistWaveSolver:
                 t["corners"], t["tables"], **kw)
             return {"cap_poses": cap, "tag_poses": tag}
 
+        kind = "mesh_seed"
+
         def make():
-            return Program({"seed": seed}, graphed, mesh=mesh)
+            return Program({"seed": seed}, graphed, mesh=mesh, kind=kind)
 
         if graphed:
-            prog = CACHE.get("mesh_seed", mesh.home, _signature(
+            prog = CACHE.get(kind, mesh.home, _signature(
                 prob, cap_poses.dtype, cap_poses.shape[0], *tables.shape,
                 float(self.aruco_size), self.seed_mode), make)
             prog.counted = ((mesh, "reductions"),)

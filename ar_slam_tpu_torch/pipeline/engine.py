@@ -22,7 +22,7 @@ from ar_slam_tpu_torch.device import resolve_device, resolve_dtype
 from ar_slam_tpu_torch.graph.store import MapStore
 from ar_slam_tpu_torch.graph.yamlio import load_yaml, save_yaml
 from ar_slam_tpu_torch.pipeline.ingest import ImageIngest
-from ar_slam_tpu_torch.utils.metrics import Metrics, profile_trace
+from ar_slam_tpu_torch.utils.metrics import TRACE, Metrics, profile_trace
 
 logger = logging.getLogger(__name__)
 
@@ -128,22 +128,24 @@ class ArSlamEngine:
         path)]."""
         if not caps:
             return []
-        images = np.stack([c.image for c in caps])
-        h, w = images.shape[1:]
-        dict_names = tuple(self.config.detect.dictionaries)
-        max_side = self.config.detect.max_side
-        scale = 1.0
-        det_images = images
-        if max_side and max(h, w) > max_side:
-            scale = max_side / max(h, w)
-            from PIL import Image as _Image
+        with TRACE.span("engine.stack"):
+            images = np.stack([c.image for c in caps])
+            h, w = images.shape[1:]
+            dict_names = tuple(self.config.detect.dictionaries)
+            max_side = self.config.detect.max_side
+            scale = 1.0
+            det_images = images
+            if max_side and max(h, w) > max_side:
+                scale = max_side / max(h, w)
+                from PIL import Image as _Image
 
-            det_images = np.stack([
-                np.asarray(_Image.fromarray(img).resize(
-                    (int(round(w * scale)), int(round(h * scale))),
-                    _Image.BILINEAR)) for img in images])
-            logger.info("detection at %dx%d (scale %.3f) for %dx%d input",
-                        det_images.shape[2], det_images.shape[1], scale, w, h)
+                det_images = np.stack([
+                    np.asarray(_Image.fromarray(img).resize(
+                        (int(round(w * scale)), int(round(h * scale))),
+                        _Image.BILINEAR)) for img in images])
+                logger.info("detection at %dx%d (scale %.3f) for %dx%d "
+                            "input", det_images.shape[2],
+                            det_images.shape[1], scale, w, h)
         with self.metrics.timer("detect"):
             per_image = self._run_detector(det_images, dict_names)
         if scale != 1.0:
@@ -205,6 +207,7 @@ class ArSlamEngine:
         center = np.array([w / 2.0, h / 2.0])
         per_image = [{f"aruco_{n}": [] for n in dict_names}
                      for _ in range(len(images))]
+        TRACE.count("detect.photos", len(images))
         if not self.use_device_detector:
             from ar_slam_tpu_torch.detect.reference import detect_markers
 
@@ -221,12 +224,13 @@ class ArSlamEngine:
         # (a CUDA graph's capture on the card), and a serve loop sees
         # arbitrary sizes
         n = len(images)
-        n_pad = 1
-        while n_pad < n:
-            n_pad *= 2
-        if n_pad > n:
-            images = np.concatenate([images, np.zeros(
-                (n_pad - n, *images.shape[1:]), dtype=images.dtype)])
+        with TRACE.span("engine.pad"):
+            n_pad = 1
+            while n_pad < n:
+                n_pad *= 2
+            if n_pad > n:
+                images = np.concatenate([images, np.zeros(
+                    (n_pad - n, *images.shape[1:]), dtype=images.dtype)])
         if self.detect_mesh is not None:
             from ar_slam_tpu_torch.parallel.detect import detect_batch_sharded
 
@@ -235,14 +239,17 @@ class ArSlamEngine:
         else:
             out = detect_batch(images, params=params, dict_names=dict_names,
                                device=self.device)
-        for name in dict_names:
-            ids, corners, valid = (out[name][key][:n].cpu().numpy()
-                                   for key in ("ids", "corners", "valid"))
-            for i in range(len(per_image)):
-                for k in np.nonzero(valid[i])[0]:
-                    per_image[i][f"aruco_{name}"].append(
-                        (f"aruco_{name}_{int(ids[i][k])}",
-                         corners[i][k] - center))
+        reads = {name: [TRACE.wait("detect.out", out[name][key][:n].cpu)
+                        for key in ("ids", "corners", "valid")]
+                 for name in dict_names}
+        with TRACE.span("engine.unpack"):
+            for name, read in reads.items():
+                ids, corners, valid = (r.numpy() for r in read)
+                for i in range(len(per_image)):
+                    for k in np.nonzero(valid[i])[0]:
+                        per_image[i][f"aruco_{name}"].append(
+                            (f"aruco_{name}_{int(ids[i][k])}",
+                             corners[i][k] - center))
         return per_image
 
     def add_images(self, paths: list[str]) -> list[int]:
@@ -254,14 +261,16 @@ class ArSlamEngine:
     def add_decoded(self, caps) -> list[int]:
         """``add_images`` over already-ingested captures (see
         ``detect_decoded``).  Returns the indices of the captures added."""
-        added = []
-        for uid, by_dict, size, path in self.detect_decoded(caps):
-            idx = self.store.add_detections(
-                uid, [d for dets in by_dict.values() for d in dets], size,
-                path)
-            if idx is not None:
-                added.append(idx)
-        return added
+        with profile_trace(self.config.pipeline.profile_trace_dir):
+            added = []
+            for uid, by_dict, size, path in self.detect_decoded(caps):
+                with TRACE.span("store.add"):
+                    idx = self.store.add_detections(
+                        uid, [d for dets in by_dict.values() for d in dets],
+                        size, path)
+                if idx is not None:
+                    added.append(idx)
+            return added
 
     def localize(self, paths: list[str]) -> dict:
         """Localize new images against the frozen current map (≙ ar_loc)."""
@@ -273,11 +282,12 @@ class ArSlamEngine:
         """``localize`` over already-ingested captures."""
         from ar_slam_tpu_torch.solve.localize import localize_many
 
-        first = self.store.next_capture_index
-        self.add_decoded(caps)
-        with self.metrics.timer("localize"):
-            out = localize_many(self.store, first, self.config,
-                                dtype=self.dtype, device=self.device)
+        with profile_trace(self.config.pipeline.profile_trace_dir):
+            first = self.store.next_capture_index
+            self.add_decoded(caps)
+            with self.metrics.timer("localize"):
+                out = localize_many(self.store, first, self.config,
+                                    dtype=self.dtype, device=self.device)
         self.metrics.count("captures_localized", out.get("localized", 0))
         return out
 
@@ -298,7 +308,7 @@ class ArSlamEngine:
                 profile_trace(self.config.pipeline.profile_trace_dir):
             out = fn(self.store, self.config, dtype=self.dtype,
                      device=self.device)
-        self.metrics.count("captures_solved", out.get("waves", 0))
+        self.metrics.count("waves_solved", out.get("waves", 0))
         self._maybe_snapshot()
         return out
 

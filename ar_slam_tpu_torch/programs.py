@@ -52,6 +52,14 @@ one executable: each shard's work on a branch stream of its own
 (``Branches``, through ``parallel.Mesh.map``), every other card on a
 stream forked from the capture stream, the copies between cards inside
 the graph, and a memory pool on each card.
+
+Traced (``utils/metrics.TRACE``), a program of kind ``k`` records the
+spans ``program.k.load`` and ``program.k.<stage>`` (a graphed load and
+replay with the device time of CUDA events around them), the counters
+``program.k.bytes_h2d`` and ``.bytes_d2d`` (the bytes a graphed load
+copies in, by where their source lives) and the host wait ``k.upload`` (a
+blocking copy from the host).  A capture is recorded once, in
+``CACHE.capture_ms``.
 """
 
 from __future__ import annotations
@@ -61,6 +69,8 @@ import threading
 import time
 
 import torch
+
+from ar_slam_tpu_torch.utils.metrics import TRACE
 
 WARMUP_ROUNDS = 2
 # kinds that keep one program per signature, and how many per card
@@ -222,6 +232,16 @@ def _copy_into(dst, src) -> None:
             _copy_into(d, s)
 
 
+def _nbytes(x, host: bool) -> int:
+    """The bytes of ``x`` (as ``_copy_into`` takes it) in the tensors
+    that live on the host (``host``) or on a card."""
+    if isinstance(x, torch.Tensor):
+        return x.nbytes if (x.device.type == "cpu") == host else 0
+    if isinstance(x, (tuple, list)):
+        return sum(_nbytes(v, host) for v in x)
+    return 0
+
+
 def _clone(x, device=None):
     """A copy of ``x`` (as ``_copy_into`` takes it) in memory of its own,
     on ``device`` (default: where each tensor is); the items of a list (a
@@ -327,9 +347,16 @@ class Program:
     current streams (the inputs' copies), which then wait for it."""
 
     def __init__(self, stages: dict, graphed: bool, counted=(),
-                 pointers=(), label: str = "", mesh=None):
+                 pointers=(), label: str = "", mesh=None, kind: str = ""):
         self.stages = stages  # in capture order
         self.graphed = graphed
+        self.kind = kind
+        # the tracer's names: spans program.<kind>.<stage> and .load, the
+        # host wait <kind>.upload, the counters of the bytes copied in
+        self.names = {s: f"program.{kind}.{s}" for s in (*stages, "load")}
+        self.names.update(upload=f"{kind}.upload",
+                          h2d=f"program.{kind}.bytes_h2d",
+                          d2d=f"program.{kind}.bytes_d2d")
         self.counted = tuple(counted)
         self.pointers = tuple(pointers)
         self.label = label
@@ -354,27 +381,47 @@ class Program:
         """The call's inputs: copied into the program's own tensors when
         graphed (made at the first call, on the program's card or, a
         mesh's shards, each on its own, and captured then), taken as they
-        are eagerly."""
+        are eagerly.  Traced: the span ``program.<kind>.load`` (with the
+        copies' device time), and when graphed the bytes copied in by where
+        their source lives and each copy from the host a host wait
+        ``<kind>.upload``; the first call's capture is timed by
+        ``CACHE.capture_ms`` alone."""
+        names = self.names
         if not self.graphed:
-            self.t.update(inputs)
+            with TRACE.span(names["load"]):
+                self.t.update(inputs)
             return
-        for k, v in inputs.items():
-            if k in self.t:
-                _copy_into(self.t[k], v)
-            else:
-                self.t[k] = _clone(v, self.key[1])
+        with TRACE.span(names["load"], self.key[1]):
+            for k, v in inputs.items():
+                if isinstance(v, torch.Tensor) and v.device.type == "cpu":
+                    TRACE.wait(names["upload"], self._load, k, v)
+                else:
+                    self._load(k, v)
+        if TRACE.on:
+            TRACE.count(names["h2d"],
+                        sum(_nbytes(v, True) for v in inputs.values()))
+            TRACE.count(names["d2d"],
+                        sum(_nbytes(v, False) for v in inputs.values()))
         if not self.graphs:
             self._capture()
 
+    def _load(self, k: str, v) -> None:
+        if k in self.t:
+            _copy_into(self.t[k], v)
+        else:
+            self.t[k] = _clone(v, self.key[1])
+
     def run(self, name: str) -> None:
         if not self.graphed:
-            self.t.update(self.stages[name](self.t))
+            with TRACE.span(self.names[name]):
+                self.t.update(self.stages[name](self.t))
             return
         home, *others = self._cards()
         for d in others:
             torch.cuda.current_stream(home).wait_stream(
                 torch.cuda.current_stream(d))
-        self.graphs[name].replay()
+        with TRACE.span(self.names[name], home):
+            self.graphs[name].replay()
         for d in others:
             torch.cuda.current_stream(d).wait_stream(
                 torch.cuda.current_stream(home))

@@ -56,6 +56,7 @@ from ar_slam_tpu_torch.graph.arrays import (bucket_size, export_arrays,
 from ar_slam_tpu_torch.graph.store import MapStore
 from ar_slam_tpu_torch.solve.lm import TERMINATION_REASONS, LMConfig, lm_solve
 from ar_slam_tpu_torch.solve.residuals import total_cost
+from ar_slam_tpu_torch.utils.metrics import TRACE
 
 logger = logging.getLogger(__name__)
 
@@ -139,11 +140,13 @@ def apply_wave_seeds_multi(camera, cap_poses, tag_poses, tag_idx, corners,
     block row.  On a CUDA device with ``graphs`` the stage replays a CUDA
     graph (solve/graphs.py), bit for bit the eager stage.  Returns new
     (cap_poses, tag_poses)."""
-    if slots is None:
-        slots = obs_bucket(max((len(x) for w in waves for x in w[2:]),
-                               default=1))
-    tables = torch.as_tensor(pack_waves(waves, slots, w_min),
-                             device=corners.device)
+    with TRACE.span("solve.seed_inputs"):
+        if slots is None:
+            slots = obs_bucket(max((len(x) for w in waves for x in w[2:]),
+                                   default=1))
+        tables = pack_waves(waves, slots, w_min)
+    tables = TRACE.wait("solve.tables", torch.as_tensor, tables,
+                        device=corners.device)
     kw = dict(aruco_size=aruco_size, seed_mode=seed_mode)
     if graphs and corners.device.type == "cuda":
         from ar_slam_tpu_torch.solve.graphs import seed_waves_graphed
@@ -214,7 +217,8 @@ class _WaveRunner:
         # optimize_every bucket, so one seed program serves every flush
         self.w_fixed = bucket_size(
             max(getattr(solver_cfg, "optimize_every", 1), 1), floor=1)
-        arrs = export_arrays(store, dtype=np.float64)
+        with TRACE.span("solve.export"):
+            arrs = export_arrays(store, dtype=np.float64)
         self.c_pad = arrs.cap_poses.shape[0]
         self.t_pad = arrs.tag_poses.shape[0]
         self.obs_per_tag = obs_bucket(
@@ -270,9 +274,12 @@ class _WaveRunner:
     def _masks(self, *arrays) -> list:
         """Host bool arrays on the device in one upload (views of one
         buffer).  The first is the camera's flag pair (True, False)."""
-        arrays = [np.array([True, False])] + [np.asarray(a, dtype=bool)
-                                              for a in arrays]
-        flat = torch.as_tensor(np.concatenate(arrays), device=self.device)
+        with TRACE.span("solve.lm_inputs"):
+            arrays = [np.array([True, False])] + [
+                np.asarray(a, dtype=bool) for a in arrays]
+            flat = np.concatenate(arrays)
+        flat = TRACE.wait("solve.masks", torch.as_tensor, flat,
+                          device=self.device)
         return list(torch.split(flat, [a.size for a in arrays]))
 
     def _lm(self, cam_active, cap_active, tag_active, enabled, budget,
@@ -313,23 +320,24 @@ class _WaveRunner:
         """Add one capture to the active problem and (optionally)
         re-optimize; optimize=False only queues its seeds."""
         store = self.store
-        rows, tags, anchors = [], [], []
-        self.active_caps.add(cap_index)
-        for bh in store.captures[cap_index].blocks:
-            self.active_blocks[bh] = True
-            t = store.blocks[bh].tag_idx
-            self.active_tags[t] = True
-            if not self.tag_initialized[t]:
-                self.tag_initialized[t] = True
-                rows.append(bh)
-                tags.append(t)
-            else:
-                anchors.append(bh)
-        seed_row = -1 if seed_block is None else int(seed_block)
-        if seed_row >= 0 and self.seed_anchors != "multi":
-            anchors = [seed_row]  # reference parity: the init_block only
-        self._pending.append((cap_index, seed_row, rows, tags,
-                              anchors if seed_row >= 0 else []))
+        with TRACE.span("solve.plan"):
+            rows, tags, anchors = [], [], []
+            self.active_caps.add(cap_index)
+            for bh in store.captures[cap_index].blocks:
+                self.active_blocks[bh] = True
+                t = store.blocks[bh].tag_idx
+                self.active_tags[t] = True
+                if not self.tag_initialized[t]:
+                    self.tag_initialized[t] = True
+                    rows.append(bh)
+                    tags.append(t)
+                else:
+                    anchors.append(bh)
+            seed_row = -1 if seed_block is None else int(seed_block)
+            if seed_row >= 0 and self.seed_anchors != "multi":
+                anchors = [seed_row]  # reference parity: the init_block only
+            self._pending.append((cap_index, seed_row, rows, tags,
+                                  anchors if seed_row >= 0 else []))
         if optimize:
             return self._flush(lm_enabled=True)
         return None
@@ -339,15 +347,16 @@ class _WaveRunner:
         if not self._pending:
             return self.last_info
         budget = int(self.wave_budget if iter_budget is None else iter_budget)
-        waves = list(self._pending)
-        self._pending.clear()
-        warm_caps = np.zeros(self.c_pad, dtype=bool)
-        warm_tags = np.zeros(self.t_pad, dtype=bool)
-        for cap_index, _, _, tags, _ in waves:
-            warm_caps[cap_index] = True
-            warm_tags[tags] = True
-        cap_active = np.zeros(self.c_pad, dtype=bool)
-        cap_active[list(self.active_caps)] = True
+        with TRACE.span("solve.plan"):
+            waves = list(self._pending)
+            self._pending.clear()
+            warm_caps = np.zeros(self.c_pad, dtype=bool)
+            warm_tags = np.zeros(self.t_pad, dtype=bool)
+            for cap_index, _, _, tags, _ in waves:
+                warm_caps[cap_index] = True
+                warm_tags[tags] = True
+            cap_active = np.zeros(self.c_pad, dtype=bool)
+            cap_active[list(self.active_caps)] = True
 
         if self._dist is not None:
             self.cap_poses, self.tag_poses = self._dist.seed_waves(
@@ -397,22 +406,26 @@ class _WaveRunner:
         print("iter      cost      cost_change  |gradient|  "
               "tr_radius   iter_time  total_time")
         info = None
+
+        def read(kind, x):
+            return TRACE.wait("solve.progress", kind, x)
+
         for it in range(min(budget, self.config.max_iterations)):
             t0 = time.time()
             info = self._lm(cam_active, cap_active, tag_active, True, 1,
                             block_mask, lam0=lam, nu0=nu)
-            cost = float(info["cost"])
-            lam, nu = float(info["lambda"]), float(info["nu"])
+            cost = read(float, info["cost"])
+            lam, nu = read(float, info["lambda"]), read(float, info["nu"])
             dcost = 0.0 if prev_cost is None else prev_cost - cost
             now = time.time()
             print(f"{it:4d}  {cost:11.6e}  {dcost:11.2e}  "
-                  f"{float(info['grad_max']):11.2e}  "
+                  f"{read(float, info['grad_max']):11.2e}  "
                   f"{1.0 / max(lam, 1e-30):10.2e}  {now - t0:9.2e}  "
                   f"{now - t_start:9.2e}")
             prev_cost = cost
-            if bool(info["converged"]):
+            if read(bool, info["converged"]):
                 print("terminating: " + TERMINATION_REASONS.get(
-                    int(info["termination"]), "?"))
+                    read(int, info["termination"]), "?"))
                 break
         if info is not None:
             info = {**info, "iterations": it + 1}
@@ -423,7 +436,7 @@ class _WaveRunner:
         path all-gathers them)."""
         if self._dist is not None:
             return self._prob.tags_to_old(self.tag_poses, self.t_pad)
-        return self.tag_poses.cpu().numpy()
+        return TRACE.wait("solve.out", self.tag_poses.cpu).numpy()
 
     def true_sq_cost(self) -> float:
         """0.5 * sum of RAW squared residuals on the current state."""
@@ -431,22 +444,26 @@ class _WaveRunner:
             t = arrays_from_numpy(self.arrs._replace(
                 tag_poses=self._tags_old()), self._prob.mesh.home,
                 self.cap_poses.dtype)
-            return float(total_cost(
+            return TRACE.wait("solve.cost", float, total_cost(
                 self.camera, self.cap_poses, t["tag_poses"], t["cap_idx"],
                 t["tag_idx"], t["corners"], self._mask(self.active_blocks),
                 self.aruco_size, self.config.enable_distortion))
-        return float(total_cost(
+        return TRACE.wait("solve.cost", float, total_cost(
             self.camera, self.cap_poses, self.tag_poses, self.cap_idx,
             self.tag_idx, self.corners, self._mask(self.active_blocks),
             self.aruco_size, self.config.enable_distortion))
 
     def finish(self):
         self._flush(lm_enabled=False)
-        write_back(self.store, self.camera.cpu().numpy(),
-                   self.cap_poses.cpu().numpy(), self._tags_old())
+        camera, cap_poses = (TRACE.wait("solve.out", x.cpu).numpy()
+                             for x in (self.camera, self.cap_poses))
+        tag_poses = self._tags_old()
+        with TRACE.span("solve.writeback"):
+            write_back(self.store, camera, cap_poses, tag_poses)
         if self.last_info is not None:
             logger.info("solve done: cost=%s iters(last wave)=%s",
-                        float(self.last_info["cost"]),
+                        TRACE.wait("solve.cost", float,
+                                   self.last_info["cost"]),
                         int(self.last_info["iterations"]))
 
 
@@ -484,15 +501,18 @@ def solve(store: MapStore, config=None, dtype=None, device=None,
     config, dtype, device, mesh = _resolve(config, dtype, device, mesh)
     if not store.captures:
         return {"waves": 0}
-    _maybe_calibrate_focal(store, config)
-    for cap in store.captures:
-        cap.init_block = None
+    with TRACE.span("solve.calibrate"):
+        _maybe_calibrate_focal(store, config)
+    with TRACE.span("solve.plan"):
+        for cap in store.captures:
+            cap.init_block = None
 
-    seed = store.capture_with_most_blocks()
-    order = store.connected_component(seed)
-    if len(order) < len(store.captures):
-        logger.warning("%d captures are disconnected from the seed component "
-                       "and stay unsolved", len(store.captures) - len(order))
+        seed = store.capture_with_most_blocks()
+        order = store.connected_component(seed)
+        if len(order) < len(store.captures):
+            logger.warning("%d captures are disconnected from the seed "
+                           "component and stay unsolved",
+                           len(store.captures) - len(order))
 
     runner = _WaveRunner(store, config.solver, config.aruco_size, dtype,
                          device, camera_cfg=config.camera,
@@ -517,7 +537,7 @@ def solve(store: MapStore, config=None, dtype=None, device=None,
     runner.polish(getattr(config.solver, "final_polish_iterations", 0))
     runner.finish()
 
-    cost = float(runner.last_info["cost"])
+    cost = TRACE.wait("solve.cost", float, runner.last_info["cost"])
     return {"waves": len(order), "cost": cost,
             "rmse": _rmse(runner, config, cost)}
 
@@ -578,7 +598,8 @@ def solve_incremental(store: MapStore, config=None, dtype=None,
     runner.finish()
     out = {"waves": waves, "unsolved": len(store.unsolved_captures)}
     if runner.last_info is not None:
-        out["cost"] = float(runner.last_info["cost"])
+        out["cost"] = TRACE.wait("solve.cost", float,
+                                 runner.last_info["cost"])
         out["rmse"] = _rmse(runner, config, out["cost"])
     return out
 

@@ -62,6 +62,7 @@ from ar_slam_tpu_torch.solve.lm import (LMConfig, LMState, _grad_inf_norm,
                                         lm_step)
 from ar_slam_tpu_torch.solve.batch import seed_waves
 from ar_slam_tpu_torch.solve.localize import localize_init, localize_iteration
+from ar_slam_tpu_torch.utils.metrics import TRACE
 
 _STATE = ("camera", "cap_poses", "tag_poses", "lam", "nu", "cost",
           "converged", "term")
@@ -100,11 +101,12 @@ def lm_iterate(prog: Program, config: LMConfig, iter_budget=None) -> int:
     budget = min(config.max_iterations if iter_budget is None
                  else int(iter_budget), config.max_iterations)
     iteration = 0
-    if bool(t["converged"]):
+    if TRACE.wait("lm.converged", bool, t["converged"]):
         return iteration
     while iteration < budget:
         prog.run("step")
-        before, accepting, after = t["step"].flags.tolist()
+        before, accepting, after = TRACE.wait("lm.flags",
+                                              t["step"].flags.tolist)
         if before:
             break
         prog.run("accept" if accepting else "reject")
@@ -183,15 +185,17 @@ def lm_solve_graphed(camera, cap_poses, tag_poses, cap_idx, tag_idx, corners,
         cam_active = torch.full((), bool(cam_active), dtype=torch.bool,
                                 device=dev)
 
+    kind = "lm"
+
     def make():
         return Program(_lm_stages(aruco_size, config, n_caps, n_tags, bounds,
-                                  assemble_fn), graphed)
+                                  assemble_fn), graphed, kind=kind)
 
     if graphed:
         # the flat hooks keyed by their assemble_fn, as JAX's static_argnames
         hooks = ("flat", assemble_fn) if bounds is None else tuple(
             bounds.items())
-        prog = CACHE.get("lm", dev, (cap_poses.dtype, n_caps, n_tags,
+        prog = CACHE.get(kind, dev, (cap_poses.dtype, n_caps, n_tags,
                                      cap_idx.shape[0], hooks, config,
                                      float(aruco_size)), make)
     else:
@@ -231,11 +235,13 @@ def seed_waves_graphed(camera, cap_poses, tag_poses, tag_idx, corners,
                               seed_mode=seed_mode)
         return {"cap_poses": cap, "tag_poses": tag}
 
+    kind = "seed"
+
     def make():
-        return Program({"seed": seed}, graphed)
+        return Program({"seed": seed}, graphed, kind=kind)
 
     if graphed:
-        prog = CACHE.get("seed", dev, (
+        prog = CACHE.get(kind, dev, (
             cap_poses.dtype, cap_poses.shape[0], tag_poses.shape[0],
             corners.shape[0], *tables.shape, float(aruco_size), seed_mode),
             make)
@@ -275,11 +281,14 @@ def localize_graphed(camera, tag_poses, q_tag_idx, q_corners, q_block_mask,
             config=config)
         return {**new, "any_active": (~new["conv"]).any()}
 
+    kind = "localize"
+
     def make():
-        return Program({"init": init, "iterate": iterate}, graphed)
+        return Program({"init": init, "iterate": iterate}, graphed,
+                       kind=kind)
 
     if graphed:
-        prog = CACHE.get("localize", dev, (
+        prog = CACHE.get(kind, dev, (
             camera.dtype, tuple(q_tag_idx.shape), tag_poses.shape[0], config,
             float(aruco_size), seed_mode), make)
     else:
@@ -289,10 +298,10 @@ def localize_graphed(camera, tag_poses, q_tag_idx, q_corners, q_block_mask,
               q_seed_slot=q_seed_slot)
     t = prog.t
     prog.run("init")
-    active = bool(t["any_active"])
+    active = TRACE.wait("localize.active", bool, t["any_active"])
     for _ in range(config.max_iterations):
         if not active:
             break
         prog.run("iterate")
-        active = bool(t["any_active"])
+        active = TRACE.wait("localize.active", bool, t["any_active"])
     return prog.out(t["pose"]), prog.out(t["cost"]), prog.out(t["it"])

@@ -33,6 +33,7 @@ from ar_slam_tpu_torch.solve.schur import (assemble, assemble_grouped,
                                            quad_form_flat, quad_form_grouped,
                                            schur_solve, schur_solve_grouped,
                                            schur_solve_grouped_cg)
+from ar_slam_tpu_torch.utils.metrics import TRACE
 
 
 class LMConfig(NamedTuple):
@@ -289,7 +290,8 @@ def lm_core(camera, cap_poses, tag_poses, cam_active, cap_active, tag_active,
     cost0 = state.cost
     budget = min(config.max_iterations if iter_budget is None
                  else int(iter_budget), config.max_iterations)
-    while state.iteration < budget and not bool(state.converged):
+    while state.iteration < budget and not TRACE.wait(
+            "lm.converged", bool, state.converged):
         if stateful:
             d_cam, d_cap, d_tag, sol = solve_fn(eqs, state.lam, sol)
         else:
@@ -310,7 +312,8 @@ def lm_core(camera, cap_poses, tag_poses, cam_active, cap_active, tag_active,
          converged_fp) = _decide(state, new_cost, g_dot_d, jd_sq, d_cam,
                                  d_cap, tag_step_sq, tag_x_sq, config)
 
-        accepted, done_fp = torch.stack([accept, converged_fp]).tolist()
+        accepted, done_fp = TRACE.wait(
+            "lm.flags", torch.stack([accept, converged_fp]).tolist)
         g_conv = torch.zeros((), dtype=torch.bool, device=accept.device)
         if quality_lin_fn is not None:
             # the speculative relinearization: kept on accept

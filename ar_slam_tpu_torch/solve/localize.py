@@ -27,6 +27,7 @@ from ar_slam_tpu_torch.core.seeding import seed_capture_pose
 from ar_slam_tpu_torch.device import resolve_device, resolve_dtype
 from ar_slam_tpu_torch.graph.store import MapStore
 from ar_slam_tpu_torch.solve.lm import LMConfig
+from ar_slam_tpu_torch.utils.metrics import TRACE
 
 logger = logging.getLogger(__name__)
 
@@ -138,7 +139,7 @@ def localize_batch(camera, tag_poses, q_tag_idx, q_corners, q_block_mask,
                       q_seed_slot, aruco_size=aruco_size, config=config,
                       seed_mode=seed_mode)
     for _ in range(config.max_iterations):
-        if not bool((~s["conv"]).any()):
+        if not TRACE.wait("localize.active", bool, (~s["conv"]).any()):
             break
         s.update(localize_iteration(camera, q_corners, **s,
                                     aruco_size=aruco_size, config=config))
@@ -172,53 +173,55 @@ def localize_many(store: MapStore, first_loc_cap_idx: int, config=None,
     # (ar_slam_util.cpp:950-972); the default uses only map-known tags
     include_unknown = bool(getattr(config.solver, "localize_unknown_tags",
                                    False))
-    queries = []
-    status = {}
-    for cap in store.captures[first_loc_cap_idx:]:
-        # the seed block must be map-known either way (≙ the
-        # initCapturePose source block, ar_slam_util.cpp:911-927)
-        seed_block = None
-        map_blocks = []
-        for bh in cap.blocks:
-            tag = store.arucos[store.blocks[bh].tag_idx]
-            if tag_in_map(tag):
-                map_blocks.append(bh)
-                if seed_block is None:
-                    seed_block = bh
-            elif include_unknown:
-                map_blocks.append(bh)
-        if seed_block is None:
-            logger.warning("Cannot find connected ar tags for capture %d",
-                           cap.index)
-            status[cap.uid] = "disconnected"
-            continue
-        queries.append((cap, seed_block, map_blocks))
-        status[cap.uid] = "localized"
+    with TRACE.span("localize.gather"):
+        queries = []
+        status = {}
+        for cap in store.captures[first_loc_cap_idx:]:
+            # the seed block must be map-known either way (≙ the
+            # initCapturePose source block, ar_slam_util.cpp:911-927)
+            seed_block = None
+            map_blocks = []
+            for bh in cap.blocks:
+                tag = store.arucos[store.blocks[bh].tag_idx]
+                if tag_in_map(tag):
+                    map_blocks.append(bh)
+                    if seed_block is None:
+                        seed_block = bh
+                elif include_unknown:
+                    map_blocks.append(bh)
+            if seed_block is None:
+                logger.warning("Cannot find connected ar tags for capture %d",
+                               cap.index)
+                status[cap.uid] = "disconnected"
+                continue
+            queries.append((cap, seed_block, map_blocks))
+            status[cap.uid] = "localized"
 
-    if not queries:
-        return {"status": status, "localized": 0}
+        if not queries:
+            return {"status": status, "localized": 0}
 
-    # padded blocks are masked to exact zeros, so the width is the largest
-    # query's (the reference's bucketed widths change no result)
-    q, k = len(queries), max(len(mb) for _, _, mb in queries)
-    q_tag_idx = np.zeros((q, k), dtype=np.int64)
-    q_corners = np.zeros((q, k, 4, 2), dtype=np.float64)
-    q_mask = np.zeros((q, k), dtype=bool)
-    q_seed = np.zeros(q, dtype=np.int64)
-    for qi, (cap, seed_block, map_blocks) in enumerate(queries):
-        for ki, bh in enumerate(map_blocks):
-            block = store.blocks[bh]
-            q_tag_idx[qi, ki] = block.tag_idx
-            q_corners[qi, ki] = block.corners
-            q_mask[qi, ki] = True
-            if bh == seed_block:
-                q_seed[qi] = ki
-    tag_poses = np.zeros((max(len(store.arucos), 1), 6))
-    for tag in store.arucos:
-        tag_poses[tag.index] = tag.pose
+        # padded blocks are masked to exact zeros, so the width is the largest
+        # query's (the reference's bucketed widths change no result)
+        q, k = len(queries), max(len(mb) for _, _, mb in queries)
+        q_tag_idx = np.zeros((q, k), dtype=np.int64)
+        q_corners = np.zeros((q, k, 4, 2), dtype=np.float64)
+        q_mask = np.zeros((q, k), dtype=bool)
+        q_seed = np.zeros(q, dtype=np.int64)
+        for qi, (cap, seed_block, map_blocks) in enumerate(queries):
+            for ki, bh in enumerate(map_blocks):
+                block = store.blocks[bh]
+                q_tag_idx[qi, ki] = block.tag_idx
+                q_corners[qi, ki] = block.corners
+                q_mask[qi, ki] = True
+                if bh == seed_block:
+                    q_seed[qi] = ki
+        tag_poses = np.zeros((max(len(store.arucos), 1), 6))
+        for tag in store.arucos:
+            tag_poses[tag.index] = tag.pose
 
-    def dev(a, dt=None):
-        return torch.as_tensor(a, device=device, dtype=dt)
+    def dev(a, dt=None):  # a blocking copy to the card
+        return TRACE.wait("localize.upload", torch.as_tensor, a,
+                          device=device, dtype=dt)
 
     run = localize_batch
     if graphs and device.type == "cuda":
@@ -229,17 +232,17 @@ def localize_many(store: MapStore, first_loc_cap_idx: int, config=None,
         aruco_size=config.aruco_size,
         config=_lm_config(config.solver, config.camera),
         seed_mode=config.solver.seed_mode)
-    poses = poses.cpu().numpy()
-    costs = costs.cpu().numpy()
-    iters = iters.cpu().numpy()
-    for qi, (cap, _, _) in enumerate(queries):
-        cap.inv_pose[:] = poses[qi]
-    n_blocks = int(q_mask.sum())
-    return {
-        "status": status,
-        "localized": len(queries),
-        "cost": float(costs.sum()),
-        "rmse": float(np.sqrt(2.0 * costs.sum() / (8 * n_blocks))),
-        "iterations": {cap.uid: int(iters[qi])
-                       for qi, (cap, _, _) in enumerate(queries)},
-    }
+    poses, costs, iters = (TRACE.wait("localize.out", x.cpu).numpy()
+                           for x in (poses, costs, iters))
+    with TRACE.span("localize.writeback"):
+        for qi, (cap, _, _) in enumerate(queries):
+            cap.inv_pose[:] = poses[qi]
+        n_blocks = int(q_mask.sum())
+        return {
+            "status": status,
+            "localized": len(queries),
+            "cost": float(costs.sum()),
+            "rmse": float(np.sqrt(2.0 * costs.sum() / (8 * n_blocks))),
+            "iterations": {cap.uid: int(iters[qi])
+                           for qi, (cap, _, _) in enumerate(queries)},
+        }

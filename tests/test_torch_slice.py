@@ -121,7 +121,7 @@ def test_port_imports_without_jax_yaml_pil():
     assert res.stdout.strip() == "ok"
 
 
-COPIES = ["config.py", "graph/store.py", "graph/arrays.py", "graph/native.py",
+COPIES = ["graph/store.py", "graph/arrays.py", "graph/native.py",
           "pipeline/ingest.py", "pipeline/fast_decode.py",
           "pipeline/merge.py", "pipeline/messages.py", "pipeline/stream.py",
           "pipeline/service.py", "viz/export.py",
@@ -137,6 +137,10 @@ def _source(pkg, rel):
 
 # the only edits the port makes to its copies, as (original, copy) text
 EDITS = {
+    "config.py": [
+        ("""    profile_trace_dir: str = ""  # jax.profiler trace output (xprof)
+""", """    profile_trace_dir: str = ""  # torch.profiler chrome traces (--profile)
+""")],
     "graph/yamlio.py": [
         ("""import numpy as np
 import yaml
