@@ -23,9 +23,11 @@ version that the CPU runs use):
 On the card the whole detector is one compiled program, as the
 reference's jitted ``detect_batch`` is (ar_slam_tpu/detect/tpu_detect.py:
 695): a call is a load (the frames copied into the program's own uint8
-buffer) and one replay of the CUDA graph of the stage ``detect`` (every
-step above, K1-K4 inside), captured once per (card, batch shape, dtype,
-``DetectParams``, dictionaries) (``programs.py``).  Nothing in the stage
+buffer: host photos each copied straight into its frame, with no
+stacked host batch, the padding rows zeroed on the card) and one replay
+of the CUDA graph of the stage ``detect`` (every step above, K1-K4
+inside), captured once per (card, batch shape, dtype, ``DetectParams``,
+dictionaries) (``programs.py``).  Nothing in the stage
 reads the card from the host or makes a tensor from host data: the
 threshold and dictionary tables are on the card before the capture, and
 the kernel wrappers read only shapes.  ``graphs=False`` and the CPU run
@@ -467,12 +469,54 @@ def dict_tables(dict_names, device) -> dict:
     return _TABLES[key]
 
 
+def batch_shape(images) -> tuple:
+    """The (N, H, W) shape and the torch dtype of a batch of frames: an
+    (N, H, W) array or tensor, or a sequence of (H, W) arrays or tensors
+    of one shape and dtype.  Frames that differ raise ValueError, as
+    ``np.stack`` does."""
+    if isinstance(images, torch.Tensor):
+        return tuple(images.shape), images.dtype
+    if isinstance(images, np.ndarray):
+        return images.shape, _torch_dtype(images.dtype)
+    shapes = {tuple(np.shape(x)) for x in images}
+    dtypes = {_torch_dtype(x.dtype) for x in images}
+    if len(shapes) != 1 or len(dtypes) != 1:
+        raise ValueError("the frames of a batch must have one shape and "
+                         f"dtype, not {sorted(shapes)} "
+                         f"{sorted(map(str, dtypes))}")
+    return (len(images), *shapes.pop()), dtypes.pop()
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
+def _stacked(images, shape) -> torch.Tensor:
+    """The batch as one tensor of ``shape``, zero frames past the
+    images."""
+    if isinstance(images, (np.ndarray, torch.Tensor)):
+        frames = torch.as_tensor(images)
+    else:
+        frames = torch.from_numpy(np.stack([np.asarray(x) for x in images]))
+    if shape[0] > len(frames):
+        frames = torch.cat([frames, frames.new_zeros(
+            (shape[0] - len(frames), *shape[1:]))])
+    return frames
+
+
 def detect_batch(images, *, params: DetectParams = DetectParams(),
-                 dict_names=("4X4_50", "5X5_100"), device=None, graphs=None):
+                 dict_names=("4X4_50", "5X5_100"), device=None, graphs=None,
+                 pad_to=None):
     """Detect markers in a batch of grayscale images.
 
     Args:
-      images: (N, H, W) uint8/float grayscale, numpy or torch.
+      images: (N, H, W) uint8/float grayscale, numpy or torch, or the N
+        (H, W) images as a sequence of host arrays of one shape and dtype
+        (a photo each, as decoded: on the card each is copied straight
+        into its frame of the program's buffer, and no stacked host batch
+        is made).
       device: where to run (default: the card; raises without one unless
         "cpu" is asked for).  On a CUDA device the kernels run; on the CPU
         their plain versions.
@@ -481,51 +525,55 @@ def detect_batch(images, *, params: DetectParams = DetectParams(),
         ``params``, ``dict_names``), captured at its first call
         (``programs.CACHE``, kind ``"detect"``); False runs the same stage
         eagerly.  The CPU always runs it eagerly.
+      pad_to: run a batch of this many frames (at least N), the frames
+        past the N images zero (made on the card, copied from nowhere):
+        each batch shape is a program of its own, so a caller with
+        varying batch sizes pads to a few.
 
-    Returns {dict_name: {"ids" (N, K') int64 (-1 invalid), "corners"
-    (N, K', 4, 2) float32 pixel coords in canonical corner order, "valid"
-    (N, K') bool}}, tensors of their own (a later call does not overwrite
-    them).
+    Returns {dict_name: {"ids" (N', K') int64 (-1 invalid), "corners"
+    (N', K', 4, 2) float32 pixel coords in canonical corner order, "valid"
+    (N', K') bool}}, N' = max(N, pad_to), tensors of their own (a later
+    call does not overwrite them).
     """
     device = resolve_device(device)
-    frames = (images if isinstance(images, torch.Tensor)
-              else torch.as_tensor(np.asarray(images)))
+    shape, dtype = batch_shape(images)
+    shape = (max(shape[0], pad_to or 0), *shape[1:])
     graphed = device.type == "cuda" if graphs is None else bool(graphs)
     if graphed and device.type != "cuda":
         raise ValueError(f"CUDA graphs need a CUDA device, not {device}")
     if device.type != "cuda":
-        return _detect_call(frames, params, tuple(dict_names), device, False)
+        return _detect_call(images, shape, dtype, params, tuple(dict_names),
+                            device, False)
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     # the kernels launch on the current device's stream: make it the
     # frames' card (a mesh shard may live on any of them)
     with torch.cuda.device(device):
-        return _detect_call(frames, params, tuple(dict_names), device,
-                            graphed)
+        return _detect_call(images, shape, dtype, params, tuple(dict_names),
+                            device, graphed)
 
 
-def _detect_call(frames, params: DetectParams, dict_names: tuple, device,
-                 graphed: bool) -> dict:
-    """One call of the detector's program: load the frames (an upload
-    into the program's own buffer when graphed), run its stage, return
-    copies of its outputs."""
+def _detect_call(images, shape: tuple, dtype, params: DetectParams,
+                 dict_names: tuple, device, graphed: bool) -> dict:
+    """One call of the detector's program: load the frames (when graphed
+    an upload into the program's own buffer, a host frame at a time), run
+    its stage, return copies of its outputs."""
     kind = "detect"
 
     def make():
         return Program({"detect": _stage(params, dict_names, device)},
                        graphed, counted=COUNTED, pointers=POINTERS,
-                       label=f"detect {tuple(frames.shape)} {frames.dtype}",
-                       kind=kind)
+                       label=f"detect {shape} {dtype}", kind=kind,
+                       rows={"frames": (shape, dtype)})
 
     if graphed:
-        prog = CACHE.get(kind, device, (tuple(frames.shape),
-                                            frames.dtype, params,
-                                            dict_names), make)
+        prog = CACHE.get(kind, device, (shape, dtype, params, dict_names),
+                         make)
     else:
         prog = make()
-        frames = frames.to(device).contiguous()
+        images = _stacked(images, shape).to(device).contiguous()
     with prog.lock:
-        prog.load(frames=frames)
+        prog.load(frames=images)
         prog.run("detect")
         return {name: dict(zip(("ids", "corners", "valid"),
                                map(prog.out, prog.t[name])))

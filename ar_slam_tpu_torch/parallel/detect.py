@@ -20,7 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from ar_slam_tpu_torch.detect.detect import DetectParams, detect_batch
+from ar_slam_tpu_torch.detect.detect import (DetectParams, batch_shape,
+                                             detect_batch)
 from ar_slam_tpu_torch.parallel.mesh import Mesh, block_mesh, device_mesh
 
 IMAGE_AXIS = "images"
@@ -56,14 +57,16 @@ def _all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 def detect_batch_sharded(images, *, mesh: Mesh,
                          params: DetectParams = DetectParams(),
                          dict_names=("4X4_50", "5X5_100"),
-                         gather: bool = True, graphs=None):
+                         gather: bool = True, graphs=None, pad_to=None):
     """detect_batch with the image axis split over ``mesh``.
 
     Args:
-      images: (N, H, W) grayscale, numpy or torch, the whole batch (every
-        process of a process group passes the same).  N is padded up to a
-        multiple of the global shard count with zero images (their
-        detections are all invalid), and the padding is stripped from
+      images: (N, H, W) grayscale, numpy or torch, or a sequence of N
+        (H, W) host arrays (``detect_batch``'s), the whole batch (every
+        process of a process group passes the same).  N (or ``pad_to``,
+        where larger) is padded up to a multiple of the global shard count
+        with zero images (their detections are all invalid), each shard's
+        by its own ``detect_batch`` call, and the padding is stripped from
         every output.
       gather: concatenate the shards' outputs on the mesh's first device
         (the same dict as detect_batch, leading axis N), over every
@@ -72,16 +75,16 @@ def detect_batch_sharded(images, *, mesh: Mesh,
         each shard's share of the N images.
       graphs: ``detect_batch``'s, for every shard.
     """
-    frames = torch.as_tensor(images)
-    n = frames.shape[0]
-    per = -(-n // mesh.n_shards)
-    pad = per * mesh.n_shards - n
-    if pad:
-        frames = torch.cat([frames, frames.new_zeros((pad,)
-                                                     + frames.shape[1:])])
-    outs = [detect_batch(frames[g * per:(g + 1) * per], params=params,
-                         dict_names=dict_names, device=dev, graphs=graphs)
-            for g, dev in zip(mesh.shard_ids(), mesh.devices)]
+    shape, dtype = batch_shape(images)
+    n = shape[0]
+    per = -(-max(n, pad_to or 0) // mesh.n_shards)
+    # a shard past the images gets an empty batch: all padding
+    empty = torch.empty((0, *shape[1:]), dtype=dtype)
+    parts = [images[g * per:(g + 1) * per] for g in mesh.shard_ids()]
+    outs = [detect_batch(part if len(part) else empty, params=params,
+                         dict_names=dict_names, device=dev, graphs=graphs,
+                         pad_to=per)
+            for part, dev in zip(parts, mesh.devices)]
     if not gather:
         keep = [min(per, max(n - g * per, 0)) for g in mesh.shard_ids()]
         return [{name: {key: v[:k] for key, v in d.items()}

@@ -128,9 +128,14 @@ class ArSlamEngine:
         path)]."""
         if not caps:
             return []
+        from ar_slam_tpu_torch.detect.detect import batch_shape
+
+        # engine.stack: the list of the photos' own arrays, its shape check
+        # and the resize where max_side asks; the detector copies each
+        # photo into its program's buffer, so no stacked host copy is made
         with TRACE.span("engine.stack"):
-            images = np.stack([c.image for c in caps])
-            h, w = images.shape[1:]
+            images = [c.image for c in caps]
+            h, w = batch_shape(images)[0][1:]
             dict_names = tuple(self.config.detect.dictionaries)
             max_side = self.config.detect.max_side
             scale = 1.0
@@ -139,13 +144,11 @@ class ArSlamEngine:
                 scale = max_side / max(h, w)
                 from PIL import Image as _Image
 
-                det_images = np.stack([
-                    np.asarray(_Image.fromarray(img).resize(
-                        (int(round(w * scale)), int(round(h * scale))),
-                        _Image.BILINEAR)) for img in images])
+                size = (int(round(w * scale)), int(round(h * scale)))
+                det_images = [np.asarray(_Image.fromarray(img).resize(
+                    size, _Image.BILINEAR)) for img in images]
                 logger.info("detection at %dx%d (scale %.3f) for %dx%d "
-                            "input", det_images.shape[2],
-                            det_images.shape[1], scale, w, h)
+                            "input", *size, scale, w, h)
         with self.metrics.timer("detect"):
             per_image = self._run_detector(det_images, dict_names)
         if scale != 1.0:
@@ -198,12 +201,13 @@ class ArSlamEngine:
         )
 
     def _run_detector(self, images, dict_names):
-        """One dict per image: {"aruco_<dict>": [(tag_id, centered
-        corners), ...]}, from detect.detect_batch on the engine's device
-        (split over ``detect_mesh`` when set), or from the NumPy oracle."""
+        """One dict per image of ``images`` (a sequence of (H, W) arrays of
+        one shape): {"aruco_<dict>": [(tag_id, centered corners), ...]},
+        from detect.detect_batch on the engine's device (split over
+        ``detect_mesh`` when set), or from the NumPy oracle."""
         from ar_slam_tpu_torch.detect.detect import detect_batch
 
-        h, w = images.shape[1:]
+        h, w = np.shape(images[0])
         center = np.array([w / 2.0, h / 2.0])
         per_image = [{f"aruco_{n}": [] for n in dict_names}
                      for _ in range(len(images))]
@@ -219,26 +223,21 @@ class ArSlamEngine:
                         (d.id, d.corners - center))
             return per_image
         params = self.detect_params()
-        # pad the batch to a power-of-two bucket with zero frames (whose
-        # detections are dropped): each batch shape is a program of its own
-        # (a CUDA graph's capture on the card), and a serve loop sees
-        # arbitrary sizes
+        # the detector pads the batch to a power-of-two bucket with zero
+        # frames (whose detections are dropped): each batch shape is a
+        # program of its own (a CUDA graph's capture on the card), and a
+        # serve loop sees arbitrary sizes
         n = len(images)
-        with TRACE.span("engine.pad"):
-            n_pad = 1
-            while n_pad < n:
-                n_pad *= 2
-            if n_pad > n:
-                images = np.concatenate([images, np.zeros(
-                    (n_pad - n, *images.shape[1:]), dtype=images.dtype)])
+        n_pad = 1 << (n - 1).bit_length()
         if self.detect_mesh is not None:
             from ar_slam_tpu_torch.parallel.detect import detect_batch_sharded
 
             out = detect_batch_sharded(images, mesh=self.detect_mesh,
-                                       params=params, dict_names=dict_names)
+                                       params=params, dict_names=dict_names,
+                                       pad_to=n_pad)
         else:
             out = detect_batch(images, params=params, dict_names=dict_names,
-                               device=self.device)
+                               device=self.device, pad_to=n_pad)
         reads = {name: [TRACE.wait("detect.out", out[name][key][:n].cpu)
                         for key in ("ids", "corners", "valid")]
                  for name in dict_names}

@@ -67,10 +67,17 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
+import warnings
 
+import numpy as np
 import torch
 
 from ar_slam_tpu_torch.utils.metrics import TRACE
+
+# a decoded photo is a read-only array, which a load only reads: torch's
+# warning on a tensor made of one is no news here
+warnings.filterwarnings("ignore", "The given NumPy array is not writable",
+                        UserWarning, __name__)
 
 WARMUP_ROUNDS = 2
 # kinds that keep one program per signature, and how many per card
@@ -233,10 +240,13 @@ def _copy_into(dst, src) -> None:
 
 
 def _nbytes(x, host: bool) -> int:
-    """The bytes of ``x`` (as ``_copy_into`` takes it) in the tensors
-    that live on the host (``host``) or on a card."""
+    """The bytes of ``x`` (as ``_copy_into`` takes it, or a batch of
+    rows) in the tensors that live on the host (``host``; NumPy arrays
+    too) or on a card."""
     if isinstance(x, torch.Tensor):
         return x.nbytes if (x.device.type == "cpu") == host else 0
+    if isinstance(x, np.ndarray):
+        return x.nbytes if host else 0
     if isinstance(x, (tuple, list)):
         return sum(_nbytes(v, host) for v in x)
     return 0
@@ -257,6 +267,15 @@ def _clone(x, device=None):
     if isinstance(x, tuple):
         return type(x)(_clone(v, device) for v in x)
     return x
+
+
+def _copy_rows(dst: torch.Tensor, rows) -> None:
+    """Each host row (a NumPy array or a CPU tensor) into its row of
+    ``dst``, read where it lies."""
+    for i, row in enumerate(rows):
+        if not isinstance(row, torch.Tensor):
+            row = torch.from_numpy(np.asarray(row))
+        dst[i].copy_(row)
 
 
 def _write(t: dict, out: dict) -> None:
@@ -344,10 +363,18 @@ class Program:
     cards find both cards' current streams inside the capture), and each
     card allocates from a memory pool of the program's own.  A replay
     launches on the home card's current stream, after the other cards'
-    current streams (the inputs' copies), which then wait for it."""
+    current streams (the inputs' copies), which then wait for it.
+
+    ``rows`` names the inputs that are batches of rows, each with the
+    (shape, dtype) of the program's tensor: a graphed load takes such an
+    input as a sequence of host rows (arrays or tensors; a host batch is
+    one), as many as the tensor has or fewer, each copied straight into
+    its row (no stacked host copy), or as a tensor on a card; the rows
+    past the input are zeroed on the card."""
 
     def __init__(self, stages: dict, graphed: bool, counted=(),
-                 pointers=(), label: str = "", mesh=None, kind: str = ""):
+                 pointers=(), label: str = "", mesh=None, kind: str = "",
+                 rows=None):
         self.stages = stages  # in capture order
         self.graphed = graphed
         self.kind = kind
@@ -361,6 +388,7 @@ class Program:
         self.pointers = tuple(pointers)
         self.label = label
         self.mesh = mesh
+        self.rows = dict(rows or {})
         self.lock = threading.Lock()
         self.key = self.signature = None
         self.t: dict = {}
@@ -393,7 +421,9 @@ class Program:
             return
         with TRACE.span(names["load"], self.key[1]):
             for k, v in inputs.items():
-                if isinstance(v, torch.Tensor) and v.device.type == "cpu":
+                if k in self.rows:
+                    self._load_rows(k, v)
+                elif isinstance(v, torch.Tensor) and v.device.type == "cpu":
                     TRACE.wait(names["upload"], self._load, k, v)
                 else:
                     self._load(k, v)
@@ -410,6 +440,23 @@ class Program:
             _copy_into(self.t[k], v)
         else:
             self.t[k] = _clone(v, self.key[1])
+
+    def _load_rows(self, k: str, rows) -> None:
+        """A batch of rows into ``t[k]``: a tensor on a card by one copy on
+        the card, host rows each by a copy of its own (together one host
+        wait ``<kind>.upload``); the rows past the input zeroed."""
+        if k not in self.t:
+            shape, dtype = self.rows[k]
+            self.t[k] = torch.empty(shape, dtype=dtype, device=self.key[1])
+        dst, n = self.t[k], len(rows)
+        if n > len(dst):
+            raise ValueError(f"{n} rows for a program of {len(dst)}")
+        if isinstance(rows, torch.Tensor) and rows.device.type != "cpu":
+            dst[:n].copy_(rows)
+        else:
+            TRACE.wait(self.names["upload"], _copy_rows, dst, rows)
+        if n < len(dst):
+            dst[n:].zero_()
 
     def run(self, name: str) -> None:
         if not self.graphed:

@@ -62,25 +62,29 @@ def test_stage_through_program_equals_detect_batch(frames, n, names):
 
 
 def test_engine_pads_the_batch_to_a_power_of_two(frames, monkeypatch):
-    """The engine detects 3 frames as a batch of 4 (a zero frame last):
-    the 3 frames' outputs are the unpadded batch's bit for bit, the zero
-    frame detects nothing, and the engine's detections have the JAX
-    detector's ids exactly and its corners within 0.25 px (the bound of
+    """The engine detects 3 frames as a batch of 4 (the detector adds a
+    zero frame last): the outputs are the zero-padded stack's bit for
+    bit, the 3 frames' those of the unpadded batch, the zero frame
+    detects nothing, and the engine's detections have the JAX detector's
+    ids exactly and its corners within 0.25 px (the bound of
     test_torch_detect.py's detect_batch parity, for the same reason)."""
     imgs, _ = frames
     seen = []
     plain = tdet.detect_batch
 
     def spy(images, **kw):
-        seen.append((np.array(images), kw["params"]))
+        seen.append((len(images), kw["pad_to"], kw["params"]))
         seen.append(plain(images, **kw))
         return seen[-1]
 
     monkeypatch.setattr(tdet, "detect_batch", spy)
     engine = ArSlamEngine(device="cpu")
     per_image = engine._run_detector(imgs, NAMES)
-    (padded, params), padded_out = seen
-    assert padded.shape == (4, *imgs.shape[1:]) and not padded[3].any()
+    (n, pad_to, params), padded_out = seen
+    assert (n, pad_to) == (3, 4)
+    padded = np.concatenate([imgs, np.zeros_like(imgs[:1])])
+    assert _equal(padded_out, plain(padded, params=params, dict_names=NAMES,
+                                    device="cpu"))
     ref = plain(imgs, params=params, dict_names=NAMES, device="cpu")
     assert _equal(padded_out, ref, 3)
     for name in NAMES:

@@ -1,8 +1,8 @@
 """The port's tracer (utils/metrics.TRACE) on the CPU: off it records
 nothing; on, an eager map (``add_decoded`` + ``solve``) and an eager
 ``localize_decoded`` of a small rendered room record every span, counter
-and host wait the program names; the benchmark's readers of those records;
-``--metrics`` and ``--profile``."""
+and host wait the program names; a load of rows' counters; the
+benchmark's readers of those records; ``--metrics`` and ``--profile``."""
 
 import dataclasses
 import json
@@ -25,7 +25,7 @@ from ar_slam_tpu_torch.utils.render import room_scene
 
 torch.set_num_threads(1)
 H, W = 480, 640
-ENGINE = ("engine.stack", "engine.pad", "engine.unpack", "store.add")
+ENGINE = ("engine.stack", "engine.unpack", "store.add")
 DETECT = ("program.detect.load", "program.detect.detect")
 SOLVER = ("program.seed.load", "program.seed.seed", "program.lm.load",
           "program.lm.setup", "program.lm.step", "program.lm.accept")
@@ -143,6 +143,38 @@ def test_detect_bytes_are_the_padded_frames(phases, phase, photos, padded):
         (padded, H, W), np.uint8).nbytes
     assert counts["program.detect.bytes_d2d"] == 0
     assert counts["host_wait.detect.upload"] == 2
+
+
+def test_row_load_counts_the_photos():
+    """A graphed program's load of rows, the CPU standing in for the card
+    (its graphs taken as captured): 3 photos into 4 frames copy the
+    photos' bytes and zero the last frame; a host batch of 2 then zeroes
+    2; each load is one upload wait; more photos than frames raise."""
+    rng = np.random.default_rng(0)
+    photos = [rng.integers(0, 255, (48, 64), dtype=np.uint8)
+              for _ in range(3)]
+    zero = np.zeros((1, 48, 64), np.uint8)
+    prog = programs.Program({"detect": dict}, graphed=True, kind="detect",
+                            rows={"frames": ((4, 48, 64), torch.uint8)})
+    prog.key, prog.graphs = ("detect", "cpu", None), {"detect": None}
+    TRACE.enabled = True
+    try:
+        prog.load(frames=photos)
+        first = prog.t["frames"].clone()
+        prog.load(frames=np.stack(photos[1:]))
+        counts = TRACE.summary()["counts"]
+    finally:
+        TRACE.enabled = False
+        TRACE.reset()
+    assert torch.equal(first, torch.from_numpy(
+        np.concatenate([np.stack(photos), zero])))
+    assert torch.equal(prog.t["frames"], torch.from_numpy(
+        np.concatenate([np.stack(photos[1:]), zero, zero])))
+    assert counts["program.detect.bytes_h2d"] == 5 * 48 * 64
+    assert counts["program.detect.bytes_d2d"] == 0
+    assert counts["host_wait.detect.upload"] == 2
+    with pytest.raises(ValueError, match="5 rows for a program of 4"):
+        prog.load(frames=photos + photos[:2])
 
 
 def test_host_waits_are_the_sites_hit(phases):
