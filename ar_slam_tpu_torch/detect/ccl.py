@@ -14,7 +14,10 @@ and runs its plain version on a CPU tensor.
   column groups run (``connected_components_fused_plain`` transcribes it).
   One launch runs the whole batch, each plane on a thread-block cluster
   that stops on the card at its fixpoint or at the cap; the rounds each
-  plane ran stay on the card until ``fused_plane_rounds`` asks for them.
+  plane ran stay on the card until ``fused_plane_rounds`` asks for them
+  (on the CPU the plain version keeps its rounds in the same place).
+  Traced, ``trace_fused_rounds`` adds a call's planes and their rounds to
+  the tracer's counters ``detect.k2.planes`` and ``detect.k2.rounds``.
 - ``connected_components_strip_batch`` (K3, ``csrc/ccl_strip.cu``) replaces
   the strip kernels ``_row_kernel`` / ``_col_kernel`` (via
   ``connected_components_pallas_batch``), run above that limit.  Its round
@@ -37,13 +40,15 @@ from __future__ import annotations
 import torch
 
 from ar_slam_tpu_torch import cuda
+from ar_slam_tpu_torch.utils.metrics import TRACE
 
 BIG = 2**30
 GROUP = 128  # K2's column-group width (the reference's ``cstrip``)
 launches = 0  # K2 launches since the last reset (CUDA path only)
 fused_round_reads = 0  # host reads of K2's per-plane rounds
 _fused_rounds = None  # (N,) int32 rounds each plane ran in the last K2 launch
-# (or replay of a captured detector: detect/detect.py POINTERS)
+# (or replay of a captured detector: detect/detect.py POINTERS; or call of
+# the plain version on the CPU)
 strip_launches = 0  # K3 launches since the last reset (CUDA path only)
 strip_kernel_launches = 0  # the CUDA kernels they enqueued (1 + 2 x iters)
 strip_flag_reads = 0  # host reads of K3's round flags (strip_plane_rounds)
@@ -180,14 +185,23 @@ def fused_plane_plain(plane: torch.Tensor, iters: int = 24
     return a[:h, :w].clone(), rounds
 
 
+def _fused_plain(binary: torch.Tensor, iters: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``connected_components_fused_plain``'s labels and the (N,) int32
+    rounds each plane ran."""
+    runs = [fused_plane_plain(p, iters) for p in binary]
+    labels = (torch.stack([lab for lab, _ in runs]) if runs else
+              torch.empty(binary.shape, dtype=torch.int32,
+                          device=binary.device))
+    return labels, torch.tensor([r for _, r in runs], dtype=torch.int32,
+                                device=binary.device)
+
+
 def connected_components_fused_plain(binary: torch.Tensor,
                                      iters: int = 24) -> torch.Tensor:
     """(N, H, W) bool -> (N, H, W) int32 labels of the reference's fused
     kernel under its cap, plain PyTorch, plane by plane."""
-    if binary.shape[0] == 0:
-        return torch.empty(binary.shape, dtype=torch.int32,
-                           device=binary.device)
-    return torch.stack([fused_plane_plain(p, iters)[0] for p in binary])
+    return _fused_plain(binary, iters)[0]
 
 
 def connected_components_batch(binary: torch.Tensor,
@@ -197,7 +211,8 @@ def connected_components_batch(binary: torch.Tensor,
     ``connected_components_fused_batch``)."""
     global launches, _fused_rounds
     if binary.device.type == "cpu":
-        return connected_components_fused_plain(binary, iters)
+        labels, _fused_rounds = _fused_plain(binary, iters)
+        return labels
     cuda.require(binary, "binary", torch.bool, 3)
     n, h, w = binary.shape
     strip = fused_geometry(h, w)[0]
@@ -228,9 +243,23 @@ def fused_plane_rounds() -> list[int]:
     Reads the card; counted in ``fused_round_reads``."""
     global fused_round_reads
     if _fused_rounds is None:
-        raise RuntimeError("no K2 launch on a CUDA tensor yet")
+        raise RuntimeError("no K2 launch yet")
     fused_round_reads += 1
     return _fused_rounds.tolist()
+
+
+def trace_fused_rounds(frames: int, batch: int) -> None:
+    """Add the planes of the first ``frames`` frames of the last K2
+    launch's ``batch`` (the rest are padding; planes are window-major) to
+    the tracer's counter ``detect.k2.planes``, and the rounds they ran to
+    ``detect.k2.rounds``: one read of the rounds, the host wait
+    ``detect.k2_rounds`` (not counted in ``fused_round_reads``).  For the
+    caller to make only while ``TRACE`` records, after the launch's
+    outputs are read."""
+    rounds = TRACE.wait("detect.k2_rounds", _fused_rounds.cpu)
+    real = rounds.reshape(-1, batch)[:, :frames]
+    TRACE.count("detect.k2.planes", real.numel())
+    TRACE.count("detect.k2.rounds", int(real.sum()))
 
 
 def connected_components_strip_batch(binary: torch.Tensor,

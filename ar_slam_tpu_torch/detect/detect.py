@@ -595,6 +595,17 @@ def _stage(params: DetectParams, dict_names: tuple, device):
     return detect
 
 
+def uses_fused_ccl(h: int, w: int, params: DetectParams) -> bool:
+    """Whether the binary planes of h x w frames go to K2: their decimated
+    size, padded as the reference pads it, within
+    ``FUSED_CCL_PIXEL_LIMIT`` (K3 above it)."""
+    d = max(int(params.ccl_decimate), 1)
+    hd, wd = -(-h // d), -(-w // d)
+    hw_pad = (-(-hd // 128) * 128 if hd > 128 else -(-hd // 8) * 8) * (
+        -(-wd // 128) * 128)
+    return hw_pad <= FUSED_CCL_PIXEL_LIMIT
+
+
 def _detect(frames, tables, params: DetectParams, dict_names, device):
     windows = tuple(params.win_sizes) or (params.win,)
     n, h, w = frames.shape
@@ -602,13 +613,9 @@ def _detect(frames, tables, params: DetectParams, dict_names, device):
     nw = len(windows)
 
     d = max(int(params.ccl_decimate), 1)
-    hd, wd = -(-h // d), -(-w // d)
-    hw_pad = (-(-hd // 128) * 128 if hd > 128 else -(-hd // 8) * 8) * (
-        -(-wd // 128) * 128)
-
     binary_b = box.threshold_batch(frames, windows, params.thresh_c, d)
     images = frames.to(torch.float32)  # for refine and decode
-    if hw_pad <= FUSED_CCL_PIXEL_LIMIT:
+    if uses_fused_ccl(h, w, params):
         labels_b = ccl.connected_components_batch(binary_b, params.ccl_iters)
     else:
         labels_b = ccl.connected_components_strip_batch(binary_b,

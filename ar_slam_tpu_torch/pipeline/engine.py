@@ -204,8 +204,12 @@ class ArSlamEngine:
         """One dict per image of ``images`` (a sequence of (H, W) arrays of
         one shape): {"aruco_<dict>": [(tag_id, centered corners), ...]},
         from detect.detect_batch on the engine's device (split over
-        ``detect_mesh`` when set), or from the NumPy oracle."""
-        from ar_slam_tpu_torch.detect.detect import detect_batch
+        ``detect_mesh`` when set), or from the NumPy oracle.  Traced, a
+        single-device call on K2's planes also counts their rounds
+        (``ccl.trace_fused_rounds``)."""
+        from ar_slam_tpu_torch.detect import ccl
+        from ar_slam_tpu_torch.detect.detect import (detect_batch,
+                                                     uses_fused_ccl)
 
         h, w = np.shape(images[0])
         center = np.array([w / 2.0, h / 2.0])
@@ -241,6 +245,11 @@ class ArSlamEngine:
         reads = {name: [TRACE.wait("detect.out", out[name][key][:n].cpu)
                         for key in ("ids", "corners", "valid")]
                  for name in dict_names}
+        if (TRACE.on and self.detect_mesh is None
+                and uses_fused_ccl(h, w, params)):
+            # K2's rounds of the real photos' planes, once the outputs are
+            # on the host (a mesh's shards are not counted)
+            ccl.trace_fused_rounds(n, n_pad)
         with TRACE.span("engine.unpack"):
             for name, read in reads.items():
                 ids, corners, valid = (r.numpy() for r in read)

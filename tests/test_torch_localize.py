@@ -146,3 +146,27 @@ def test_localize_unknown_tags_switch_matches_jax(demo_map, unknown_tags):
         assert got["cost"] > 10.0
     else:
         assert got["rmse"] < 2.0
+
+
+def test_padded_width_changes_no_result():
+    """Masked blocks beyond the widest query leave every pose, cost and
+    iteration count as the exact width gives them."""
+    from ar_slam_tpu_torch.solve.localize import localize_batch
+    from ar_slam_tpu_torch.solve.lm import LMConfig
+    from tests.torch_cases import localize_queries
+
+    cam, tags, q_tag, q_crn, q_mask, q_seed = localize_queries()
+    extra = 16 - q_tag.shape[1]
+    pad = [np.pad(q_tag, ((0, 0), (0, extra))),
+           np.pad(q_crn, ((0, 0), (0, extra), (0, 0), (0, 0))),
+           np.pad(q_mask, ((0, 0), (0, extra)))]
+    kw = dict(aruco_size=0.0635, config=LMConfig(max_iterations=20))
+
+    def solve(t, c, m):
+        return localize_batch(*(torch.as_tensor(x) for x in (
+            cam, tags, t, c, m, q_seed)), **kw)
+
+    exact, padded = solve(q_tag, q_crn, q_mask), solve(*pad)
+    for a, b in zip(exact, padded):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-12,
+                                   atol=1e-12)

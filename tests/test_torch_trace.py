@@ -184,6 +184,7 @@ def test_host_waits_are_the_sites_hit(phases):
     assert 0 < iters < 50  # below the LM budget: one check more
     assert {k: v for k, v in loc.items() if k.startswith("host_wait.")} == {
         "host_wait.detect.out": 6,  # ids, corners, valid of 2 dictionaries
+        "host_wait.detect.k2_rounds": 1,  # K2's planes (640x480 frames)
         "host_wait.localize.upload": 6,
         "host_wait.localize.active": iters + 1,  # one a replay
         "host_wait.localize.out": 3}
@@ -200,6 +201,7 @@ def test_host_waits_are_the_sites_hit(phases):
     assert got["host_wait.solve.out"] == 3
     assert got["host_wait.solve.cost"] == 2
     assert got["host_wait.detect.out"] == 6
+    assert got["host_wait.detect.k2_rounds"] == 1
     # the LM's: one read after its setup, one after each step
     spans = phases.map["spans"]
     assert got["host_wait.lm.converged"] == phases.lm_calls == spans[
