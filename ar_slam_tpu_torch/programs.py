@@ -22,16 +22,17 @@ replace the dict's entries.
 The cache (``CACHE``) holds the captured programs, as ``jax.jit`` caches
 its compiles:
 
-- the solver's kinds (``"seed"``, ``"lm"``, ``"localize"``,
-  ``"mesh_seed"``, ``"mesh_lm"``) keep one program per (kind, card): a
-  call with another static signature replaces the kind's program, whose
-  graphs and tensors are freed into the kind's memory pool, which the new
-  capture reuses, so a map that grows through its buckets holds one pool
-  of about its largest signature's size;
-- the kinds of ``KEEP`` (``"detect"``) keep one program per signature
-  and card, up to the kind's bound, the least recently used dropped
-  first, each program with its own pool and capture stream: a serve loop
-  that alternates between two batch shapes replays two programs.
+- the solver's kinds (``"seed"``, ``"lm"``, ``"mesh_seed"``,
+  ``"mesh_lm"``) keep one program per (kind, card): a call with another
+  static signature replaces the kind's program, whose graphs and tensors
+  are freed into the kind's memory pool, which the new capture reuses, so
+  a map that grows through its buckets holds one pool of about its
+  largest signature's size;
+- the kinds of ``KEEP`` (``"detect"``, ``"localize"``) keep one program
+  per signature and card, up to the kind's bound, the least recently used
+  dropped first, each program with its own pool and capture stream: a
+  serve loop that alternates between two batch shapes, or localize calls
+  whose query widths fall in two buckets, replay two programs.
 
 Each stage is recorded with ``capture_begin`` / ``capture_end`` on the
 program's capture stream, in ``capture_error_mode="thread_local"``, after
@@ -81,7 +82,7 @@ warnings.filterwarnings("ignore", "The given NumPy array is not writable",
 
 WARMUP_ROUNDS = 2
 # kinds that keep one program per signature, and how many per card
-KEEP = {"detect": 4}
+KEEP = {"detect": 4, "localize": 4}
 
 
 class GraphCache:

@@ -35,7 +35,9 @@ use.
 - localize (``localize_graphed``): stages ``init`` (each query's seed
   pose, cost and damping) and ``iterate``; a call replays ``init`` and
   then ``iterate`` once an iteration, each replay followed by one flag
-  read (any query active).
+  read (any query active).  ``localize_many`` buckets its shapes (query
+  width, query count, tag rows), and the card keeps up to
+  ``programs.KEEP["localize"]`` of these programs, one per signature.
 
 - the mesh (parallel/dist_lm.py, its shards on one card or several):
   the kinds ``"mesh_lm"`` (the tag-sharded LM's stages, with the fused
@@ -43,10 +45,10 @@ use.
   the packed reductions its replays run on the mesh
   (``Program.counted``), and one graph a stage spans the mesh's cards.
 
-Each kind keeps one program per card (``programs.CACHE``): a solve's
-waves, its warmups and its polish share one LM capture, and ``serve``'s
-per-batch solves reuse it while their bucketed shapes repeat; a call with
-another static signature (dtype, padded shapes, slot bounds,
+Each other kind keeps one program per card (``programs.CACHE``): a
+solve's waves, its warmups and its polish share one LM capture, and
+``serve``'s per-batch solves reuse it while their bucketed shapes repeat;
+a call with another static signature (dtype, padded shapes, slot bounds,
 ``LMConfig``, tag size, seed mode) replaces the kind's program in the
 kind's memory pool.  One thread solves at a time.
 """

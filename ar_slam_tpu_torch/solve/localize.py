@@ -25,6 +25,7 @@ from ar_slam_tpu_torch.core import jet as J
 from ar_slam_tpu_torch.core.projection import block_residual
 from ar_slam_tpu_torch.core.seeding import seed_capture_pose
 from ar_slam_tpu_torch.device import resolve_device, resolve_dtype
+from ar_slam_tpu_torch.graph.arrays import bucket_size
 from ar_slam_tpu_torch.graph.store import MapStore
 from ar_slam_tpu_torch.solve.lm import LMConfig
 from ar_slam_tpu_torch.utils.metrics import TRACE
@@ -200,13 +201,17 @@ def localize_many(store: MapStore, first_loc_cap_idx: int, config=None,
         if not queries:
             return {"status": status, "localized": 0}
 
-        # padded blocks are masked to exact zeros, so the width is the largest
-        # query's (the reference's bucketed widths change no result)
-        q, k = len(queries), max(len(mb) for _, _, mb in queries)
-        q_tag_idx = np.zeros((q, k), dtype=np.int64)
-        q_corners = np.zeros((q, k, 4, 2), dtype=np.float64)
-        q_mask = np.zeros((q, k), dtype=bool)
-        q_seed = np.zeros(q, dtype=np.int64)
+        # the shapes are bucketed as the JAX package buckets them, so that a
+        # few programs serve every call: padded blocks are masked to exact
+        # zeros, padded queries (all-false masks) start converged and are
+        # dropped, padded tag rows are never gathered
+        q = len(queries)
+        k_pad = bucket_size(max(len(mb) for _, _, mb in queries), floor=4)
+        q_pad = bucket_size(q, floor=4)
+        q_tag_idx = np.zeros((q_pad, k_pad), dtype=np.int64)
+        q_corners = np.zeros((q_pad, k_pad, 4, 2), dtype=np.float64)
+        q_mask = np.zeros((q_pad, k_pad), dtype=bool)
+        q_seed = np.zeros(q_pad, dtype=np.int64)
         for qi, (cap, seed_block, map_blocks) in enumerate(queries):
             for ki, bh in enumerate(map_blocks):
                 block = store.blocks[bh]
@@ -215,7 +220,7 @@ def localize_many(store: MapStore, first_loc_cap_idx: int, config=None,
                 q_mask[qi, ki] = True
                 if bh == seed_block:
                     q_seed[qi] = ki
-        tag_poses = np.zeros((max(len(store.arucos), 1), 6))
+        tag_poses = np.zeros((bucket_size(max(len(store.arucos), 1)), 6))
         for tag in store.arucos:
             tag_poses[tag.index] = tag.pose
 
@@ -232,7 +237,7 @@ def localize_many(store: MapStore, first_loc_cap_idx: int, config=None,
         aruco_size=config.aruco_size,
         config=_lm_config(config.solver, config.camera),
         seed_mode=config.solver.seed_mode)
-    poses, costs, iters = (TRACE.wait("localize.out", x.cpu).numpy()
+    poses, costs, iters = (TRACE.wait("localize.out", x.cpu).numpy()[:q]
                            for x in (poses, costs, iters))
     with TRACE.span("localize.writeback"):
         for qi, (cap, _, _) in enumerate(queries):

@@ -595,6 +595,49 @@ def test_localize_call_replays_init(dev, monkeypatch):
     graphs.CACHE.clear()
 
 
+def test_localize_keeps_a_program_per_bucket(dev):
+    """Query widths 15 / 18 / 15 / 18, padded to ``localize_many``'s
+    buckets (16 / 32 blocks, 9 -> 16 queries, 24 -> 32 tag rows), make
+    exactly two captures; each call equals the eager ``localize_batch`` on
+    the same padded inputs bit for bit, and its real queries the eager
+    run at the exact shapes within float32 rounding.  Not bit for bit
+    there: the card's row sum of the cost (``torch.sum(r * r, 1)``) adds
+    in an order that depends on the row length and the row count, so the
+    padding moves a cost by an ulp or so (the Jacobian products do not
+    move), and a stopping test on it may flip one step; the tolerances are
+    a tenth of the benchmark's ``pose_gap`` limit (1e-4) and 1e-4 of a
+    cost."""
+    from ar_slam_tpu_torch.graph.arrays import bucket_size
+    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch.solve.lm import LMConfig
+    from ar_slam_tpu_torch.solve.localize import localize_batch
+    from torch_cases import localize_queries, pad_queries
+
+    def card(arrays):
+        q = [torch.as_tensor(x, device=dev) for x in arrays]
+        q[0], q[1], q[3] = q[0].float(), q[1].float(), q[3].float()
+        return q
+
+    kw = dict(aruco_size=0.0635, config=LMConfig())
+    graphs.CACHE.clear()
+    for width in (15, 18, 15, 18):
+        case = localize_queries(n_tags=24, n_caps=8, width=width)
+        q, k = case[2].shape
+        padded = card(pad_queries(case, k=bucket_size(k, floor=4),
+                                  q=bucket_size(q, floor=4),
+                                  t=bucket_size(len(case[1]))))
+        got = graphs.localize_graphed(*padded, **kw)
+        eager = localize_batch(*padded, **kw)
+        ref = localize_batch(*card(case), **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, e) for g, e in zip(got, eager))
+        assert (got[0][:q] - ref[0]).abs().max().item() <= 1e-5
+        assert torch.allclose(got[1][:q], ref[1], rtol=1e-4, atol=0)
+    assert graphs.CACHE.kinds["localize"]["captures"] == 2
+    assert graphs.CACHE.kinds["localize"]["replays"] > 4
+    graphs.CACHE.clear()
+
+
 class CaptureSyncs:
     """Counts the calls of ``torch.cuda.synchronize`` and
     ``torch.cuda.empty_cache`` that the capturing thread makes while a

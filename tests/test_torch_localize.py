@@ -94,9 +94,18 @@ def test_localize_demo_query_matches_jax(demo_map):
         np.testing.assert_array_equal(tag.pose, before)
 
 
-def test_localize_synthetic_batch_matches_jax():
-    """Four queries in one batched solve (tests/test_localize.py's
-    synthetic split: map = captures 0-5, queries = the rest)."""
+STRANGER = ("stranger", [("aruco_4X4_50_49", np.array(
+    [[-10, -10], [10, -10], [10, 10], [-10, 10]], float))])
+
+
+@pytest.mark.parametrize("n_queries,stranger_at",
+                         [(4, None), (3, 1), (4, 2)])
+def test_localize_synthetic_batch_matches_jax(n_queries, stranger_at):
+    """Several queries in one batched solve (tests/test_localize.py's
+    synthetic split: map = captures 0-5, queries = the rest), with a
+    disconnected capture among them where ``stranger_at`` says: its
+    neighbours keep their rows, and the padded query axis (3 real
+    queries padded to 4) changes nothing."""
     store, _ = make_synthetic_map(n_tags=12, n_caps=10, seed=8)
     js = JStore(initial_focal=3000.0)
     js.camera.size = store.camera.size
@@ -110,20 +119,22 @@ def test_localize_synthetic_batch_matches_jax():
             queries.append((cap.uid, dets))
     solve_batch(js, JConfig(), dtype=np.float64)
     first = js.next_capture_index
+    queries = queries[:n_queries]
+    if stranger_at is not None:
+        queries.insert(stranger_at, STRANGER)
     for uid, dets in queries:
         js.add_detections(uid, dets, js.camera.size)
     ts, got, ref = _both(js, first)
     _assert_same(js, ts, first, got, ref)
-    assert got["localized"] == len(queries) == 4
+    assert got["localized"] == n_queries
+    assert got["status"].get("stranger") == (
+        None if stranger_at is None else "disconnected")
     assert got["rmse"] < 0.5
 
 
 def test_localize_disconnected_capture_matches_jax(demo_map):
     js, first = demo_map
-    js.add_detections(
-        "stranger", [("aruco_4X4_50_49", np.array(
-            [[-10, -10], [10, -10], [10, 10], [-10, 10]], float))],
-        js.camera.size)
+    js.add_detections(*STRANGER, js.camera.size)
     add_fixture_capture(js, "cap_3")
     ts, got, ref = _both(js, first)
     _assert_same(js, ts, first, got, ref)
@@ -148,25 +159,113 @@ def test_localize_unknown_tags_switch_matches_jax(demo_map, unknown_tags):
         assert got["rmse"] < 2.0
 
 
-def test_padded_width_changes_no_result():
-    """Masked blocks beyond the widest query leave every pose, cost and
-    iteration count as the exact width gives them."""
+@pytest.mark.parametrize("axis,n", [("width", None), ("queries", 3),
+                                    ("queries", 5), ("tags", None)])
+def test_padded_width_changes_no_result(axis, n):
+    """Padding to ``localize_many``'s buckets changes no real query: masked
+    blocks beyond the widest query, queries without blocks beyond the last
+    (3 -> 4, 5 -> 8) and tag rows beyond the map's leave every pose, cost
+    and iteration count as the exact shapes give them."""
+    from ar_slam_tpu_torch.graph.arrays import bucket_size
     from ar_slam_tpu_torch.solve.localize import localize_batch
     from ar_slam_tpu_torch.solve.lm import LMConfig
-    from tests.torch_cases import localize_queries
+    from tests.torch_cases import localize_queries, pad_queries
 
-    cam, tags, q_tag, q_crn, q_mask, q_seed = localize_queries()
-    extra = 16 - q_tag.shape[1]
-    pad = [np.pad(q_tag, ((0, 0), (0, extra))),
-           np.pad(q_crn, ((0, 0), (0, extra), (0, 0), (0, 0))),
-           np.pad(q_mask, ((0, 0), (0, extra)))]
+    case = localize_queries()
+    if n is not None:
+        case = case[:2] + tuple(a[:n] for a in case[2:])
+    q, k = case[2].shape
+    padded = pad_queries(case, **{
+        "width": dict(k=bucket_size(k, floor=4)),
+        "queries": dict(q=bucket_size(q, floor=4)),
+        "tags": dict(t=bucket_size(len(case[1])))}[axis])
+    assert padded[2].shape != (q, k) or len(padded[1]) > len(case[1])
     kw = dict(aruco_size=0.0635, config=LMConfig(max_iterations=20))
 
-    def solve(t, c, m):
-        return localize_batch(*(torch.as_tensor(x) for x in (
-            cam, tags, t, c, m, q_seed)), **kw)
+    def solve(arrays):
+        return localize_batch(*(torch.as_tensor(x) for x in arrays), **kw)
 
-    exact, padded = solve(q_tag, q_crn, q_mask), solve(*pad)
-    for a, b in zip(exact, padded):
-        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-12,
+    for a, b in zip(solve(case), solve(padded)):
+        np.testing.assert_allclose(b[:q].numpy(), a.numpy(), rtol=1e-12,
                                    atol=1e-12)
+
+
+def _width_store(widths):
+    """The 24-tag synthetic scene's 8 captures as a map at the true tag
+    poses, then one query per width: the first ``w`` sightings of a map
+    capture that sees at least ``w`` tags, all of them map-known."""
+    from ar_slam_tpu_torch.utils.synthetic import make_synthetic_map as tmap
+
+    store, truth = tmap(n_tags=24, n_caps=8, seed=8)
+    for tag in store.arucos:
+        tag.pose[:] = truth["tag_poses"][int(tag.id.split("_")[-1])]
+    first = store.next_capture_index
+    for i, w in enumerate(widths):
+        src = next(c for c in store.captures[:first] if len(c.blocks) >= w)
+        store.add_detections(f"query_{i}", [
+            (store.arucos[store.blocks[bh].tag_idx].id,
+             store.blocks[bh].corners) for bh in src.blocks[:w]],
+            store.camera.size)
+    return store, first
+
+
+@pytest.mark.parametrize("widths,k,q", [
+    ((12,), 16, 4), ((14,), 16, 4), ((15,), 16, 4), ((18,), 32, 4),
+    ((15, 18, 12), 32, 4), ((12, 14, 15, 18, 15), 32, 8)])
+def test_localize_width_is_bucketed(monkeypatch, widths, k, q):
+    """``localize_many`` hands the solve its shapes bucketed as the JAX
+    package's: the block axis to ``bucket_size(k, floor=4)``, the query
+    axis to ``bucket_size(q, floor=4)``, a map of 24 tags to 32 rows; the
+    summary and the poses cover the real queries alone."""
+    from ar_slam_tpu_torch.solve import localize as loc_mod
+
+    seen, real = [], loc_mod.localize_batch
+
+    def spy(camera, tag_poses, q_tag_idx, *args, **kw):
+        seen.append((tuple(q_tag_idx.shape), tag_poses.shape[0]))
+        return real(camera, tag_poses, q_tag_idx, *args, **kw)
+
+    monkeypatch.setattr(loc_mod, "localize_batch", spy)
+    store, first = _width_store(widths)
+    got = t_localize(store, first, TConfig(), dtype=torch.float64,
+                     device="cpu")
+    assert seen == [((q, k), 32)]
+    assert got["localized"] == len(got["iterations"]) == len(widths)
+    assert got["rmse"] < 0.5
+    for cap in store.captures[first:]:
+        assert np.isfinite(cap.inv_pose).all()
+
+
+def test_cache_keeps_localize_programs_per_width():
+    """The card keeps a localize program per signature: alternating two
+    widths' signatures adds no program after the first of each, and one
+    past ``KEEP["localize"]`` drops the least recently used."""
+    import weakref
+
+    from ar_slam_tpu_torch import programs
+
+    cache, made = programs.GraphCache(), []
+    bound = programs.KEEP["localize"]
+
+    def make():
+        made.append(programs.Program({}, True, label="stand-in"))
+        return made[-1]
+
+    def sig(k):  # localize_graphed's key at width k
+        return (torch.float32, (4, k), 32, "config", 0.0635, "hybrid")
+
+    first = cache.get("localize", "cuda:0", sig(16), make)
+    second = weakref.ref(cache.get("localize", "cuda:0", sig(32), make))
+    for _ in range(3):
+        assert cache.get("localize", "cuda:0", sig(16), make) is first
+        assert cache.get("localize", "cuda:0", sig(32), make) is second()
+    assert len(made) == 2
+    for k in range(2, bound):
+        cache.get("localize", "cuda:0", sig(16 * 2 ** k), make)
+    assert cache.get("localize", "cuda:0", sig(16), make) is first
+    made.clear()
+    cache.get("localize", "cuda:0", sig(16 * 2 ** bound), make)
+    assert len(made) == 1 and second() is None  # the least recent
+    held = [p.signature[1][1] for p in cache._programs.values()]
+    assert held == [16 * 2 ** k for k in range(2, bound)] + [
+        16, 16 * 2 ** bound]

@@ -130,29 +130,49 @@ def bfs_waves(a, order, single: bool = False):
     return waves
 
 
-def localize_queries(seed=8):
+def localize_queries(seed=8, n_tags=12, n_caps=6, width=None):
     """(camera, tag poses, q_tag_idx, q_corners, q_mask, q_seed) float64 /
     int64 numpy: every capture of a synthetic map as a query against its
     true tag poses (perturbed by 1e-3), padded to the widest query, plus
-    one query without blocks."""
+    one query without blocks.  With ``width``, each query keeps at most
+    its first ``width`` blocks, and the widest has that many."""
     from ar_slam_tpu_torch.utils.synthetic import make_synthetic_map
 
-    store, truth = make_synthetic_map(n_tags=12, n_caps=6, seed=seed)
+    store, truth = make_synthetic_map(n_tags=n_tags, n_caps=n_caps,
+                                      seed=seed)
     rng = np.random.default_rng(seed)
     tags = np.zeros((len(store.arucos), 6))
     for t in store.arucos:
         tags[t.index] = truth["tag_poses"][int(t.id.split("_")[-1])]
     tags += rng.normal(scale=1e-3, size=tags.shape)
-    q = len(store.captures) + 1
-    k = max(len(c.blocks) for c in store.captures)
+    blocks = [c.blocks[:width] for c in store.captures]
+    q = len(blocks) + 1
+    k = max(len(b) for b in blocks)
+    assert width is None or k == width, (k, width)
     q_tag = np.zeros((q, k), np.int64)
     q_crn = np.zeros((q, k, 4, 2))
     q_mask = np.zeros((q, k), bool)
     q_seed = np.zeros(q, np.int64)
-    for qi, cap in enumerate(store.captures):
-        for ki, bh in enumerate(cap.blocks):
+    for qi, cap_blocks in enumerate(blocks):
+        for ki, bh in enumerate(cap_blocks):
             q_tag[qi, ki] = store.blocks[bh].tag_idx
             q_crn[qi, ki] = store.blocks[bh].corners
             q_mask[qi, ki] = True
-        q_seed[qi] = qi % len(cap.blocks)
+        q_seed[qi] = qi % len(cap_blocks)
     return store.camera.params.copy(), tags, q_tag, q_crn, q_mask, q_seed
+
+
+def pad_queries(case, k=None, q=None, t=None):
+    """``localize_queries``' arrays with the block axis padded to ``k``,
+    the query axis to ``q`` (queries without blocks) and the tag rows to
+    ``t``, with zeros, as ``localize_many`` pads them."""
+    cam, tags, q_tag, q_crn, q_mask, q_seed = case
+    dk = (k or q_tag.shape[1]) - q_tag.shape[1]
+    dq = (q or q_tag.shape[0]) - q_tag.shape[0]
+
+    def pad(a, *rest):
+        return np.pad(a, ((0, dq), (0, dk), *rest))
+
+    return (cam, np.pad(tags, ((0, (t or len(tags)) - len(tags)), (0, 0))),
+            pad(q_tag), pad(q_crn, (0, 0), (0, 0)), pad(q_mask),
+            np.pad(q_seed, (0, dq)))
