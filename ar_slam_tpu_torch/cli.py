@@ -680,10 +680,10 @@ def main(argv=None) -> int:
         if getattr(args, "multihost", ""):
             import torch.distributed as dist
 
-            from ar_slam_tpu_torch.solve import graphs
+            from ar_slam_tpu_torch.programs import CACHE
 
             # the graphs that captured collectives go before the group
-            graphs.CACHE.clear()
+            CACHE.clear()
             dist.destroy_process_group()
 
 

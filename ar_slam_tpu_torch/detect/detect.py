@@ -49,7 +49,7 @@ import torch
 from ar_slam_tpu_torch.detect import box, ccl, extract
 from ar_slam_tpu_torch.detect.dictionaries import get_dictionary
 from ar_slam_tpu_torch.device import resolve_device
-from ar_slam_tpu_torch.programs import CACHE, Program
+from ar_slam_tpu_torch.programs import CACHE, Program, graphed
 
 BIG = 2**30
 # largest padded decimated plane (padded as the reference pads it) that goes
@@ -507,8 +507,8 @@ def _stacked(images, shape) -> torch.Tensor:
 
 
 def detect_batch(images, *, params: DetectParams = DetectParams(),
-                 dict_names=("4X4_50", "5X5_100"), device=None, graphs=None,
-                 pad_to=None):
+                 dict_names=("4X4_50", "5X5_100"), device=None,
+                 graphs: bool = True, pad_to=None):
     """Detect markers in a batch of grayscale images.
 
     Args:
@@ -520,11 +520,11 @@ def detect_batch(images, *, params: DetectParams = DetectParams(),
       device: where to run (default: the card; raises without one unless
         "cpu" is asked for).  On a CUDA device the kernels run; on the CPU
         their plain versions.
-      graphs: on a CUDA device (None or True) the call replays the
-        detector's CUDA graph for this (card, batch shape, dtype,
-        ``params``, ``dict_names``), captured at its first call
-        (``programs.CACHE``, kind ``"detect"``); False runs the same stage
-        eagerly.  The CPU always runs it eagerly.
+      graphs: on a CUDA device the call replays the detector's CUDA
+        graph for this (card, batch shape, dtype, ``params``,
+        ``dict_names``), captured at its first call (``programs.CACHE``,
+        kind ``"detect"``); False, and the CPU, run the same stage
+        eagerly (``programs.graphed``).
       pad_to: run a batch of this many frames (at least N), the frames
         past the N images zero (made on the card, copied from nowhere):
         each batch shape is a program of its own, so a caller with
@@ -538,19 +538,17 @@ def detect_batch(images, *, params: DetectParams = DetectParams(),
     device = resolve_device(device)
     shape, dtype = batch_shape(images)
     shape = (max(shape[0], pad_to or 0), *shape[1:])
-    graphed = device.type == "cuda" if graphs is None else bool(graphs)
-    if graphed and device.type != "cuda":
-        raise ValueError(f"CUDA graphs need a CUDA device, not {device}")
+    replay = graphed(device, graphs)
     if device.type != "cuda":
         return _detect_call(images, shape, dtype, params, tuple(dict_names),
-                            device, False)
+                            device, replay)
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     # the kernels launch on the current device's stream: make it the
     # frames' card (a mesh shard may live on any of them)
     with torch.cuda.device(device):
         return _detect_call(images, shape, dtype, params, tuple(dict_names),
-                            device, graphed)
+                            device, replay)
 
 
 def _detect_call(images, shape: tuple, dtype, params: DetectParams,

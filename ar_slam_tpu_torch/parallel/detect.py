@@ -57,7 +57,8 @@ def _all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 def detect_batch_sharded(images, *, mesh: Mesh,
                          params: DetectParams = DetectParams(),
                          dict_names=("4X4_50", "5X5_100"),
-                         gather: bool = True, graphs=None, pad_to=None):
+                         gather: bool = True, graphs: bool = True,
+                         pad_to=None):
     """detect_batch with the image axis split over ``mesh``.
 
     Args:

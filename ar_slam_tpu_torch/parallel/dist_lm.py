@@ -42,9 +42,9 @@ executable over ``shard_map``): one graph a stage spans the mesh's cards
 stream of its own that forks from its card's stream and rejoins it at
 each packed reduction, the copies between cards and, with a process
 group, the NCCL ``all_reduce`` inside it.  The CPU and ``graphs=False``
-run the same stages eagerly.  Graphed and eager give the same values bit
-for bit, and the eager stages those of ``lm_core`` over the same hooks
-(``_lm_sharded``, the plain loop).
+run the same stages eagerly, not captured (``programs.graphed`` of the
+mesh's home decides); graphed and eager give the same values bit for
+bit.
 """
 
 from __future__ import annotations
@@ -54,6 +54,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ar_slam_tpu_torch import programs
 from ar_slam_tpu_torch.core.seeding import (seed_capture_pose_multi,
                                             seed_tag_pose)
 from ar_slam_tpu_torch.graph.arrays import obs_bucket
@@ -61,10 +62,11 @@ from ar_slam_tpu_torch.parallel.mesh import Mesh, Sharded, replicate
 from ar_slam_tpu_torch.parallel.multihost import fetch, put_global
 from ar_slam_tpu_torch.parallel.partition import prepare_tag_shards
 from ar_slam_tpu_torch.solve.batch import pack_waves
-from ar_slam_tpu_torch.solve.graphs import (CACHE, Program, fields, lm_info,
-                                            lm_iterate, state_of)
-from ar_slam_tpu_torch.solve.lm import (LMConfig, lm_accept, lm_core,
-                                        lm_init, lm_reject, lm_step)
+from ar_slam_tpu_torch.programs import CACHE, Program
+from ar_slam_tpu_torch.solve.graphs import (fields, lm_info, lm_iterate,
+                                            state_of)
+from ar_slam_tpu_torch.solve.lm import (LMConfig, lm_accept, lm_init,
+                                        lm_reject, lm_step)
 from ar_slam_tpu_torch.solve.residuals import linearize
 from ar_slam_tpu_torch.solve.schur import (CapEqs, CgShard, TagRows,
                                            assemble_grouped,
@@ -144,8 +146,9 @@ def make_tag_sharded_hooks(mesh: Mesh, t_per, n_caps, aruco_size,
                            row_slots: int | None = None,
                            shard_rows: int | None = None,
                            shard_cap_rows: int | None = None):
-    """(make_group, make_lin, make_quality_lin, make_solve) for lm_core
-    with the tags sharded over ``mesh``.
+    """(make_group, make_lin, make_quality_lin, make_solve) for the LM's
+    stages (``lm.lm_step`` and its kin) with the tags sharded over
+    ``mesh``.
 
     Tag-indexed arrays are in the RENUMBERED order of
     ``prepare_tag_shards`` (global count t_per * n_shards), as ``Sharded``
@@ -408,14 +411,6 @@ def _numpy(a):
         else np.asarray(a)
 
 
-def graphed_mesh(mesh: Mesh, graphs: bool = True) -> bool:
-    """Whether the mesh's stages replay CUDA graphs: ``graphs`` on a CUDA
-    mesh, its shards on one card or spread over several (one graph a
-    stage spans them).  The CPU and ``graphs=False`` run the same stages
-    eagerly."""
-    return graphs and mesh.home.type == "cuda"
-
-
 def _signature(prob: TagShardedProblem, dtype, n_caps: int, *rest) -> tuple:
     """A mesh program's static signature: the mesh's layout, the dtype and
     the padded shard shapes, then ``rest``."""
@@ -433,31 +428,6 @@ def _hooks(prob: TagShardedProblem, aruco_size, config: LMConfig,
         linear_solver=config.linear_solver, cg_tol=config.cg_tolerance,
         cg_iters=config.cg_max_iterations, row_slots=prob.row_slots,
         shard_rows=prob.shard_rows, shard_cap_rows=prob.shard_cap_rows)
-
-
-def _lm_sharded(prob: TagShardedProblem, aruco_size, config: LMConfig,
-                camera, cap_poses, tag_poses, block_mask, cam_active,
-                cap_active, tag_active, enabled=True, iter_budget=None):
-    """lm_core over the tag-sharded hooks: placed state in, placed state
-    out (the tags ``Sharded`` in the renumbered order).  The plain loop
-    that the stages (``lm_solve_sharded``) run bit for bit."""
-    n_caps = cap_poses.shape[0]
-    make_group, make_lin, make_quality_lin, make_solve = _hooks(
-        prob, aruco_size, config, n_caps)
-    # per-shard regroup ONCE, outside the LM loop
-    grouped = make_group(prob.cap_idx, prob.tag_idx, prob.corners,
-                         block_mask)
-    solver_state0 = None
-    if config.linear_solver == "cg":
-        solver_state0 = torch.zeros(3 + 6 * n_caps, dtype=cap_poses.dtype,
-                                    device=cap_poses.device)
-    return lm_core(camera, cap_poses, tag_poses, cam_active, cap_active,
-                   tag_active, make_lin(grouped, tag_active), None, config,
-                   enabled=enabled,
-                   solve_fn=make_solve(cam_active, cap_active, tag_active,
-                                       grouped),
-                   iter_budget=iter_budget, solver_state0=solver_state0,
-                   quality_lin_fn=make_quality_lin(grouped, tag_active))
 
 
 def _lm_stages(prob: TagShardedProblem, aruco_size, config: LMConfig,
@@ -511,16 +481,16 @@ def lm_solve_sharded(prob: TagShardedProblem, aruco_size, config: LMConfig,
                      camera, cap_poses, tag_poses, block_mask, cam_active,
                      cap_active, tag_active, enabled=True, iter_budget=None,
                      graphs: bool = True):
-    """The tag-sharded LM on placed state and masks through its stages:
-    replayed CUDA graphs where ``graphed_mesh`` allows, else the same
+    """The tag-sharded LM on placed state and masks (the tags ``Sharded``
+    in the renumbered order) through its stages: replayed CUDA graphs
+    where ``programs.graphed`` allows on the mesh's home, else the same
     stages eagerly, driven by ``graphs.lm_iterate``: an iteration is a
-    ``step``, one read of its flags and an ``accept`` or ``reject``, and
-    no step runs that the eager loop does not run.  Returns (camera,
-    cap_poses, tag_poses, info) as ``_lm_sharded`` does, bit for bit, and
-    counts the same reductions."""
+    ``step``, one read of its flags and an ``accept`` or ``reject``.
+    Returns (camera, cap_poses, tag_poses, info), placed as the inputs
+    are; the mesh counts the packed reductions the stages run."""
     mesh = prob.mesh
     n_caps = cap_poses.shape[0]
-    graphed = graphed_mesh(mesh, graphs)
+    graphed = programs.graphed(mesh.home, graphs)
 
     kind = "mesh_lm"
 
@@ -564,7 +534,7 @@ def lm_solve_dist(mesh: Mesh, camera, cap_poses, tag_poses, cap_idx,
     observations are sharded internally, and the results come back in the
     original numbering on the mesh's home device, in the dtype of
     ``cap_poses``.  The LM replays CUDA graphs on a CUDA mesh
-    (``graphed_mesh``); ``graphs=False`` runs the same stages eagerly,
+    (``programs.graphed``); ``graphs=False`` runs the same stages eagerly,
     bit for bit."""
     dtype = (cap_poses.dtype if isinstance(cap_poses, torch.Tensor)
              else torch.from_numpy(np.asarray(cap_poses)).dtype)
@@ -652,8 +622,8 @@ class DistWaveSolver:
     LM, ≙ the JAX package's jitted ``make_dist_wave_solver``); the solve
     drivers' ``_WaveRunner`` calls it for each flush.  Tag-indexed state
     is ``Sharded`` in the renumbered order.  Its programs (kinds
-    ``mesh_seed`` and ``mesh_lm`` of ``graphs.CACHE``) replay CUDA graphs
-    where ``graphed_mesh`` allows and ``graphs`` is set."""
+    ``mesh_seed`` and ``mesh_lm`` of ``programs.CACHE``) replay CUDA
+    graphs where ``programs.graphed`` allows on the mesh's home."""
 
     def __init__(self, prob: TagShardedProblem, aruco_size: float,
                  config: LMConfig, seed_mode: str, graphs: bool = True):
@@ -684,7 +654,7 @@ class DistWaveSolver:
              for cap, seed, r, tags, anchors in waves], slots, w_min),
             device=mesh.home)
         kw = dict(aruco_size=self.aruco_size, seed_mode=self.seed_mode)
-        graphed = graphed_mesh(mesh, self.graphs)
+        graphed = programs.graphed(mesh.home, self.graphs)
 
         def seed(t):
             cap, tag = seed_waves_sharded(
@@ -726,6 +696,6 @@ def make_dist_wave_solver(prob: TagShardedProblem, *, aruco_size: float,
                           config: LMConfig, seed_mode: str = "hybrid",
                           graphs: bool = True):
     """The distributed wave solver over ``prob``'s layout.  The JAX
-    package memoizes its jitted program; here ``graphs.CACHE`` holds the
+    package memoizes its jitted program; here ``programs.CACHE`` holds the
     captured programs, so every solver of one signature shares them."""
     return DistWaveSolver(prob, aruco_size, config, seed_mode, graphs)

@@ -16,8 +16,8 @@ capture stream and into the program's pool (cuBLAS and cuSOLVER set up
 their workspaces outside the capture, which reuses the warm-ups' memory);
 a replay then writes the same tensors in place, and the
 caller's inputs are copied into the program's own before each call.
-Eagerly (the CPU's mode, and ``graphs=False``) each stage's outputs
-replace the dict's entries.
+Eagerly (the CPU's mode, and ``graphs=False``: ``graphed`` is the one
+rule) each stage's outputs replace the dict's entries.
 
 The cache (``CACHE``) holds the captured programs, as ``jax.jit`` caches
 its compiles:
@@ -299,6 +299,13 @@ def _abandon(device: torch.device, pool) -> None:
     (``GraphCache.discard``)."""
     torch._C._cuda_endAllocateToPool(device.index, pool.id)
     torch._C._cuda_releasePool(device.index, pool.id)
+
+
+def graphed(device, graphs: bool = True) -> bool:
+    """Whether a program on ``device`` replays CUDA graphs: ``graphs`` on
+    a CUDA device (for a mesh, its home card).  Elsewhere, or with
+    ``graphs=False``, the same stages run eagerly, not captured."""
+    return graphs and torch.device(device).type == "cuda"
 
 
 def branch_plan(devices) -> list:

@@ -22,11 +22,12 @@ iteration per call and prints a ceres-style line per iteration.
 A flush uploads its seed tables in one copy (``pack_waves``: the JAX
 package's (W, S) slot tables) and its activity masks in another
 (``_WaveRunner._masks``); ``seed_waves`` applies the tables with no host
-read.  On a CUDA device the seeds and every single-device LM (the waves,
-the warmups, the polish, the host-stepped progress calls, the flat hooks
-of an ``assemble_fn``) replay CUDA graphs (solve/graphs.py), one capture
-of each serving every flush of a runner; ``graphs=False`` runs the same
-stages eagerly, bit for bit the same.
+read.  The seeds and every single-device LM (the waves, the warmups, the
+polish, the host-stepped progress calls, the flat hooks of an
+``assemble_fn``) run as the stages of solve/graphs.py's programs: on a
+CUDA device replayed CUDA graphs, one capture of each serving every
+flush of a runner; on the CPU and with ``graphs=False`` the same stages
+eagerly, bit for bit the same.
 
 With a ``mesh`` (or ``config.dist.num_devices > 1``) the tags are sharded
 over it and every LM runs the tag-sharded distributed solve
@@ -34,7 +35,8 @@ over it and every LM runs the tag-sharded distributed solve
 ``seed`` stage over the same padded tables in the shards' numbering; the
 waves and warmups are the single-device path's.  On a CUDA mesh, its
 shards on one card or spread over several, both replay CUDA graphs
-(``dist_lm.graphed_mesh``), one capture of each serving every flush;
+(``programs.graphed`` of the mesh's home), one capture of each serving
+every flush;
 ``graphs=False`` and the CPU run the same stages eagerly.  Progress
 printing is single-device only, as in the reference.
 """
@@ -47,6 +49,7 @@ import time
 import numpy as np
 import torch
 
+from ar_slam_tpu_torch import programs
 from ar_slam_tpu_torch.convert import arrays_from_numpy
 from ar_slam_tpu_torch.core.seeding import (seed_capture_pose_multi,
                                             seed_tag_pose)
@@ -137,8 +140,9 @@ def apply_wave_seeds_multi(camera, cap_poses, tag_poses, tag_idx, corners,
     tags, anchor_rows): with seed_row >= 0 the capture is seeded from its
     anchors (block rows of already-initialized tags), then each tag first
     seen in the wave is initialized through the wave's capture from its
-    block row.  On a CUDA device with ``graphs`` the stage replays a CUDA
-    graph (solve/graphs.py), bit for bit the eager stage.  Returns new
+    block row.  The tables are the ``seed`` stage of
+    ``graphs.seed_waves_graphed``: a replayed CUDA graph where
+    ``programs.graphed`` allows, else the stage run eagerly.  Returns new
     (cap_poses, tag_poses)."""
     with TRACE.span("solve.seed_inputs"):
         if slots is None:
@@ -147,14 +151,12 @@ def apply_wave_seeds_multi(camera, cap_poses, tag_poses, tag_idx, corners,
         tables = pack_waves(waves, slots, w_min)
     tables = TRACE.wait("solve.tables", torch.as_tensor, tables,
                         device=corners.device)
-    kw = dict(aruco_size=aruco_size, seed_mode=seed_mode)
-    if graphs and corners.device.type == "cuda":
-        from ar_slam_tpu_torch.solve.graphs import seed_waves_graphed
+    from ar_slam_tpu_torch.solve.graphs import seed_waves_graphed
 
-        return seed_waves_graphed(camera, cap_poses, tag_poses, tag_idx,
-                                  corners, tables, **kw)
-    return seed_waves(camera, cap_poses, tag_poses, tag_idx, corners, tables,
-                      **kw)
+    return seed_waves_graphed(camera, cap_poses, tag_poses, tag_idx, corners,
+                              tables, aruco_size=aruco_size,
+                              seed_mode=seed_mode,
+                              graphed=programs.graphed(corners.device, graphs))
 
 
 def _maybe_calibrate_focal(store: MapStore, config) -> None:
@@ -396,10 +398,9 @@ class _WaveRunner:
         """One LM iteration per call, printing ceres-style progress lines
         (≙ minimizer_progress_to_stdout, ar_slam_util.cpp:1012).  lam and
         nu carry over through lam0 / nu0, so the damping schedule is the
-        one-call solve's.  ``budget`` is the wave's iteration budget.  On
-        the card each call is a load and replays of the LM program (as
-        the JAX package jits each call), the costs bit for bit the eager
-        stepping's."""
+        one-call solve's.  ``budget`` is the wave's iteration budget.  Each
+        call is a load and runs of the LM program's stages (as the JAX
+        package jits each call), replayed on the card, eager elsewhere."""
         lam, nu = self.config.initial_lambda, 2.0
         prev_cost = None
         t_start = time.time()
@@ -494,10 +495,10 @@ def solve(store: MapStore, config=None, dtype=None, device=None,
     ``assemble_fn`` overrides the normal-equation assembly (the flat
     hooks then run; see lm.lm_solve; the mesh path ignores it).  With
     ``mesh`` (or config.dist.num_devices > 1) each LM runs tag-sharded
-    over it.  On a CUDA device the LM and the seeds replay CUDA graphs
-    (solve/graphs.py; on a mesh parallel/dist_lm.py); ``graphs=False``
-    runs the eager loop instead, bit for bit the same.  Returns {"waves",
-    "cost", "rmse"}."""
+    over it.  The LM and the seeds run as program stages (solve/graphs.py;
+    on a mesh parallel/dist_lm.py), replayed as CUDA graphs on a CUDA
+    device; ``graphs=False`` runs the same stages eagerly, bit for bit the
+    same.  Returns {"waves", "cost", "rmse"}."""
     config, dtype, device, mesh = _resolve(config, dtype, device, mesh)
     if not store.captures:
         return {"waves": 0}

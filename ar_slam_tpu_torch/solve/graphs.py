@@ -7,13 +7,14 @@ relinearization (ar_slam_tpu/solve/lm.py:378, :424), and
 ``localize_kernel`` (ar_slam_tpu/solve/localize.py:32) with its seeding
 and ``while_loop``.  PyTorch runs eagerly, so an LM iteration was some
 980 small launches from Python; here it is at most two graph replays and
-one host read, with the results of the eager loop bit for bit (the same
-kernels on the same values, in the same order).
+one host read.  Each driver below is the solver's only loop on every
+device: where ``programs.graphed`` declines (the CPU, ``graphs=False``)
+it runs the same stages eagerly, not captured, with the replays' results
+bit for bit (the same kernels on the same values, in the same order).
 
 The machinery (``Program``, the cache ``CACHE``, the capture and the
 replay) is ``ar_slam_tpu_torch/programs.py``, which the detector shares;
-this module holds the solver's stages and re-exports what its callers
-use.
+this module holds the solver's stages and their host loops.
 
 - seeds (``seed_waves_graphed``): one stage ``seed``, a flush's padded
   seed tables (solve/batch.py ``seed_waves``) applied in one replay.
@@ -28,10 +29,11 @@ use.
   The host loop (``lm_iterate``) reads the converged flag once after
   ``setup``; an iteration replays ``step``, reads its three flags
   (converged before the step, accept stage next, converged after it) in
-  one copy to the host, and replays ``accept`` or ``reject``: the eager
-  loop's lazy relinearization.  A step run after a convergence that only
-  the gradient test shows is dropped, which leaves the state as the
-  eager loop leaves it.
+  one copy to the host, and replays ``accept`` or ``reject``: the
+  relinearization only after an accepted step that does not end the
+  loop.  A step run after a convergence that only the gradient test
+  shows is dropped, which leaves the state as the reference's
+  ``while_loop`` leaves it.
 - localize (``localize_graphed``): stages ``init`` (each query's seed
   pose, cost and damping) and ``iterate``; a call replays ``init`` and
   then ``iterate`` once an iteration, each replay followed by one flag
@@ -57,7 +59,7 @@ from __future__ import annotations
 
 import torch
 
-from ar_slam_tpu_torch.programs import CACHE, Program, _clone  # noqa: F401
+from ar_slam_tpu_torch.programs import CACHE, Program
 from ar_slam_tpu_torch.solve.lm import (LMConfig, LMState, _grad_inf_norm,
                                         flat_solver, grouped_solver,
                                         lm_accept, lm_init, lm_reject,
@@ -81,7 +83,7 @@ def fields(state: LMState) -> dict:
 
 
 def lm_info(prog: "Program", iteration: int) -> dict:
-    """``lm_core``'s info dict from an LM program's tensors (copies when
+    """The LM's info dict from its program's tensors (copies when
     graphed)."""
     t = prog.t
     return {"cost": prog.out(t["cost"]), "iterations": iteration,
@@ -171,9 +173,11 @@ def lm_solve_graphed(camera, cap_poses, tag_poses, cap_idx, tag_idx, corners,
     """``lm_solve``'s LM through the split stages: replayed CUDA graphs
     (``graphed``, a CUDA device), or the same stages run eagerly.  The
     grouped hooks at the bounds ``lm.grouped_bounds`` gives; without
-    ``obs_per_tag``, or with an ``assemble_fn``, the flat hooks.  Returns
-    (camera, cap_poses, tag_poses, info) as ``lm_core`` does, bit for
-    bit."""
+    ``obs_per_tag``, or with an ``assemble_fn``, the flat hooks.
+    ``enabled=False`` runs no iteration; ``lam0`` / ``nu0`` resume the
+    damping schedule.  Returns (camera, cap_poses, tag_poses, info): the
+    info's cost, iterations, lambda, nu, converged flag, initial cost,
+    termination code and gradient max."""
     dev = cap_poses.device
     if graphed and dev.type != "cuda":
         raise ValueError(f"CUDA graphs need a CUDA device, not {dev}")
@@ -225,7 +229,7 @@ def seed_waves_graphed(camera, cap_poses, tag_poses, tag_idx, corners,
                        graphed: bool = True):
     """``batch.seed_waves`` as the ``seed`` stage of a program: a replayed
     CUDA graph (``graphed``, a CUDA device) or the stage run eagerly.
-    Returns new (cap_poses, tag_poses), bit for bit ``seed_waves``'s."""
+    Returns new (cap_poses, tag_poses)."""
     dev = cap_poses.device
     if graphed and dev.type != "cuda":
         raise ValueError(f"CUDA graphs need a CUDA device, not {dev}")
@@ -261,10 +265,21 @@ _LOC_STATE = ("pose", "lam", "nu", "cost", "it", "conv")
 def localize_graphed(camera, tag_poses, q_tag_idx, q_corners, q_block_mask,
                      q_seed_slot, *, aruco_size: float, config: LMConfig,
                      seed_mode: str = "hybrid", graphed: bool = True):
-    """``localize_batch`` as the stages ``init`` (the seeds) and
-    ``iterate`` (one iteration): replayed CUDA graphs (``graphed``, a
-    CUDA device) or the same stages run eagerly.  Returns (poses, costs,
-    iterations), bit for bit ``localize_batch``'s."""
+    """Batched pose-only LM (the reference's vmapped ``localize_kernel``)
+    as the stages ``init`` (the seeds) and ``iterate`` (one iteration):
+    replayed CUDA graphs (``graphed``, a CUDA device) or the same stages
+    run eagerly.
+
+    Args:
+      camera: (3,) frozen intrinsics.
+      tag_poses: (T, 6) frozen map tag poses.
+      q_tag_idx: (Q, K) int64 tag index per query block (padded).
+      q_corners: (Q, K, 4, 2) observed corners.
+      q_block_mask: (Q, K) bool.
+      q_seed_slot: (Q,) int64, which of the K blocks seeds the pose.
+
+    Returns ((Q, 6) optimized inverse capture poses, (Q,) final costs,
+    (Q,) int64 iteration counts)."""
     dev = camera.device
     if graphed and dev.type != "cuda":
         raise ValueError(f"CUDA graphs need a CUDA device, not {dev}")

@@ -1,10 +1,12 @@
 """Levenberg–Marquardt trust-region loop (port of ar_slam_tpu/solve/lm.py).
 
-The loop runs in Python with its state on the device.  ``lm_core`` is the
-eager loop (two host reads an iteration); ``lm_step`` / ``lm_accept`` /
-``lm_reject`` split its body into functions with no host read, which
-solve/graphs.py replays as CUDA graphs with one read an iteration (the
-counterpart of the reference's ``lax.while_loop``).  The accept/reject
+The loop runs in Python with its state on the device.  ``lm_init``,
+``lm_step``, ``lm_accept`` and ``lm_reject`` are its start and the parts
+of its body, none with a host read; solve/graphs.py runs them as the
+stages of a program (``programs.Program``) driven by one host loop with
+one read an iteration (the counterpart of the reference's
+``lax.while_loop``): replayed as CUDA graphs on the card, the same stages
+run eagerly on the CPU and with ``graphs=False``.  The accept/reject
 rule, the lambda schedule and the three termination tests are the
 reference's ``lm_core``'s exactly:
 accept when rho = actual / model decrease > min_relative_decrease; on
@@ -16,8 +18,7 @@ The assembled normal equations are carried between iterations and rebuilt
 only after an accepted step; step quality comes from quad forms on them.
 ``lm_solve`` runs the tag-grouped hooks when given ``obs_per_tag`` (with
 the dense Schur solve, or implicit-Schur CG for ``linear_solver="cg"``)
-and the flat block hooks otherwise, as the reference does; both replay
-CUDA graphs on the card.
+and the flat block hooks otherwise, as the reference does.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from ar_slam_tpu_torch import programs
 from ar_slam_tpu_torch.solve.residuals import linearize, residuals_and_rho
 from ar_slam_tpu_torch.solve.schur import (assemble, assemble_grouped,
                                            flat_plans, group_blocks_by_tag,
@@ -33,7 +35,6 @@ from ar_slam_tpu_torch.solve.schur import (assemble, assemble_grouped,
                                            quad_form_flat, quad_form_grouped,
                                            schur_solve, schur_solve_grouped,
                                            schur_solve_grouped_cg)
-from ar_slam_tpu_torch.utils.metrics import TRACE
 
 
 class LMConfig(NamedTuple):
@@ -88,12 +89,8 @@ def _grad_inf_norm(eqs, cam_active, cap_active, tag_active):
     gt = getattr(eqs, "g_t_max", None)
     cap = eqs if gt is None else eqs.cap
     dt = cap.g_p.dtype
-    if isinstance(cam_active, torch.Tensor):
-        cam = cam_active.to(cap.g_c.device)
-    else:  # a fill, not a host-to-device copy
-        cam = torch.full((), bool(cam_active), dtype=torch.bool,
-                         device=cap.g_c.device)
-    gc = torch.where(cam, torch.max(torch.abs(cap.g_c)),
+    gc = torch.where(cam_active.to(cap.g_c.device),
+                     torch.max(torch.abs(cap.g_c)),
                      torch.zeros((), dtype=dt, device=cap.g_c.device))
     gp = torch.max(torch.abs(cap.g_p) * cap_active[:, None].to(dt))
     if gt is None:
@@ -188,10 +185,8 @@ def make_grouped_hooks(cap_idx, tag_idx, corners, block_mask, aruco_size,
                                 cap_rows)
 
 
-
-
 def lm_init(camera, cap_poses, tag_poses, cam_active, cap_active, tag_active,
-            lin_fn, config: LMConfig, enabled=True, lam0=None, nu0=None):
+            lin_fn, config: LMConfig):
     """The loop's start: the first linearization, the gradient test and
     the initial state.  Returns (state, eqs).  Every scalar is a fill on
     the tensors' device, none a host-to-device copy."""
@@ -200,17 +195,12 @@ def lm_init(camera, cap_poses, tag_poses, cam_active, cap_active, tag_active,
     eqs, cost0 = lin_fn(camera, cap_poses, tag_poses)
     g_conv0 = _grad_inf_norm(eqs, cam_active, cap_active, tag_active) <= (
         config.gradient_tolerance)
-    enabled = bool(enabled)
-    converged = g_conv0 | (not enabled)
-    term = (torch.where(g_conv0, 3, 0) if enabled
-            else torch.full((), 5, dtype=torch.int64, device=dev))
     state = LMState(
         camera=camera.to(dtype), cap_poses=cap_poses, tag_poses=tag_poses,
-        lam=torch.full((), config.initial_lambda if lam0 is None else lam0,
-                       dtype=dtype, device=dev),
-        nu=torch.full((), 2.0 if nu0 is None else nu0, dtype=dtype,
-                      device=dev),
-        cost=cost0, iteration=0, converged=converged, term=term)
+        lam=torch.full((), config.initial_lambda, dtype=dtype, device=dev),
+        nu=torch.full((), 2.0, dtype=dtype, device=dev),
+        cost=cost0, iteration=0, converged=g_conv0,
+        term=torch.where(g_conv0, 3, 0))
     return state, eqs
 
 
@@ -246,110 +236,6 @@ def _term(stalled, g_conv, accept, f_conv, p_conv):
             accept & f_conv, 1, torch.where(accept & p_conv, 2, 0))))
 
 
-def lm_core(camera, cap_poses, tag_poses, cam_active, cap_active, tag_active,
-            lin_fn, quality_fn, config: LMConfig, enabled=True,
-            solve_fn=None, iter_budget=None, solver_state0=None,
-            quality_lin_fn=None, lam0=None, nu0=None):
-    """Generic LM loop over the hooks, eagerly, with two host reads an
-    iteration.  Returns (camera, cap_poses, tag_poses, info).
-
-    ``solve_fn(eqs, lam) -> (d_cam, d_cap, d_tag)`` is the damped solve
-    (default: the flat ``schur_solve``).  With ``solver_state0`` set it is
-    ``solve_fn(eqs, lam, state) -> (d_cam, d_cap, d_tag, state)``: the CG
-    path threads its reduced solution through as the next warm start,
-    zeroed after an accepted step (the next optimal step is near zero).
-    ``enabled=False`` runs zero iterations (seed-only waves); ``lam0`` /
-    ``nu0`` resume the damping schedule across host-stepped calls.
-
-    ``quality_lin_fn(eqs, new_camera, new_caps, new_tags, d_cam, d_cap,
-    d_tag) -> (new_cost, g_dot_d, jd_sq, eqs_new)`` replaces quality_fn
-    and the accept-path lin_fn: it relinearizes speculatively at the
-    proposed parameters, so the tag-sharded hooks pack the step quality
-    and the new capture-side blocks into one reduction (two reductions an
-    iteration: the solve's and this one); an accepted step keeps
-    ``eqs_new``, a rejected one drops it.  Its eqs carry the tag-side sums
-    the loop needs, reduced in the same packs: ``tag_sq`` (sum of the
-    squared tag poses they were linearized at), ``step_sq`` (sum of the
-    squared tag step that proposed them) and ``g_t_max``
-    (``_grad_inf_norm``).  The tags may then be ``Sharded``.
-
-    This is the plain version of the split iteration (``lm_step``,
-    ``lm_accept``, ``lm_reject``, with ``quality_fn`` or
-    ``quality_lin_fn``) that solve/graphs.py and parallel/dist_lm.py
-    replay as CUDA graphs: the same operations in the same order."""
-    stateful = solver_state0 is not None
-    sol = solver_state0
-    if solve_fn is None:
-        def solve_fn(eqs, lam):
-            return schur_solve(eqs, lam, cam_active, cap_active, tag_active,
-                               jacobi_scaling=config.jacobi_scaling)
-
-    state, eqs = lm_init(camera, cap_poses, tag_poses, cam_active,
-                         cap_active, tag_active, lin_fn, config,
-                         enabled=enabled, lam0=lam0, nu0=nu0)
-    cost0 = state.cost
-    budget = min(config.max_iterations if iter_budget is None
-                 else int(iter_budget), config.max_iterations)
-    while state.iteration < budget and not TRACE.wait(
-            "lm.converged", bool, state.converged):
-        if stateful:
-            d_cam, d_cap, d_tag, sol = solve_fn(eqs, state.lam, sol)
-        else:
-            d_cam, d_cap, d_tag = solve_fn(eqs, state.lam)
-        new_camera = state.camera + d_cam
-        new_caps = state.cap_poses + d_cap
-        new_tags = state.tag_poses + d_tag
-        if quality_lin_fn is not None:
-            new_cost, g_dot_d, jd_sq, eqs_prop = quality_lin_fn(
-                eqs, new_camera, new_caps, new_tags, d_cam, d_cap, d_tag)
-            tag_step_sq, tag_x_sq = eqs_prop.step_sq, eqs.tag_sq
-        else:
-            new_cost, g_dot_d, jd_sq = quality_fn(
-                eqs, new_camera, new_caps, new_tags, d_cam, d_cap, d_tag)
-            tag_step_sq = torch.sum(d_tag ** 2)
-            tag_x_sq = torch.sum(state.tag_poses ** 2)
-        (accept, lam_acc, lam_rej, f_conv, p_conv, stalled,
-         converged_fp) = _decide(state, new_cost, g_dot_d, jd_sq, d_cam,
-                                 d_cap, tag_step_sq, tag_x_sq, config)
-
-        accepted, done_fp = TRACE.wait(
-            "lm.flags", torch.stack([accept, converged_fp]).tolist)
-        g_conv = torch.zeros((), dtype=torch.bool, device=accept.device)
-        if quality_lin_fn is not None:
-            # the speculative relinearization: kept on accept
-            eqs = eqs_prop if accepted else eqs
-        elif accepted and not done_fp:  # relinearize only when it is needed
-            eqs, _ = lin_fn(new_camera, new_caps, new_tags)
-        if accepted and not done_fp:
-            g_conv = _grad_inf_norm(eqs, cam_active, cap_active,
-                                    tag_active) <= config.gradient_tolerance
-        state = LMState(
-            camera=new_camera if accepted else state.camera,
-            cap_poses=new_caps if accepted else state.cap_poses,
-            tag_poses=new_tags if accepted else state.tag_poses,
-            lam=lam_acc if accepted else lam_rej,
-            nu=torch.full_like(state.nu, 2.0) if accepted
-            else state.nu * 2.0,
-            cost=new_cost if accepted else state.cost,
-            iteration=state.iteration + 1,
-            converged=converged_fp | g_conv,
-            term=_term(stalled, g_conv, accept, f_conv, p_conv),
-        )
-        if stateful and accepted:
-            sol = torch.zeros_like(sol)
-    info = {
-        "cost": state.cost,
-        "iterations": state.iteration,
-        "lambda": state.lam,
-        "converged": state.converged,
-        "initial_cost": cost0,
-        "termination": state.term,
-        "nu": state.nu,
-        "grad_max": _grad_inf_norm(eqs, cam_active, cap_active, tag_active),
-    }
-    return state.camera, state.cap_poses, state.tag_poses, info
-
-
 class LMStep(NamedTuple):
     """One step's proposal and decision (``lm_step``).  ``flags`` is
     [converged before the step, run ``lm_accept`` next (else
@@ -381,13 +267,28 @@ class LMStep(NamedTuple):
 def lm_step(state: LMState, eqs, sol, solve_fn, quality_fn,
             config: LMConfig, quality_lin_fn=None, active=None) -> LMStep:
     """The damped solve, the proposal, its quality and the tests of one
-    iteration, with no host read: ``lm_core``'s loop body up to its read.
-    ``sol`` is the CG warm start (None for a stateless ``solve_fn``).
-    With ``quality_lin_fn`` (the tag-sharded hooks, see ``lm_core``) in
-    place of ``quality_fn``, the step also makes the gradient test that
-    ``lm_core`` makes on the speculative relinearization (false unless the
-    step is accepted and does not converge otherwise), over the masks
-    ``active`` = (cam_active, cap_active, tag_active)."""
+    iteration, with no host read.
+
+    ``solve_fn(eqs, lam) -> (d_cam, d_cap, d_tag)`` is the damped solve;
+    with ``sol`` (the CG warm start; None for a stateless solve) it is
+    ``solve_fn(eqs, lam, sol) -> (d_cam, d_cap, d_tag, sol)``, the reduced
+    solution threaded through as the next warm start (zeroed after an
+    accepted step: the next optimal step is near zero).
+
+    ``quality_lin_fn(eqs, new_camera, new_caps, new_tags, d_cam, d_cap,
+    d_tag) -> (new_cost, g_dot_d, jd_sq, eqs_new)`` replaces quality_fn
+    and the accept stage's relinearization: it relinearizes speculatively
+    at the proposal, so the tag-sharded hooks pack the step quality and
+    the new capture-side blocks into one reduction (two reductions an
+    iteration: the solve's and this one); an accepted step keeps
+    ``eqs_new``, a rejected one drops it.  Its eqs carry the tag-side sums
+    the loop needs, reduced in the same packs: ``tag_sq`` (sum of the
+    squared tag poses they were linearized at), ``step_sq`` (sum of the
+    squared tag step that proposed them) and ``g_t_max``
+    (``_grad_inf_norm``).  The step then also makes the gradient test on
+    the speculative relinearization (false unless the step is accepted
+    and does not converge otherwise), over the masks ``active`` =
+    (cam_active, cap_active, tag_active)."""
     if sol is None:
         d_cam, d_cap, d_tag = solve_fn(eqs, state.lam)
     else:
@@ -422,9 +323,8 @@ def lm_step(state: LMState, eqs, sol, solve_fn, quality_fn,
 
 
 def _lm_update(state: LMState, step: LMStep, g_conv):
-    """The state after ``step``: selects on its accept flag where
-    ``lm_core`` branches on the host (the same values bit for bit; shard
-    by shard for ``Sharded`` tags), and the CG warm start zeroed after an
+    """The state after ``step``, selected on its accept flag (shard by
+    shard for ``Sharded`` tags), and the CG warm start zeroed after an
     accepted step.  Returns (state, sol)."""
     acc = step.accept
 
@@ -454,8 +354,8 @@ def lm_accept(state: LMState, step: LMStep, lin_fn, cam_active, cap_active,
     """An accepted step: the relinearization at the proposal, the gradient
     test and the state update (a step that ends the loop takes
     ``lm_reject`` instead); a fused step's (``step.eqs``) speculative eqs
-    and test adopted in their place, also when it ends the loop, as
-    ``lm_core`` adopts them.  Returns (state, eqs, sol)."""
+    and test adopted in their place, also when it ends the loop.  Returns
+    (state, eqs, sol)."""
     if step.eqs is not None:
         state, sol = _lm_update(state, step, step.g_conv)
         return state, step.eqs, sol
@@ -588,33 +488,20 @@ def lm_solve(camera, cap_poses, tag_poses, cap_idx, tag_idx, corners,
     tag_idx, n_caps, n_tags) -> NormalEqs`` overriding the assembly, the
     flat block hooks and the flat dense Schur solve run (``flat_solver``).
     ``lam0`` / ``nu0`` resume the damping schedule (host-stepped progress
-    printing).
+    printing); ``enabled=False`` runs zero iterations (seed-only waves).
 
-    On a CUDA device either LM replays CUDA graphs (solve/graphs.py), bit
-    for bit the eager loop (``lm_core``), which ``graphs=False`` and the
-    CPU run instead.
+    Either LM runs as the stages of solve/graphs.py (``lm_solve_graphed``):
+    replayed CUDA graphs where ``programs.graphed`` allows, else the same
+    stages eagerly.
     """
-    n_caps = cap_poses.shape[0]
-    n_tags = tag_poses.shape[0]
-    flat = obs_per_tag is None or assemble_fn is not None
-    bounds = {} if flat else grouped_bounds(
-        n_tags, config, obs_per_tag, obs_per_cap, row_slots, tag_rows,
-        cap_rows)
-    if graphs and cap_poses.device.type == "cuda":
-        from ar_slam_tpu_torch.solve.graphs import lm_solve_graphed
+    from ar_slam_tpu_torch.solve.graphs import lm_solve_graphed
 
-        return lm_solve_graphed(
-            camera, cap_poses, tag_poses, cap_idx, tag_idx, corners,
-            block_mask, cam_active, cap_active, tag_active,
-            aruco_size=aruco_size, config=config, enabled=enabled,
-            iter_budget=iter_budget, lam0=lam0, nu0=nu0,
-            assemble_fn=assemble_fn, **bounds)
-    make = flat_solver if flat else grouped_solver
-    lin_fn, quality_fn, solve_fn, sol0 = make(
-        cap_idx, tag_idx, corners, block_mask, cam_active, cap_active,
-        tag_active, aruco_size=aruco_size, config=config, n_caps=n_caps,
-        n_tags=n_tags, **(dict(assemble_fn=assemble_fn) if flat else bounds))
-    return lm_core(camera, cap_poses, tag_poses, cam_active, cap_active,
-                   tag_active, lin_fn, quality_fn, config, enabled=enabled,
-                   solve_fn=solve_fn, iter_budget=iter_budget,
-                   solver_state0=sol0, lam0=lam0, nu0=nu0)
+    bounds = {} if obs_per_tag is None or assemble_fn is not None else (
+        grouped_bounds(tag_poses.shape[0], config, obs_per_tag, obs_per_cap,
+                       row_slots, tag_rows, cap_rows))
+    return lm_solve_graphed(
+        camera, cap_poses, tag_poses, cap_idx, tag_idx, corners, block_mask,
+        cam_active, cap_active, tag_active, aruco_size=aruco_size,
+        config=config, enabled=enabled, iter_budget=iter_budget, lam0=lam0,
+        nu0=nu0, assemble_fn=assemble_fn,
+        graphed=programs.graphed(cap_poses.device, graphs), **bounds)

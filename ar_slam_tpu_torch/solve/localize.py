@@ -9,9 +9,10 @@ problem, so all of them run at once: one Python loop of at most
 ``max_iterations`` LM iterations over the (Q, ...) batch, each query with
 its own lambda, acceptance and convergence, and one host read per
 iteration to stop when every query has converged.  ``localize_init`` (the
-seeds) and ``localize_iteration`` (one iteration) read nothing back; on
-the card each is replayed as a CUDA graph.  The Jacobians are jets
-(core/jet.py).
+seeds) and ``localize_iteration`` (one iteration) read nothing back: they
+are the stages of solve/graphs.py's ``localize_graphed``, replayed as
+CUDA graphs on the card and run eagerly elsewhere.  The Jacobians are
+jets (core/jet.py).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import logging
 import numpy as np
 import torch
 
+from ar_slam_tpu_torch import programs
 from ar_slam_tpu_torch.core import jet as J
 from ar_slam_tpu_torch.core.projection import block_residual
 from ar_slam_tpu_torch.core.seeding import seed_capture_pose
@@ -119,46 +121,19 @@ def localize_iteration(camera, q_corners, tps, maskf, pose, lam, nu, cost,
         conv=torch.where(active, new_conv, conv))
 
 
-def localize_batch(camera, tag_poses, q_tag_idx, q_corners, q_block_mask,
-                   q_seed_slot, *, aruco_size: float, config: LMConfig,
-                   seed_mode: str = "hybrid"):
-    """Batched pose-only LM (the reference's vmapped ``localize_kernel``),
-    eagerly: the plain version of the graphed loop (solve/graphs.py).
-
-    Args:
-      camera: (3,) frozen intrinsics.
-      tag_poses: (T, 6) frozen map tag poses.
-      q_tag_idx: (Q, K) int64 tag index per query block (padded).
-      q_corners: (Q, K, 4, 2) observed corners.
-      q_block_mask: (Q, K) bool.
-      q_seed_slot: (Q,) int64, which of the K blocks seeds the pose.
-
-    Returns ((Q, 6) optimized inverse capture poses, (Q,) final costs,
-    (Q,) int64 iteration counts).
-    """
-    s = localize_init(camera, tag_poses, q_tag_idx, q_corners, q_block_mask,
-                      q_seed_slot, aruco_size=aruco_size, config=config,
-                      seed_mode=seed_mode)
-    for _ in range(config.max_iterations):
-        if not TRACE.wait("localize.active", bool, (~s["conv"]).any()):
-            break
-        s.update(localize_iteration(camera, q_corners, **s,
-                                    aruco_size=aruco_size, config=config))
-    return s["pose"], s["cost"], s["it"]
-
-
 def localize_many(store: MapStore, first_loc_cap_idx: int, config=None,
                   dtype=None, device=None, graphs: bool = True) -> dict:
     """Localize every capture with index >= first_loc_cap_idx against the
     frozen map built from earlier captures, on ``device`` (default: the
-    card) in ``dtype`` (default: config.solver.dtype).  On a CUDA device
-    each LM iteration replays a CUDA graph (solve/graphs.py), bit for bit
-    the eager ``localize_batch``, which ``graphs=False`` runs instead.
+    card) in ``dtype`` (default: config.solver.dtype), through the stages
+    of ``graphs.localize_graphed``: each LM iteration a replayed CUDA graph
+    where ``programs.graphed`` allows, else the same stage run eagerly.
 
     Mutates the query captures' poses in the store.  Returns a summary with
     per-capture status ("localized" / "disconnected").
     """
     from ar_slam_tpu_torch.config import ArSlamConfig
+    from ar_slam_tpu_torch.solve import graphs as solve_graphs
     from ar_slam_tpu_torch.solve.batch import _lm_config
 
     config = config or ArSlamConfig()
@@ -228,15 +203,13 @@ def localize_many(store: MapStore, first_loc_cap_idx: int, config=None,
         return TRACE.wait("localize.upload", torch.as_tensor, a,
                           device=device, dtype=dt)
 
-    run = localize_batch
-    if graphs and device.type == "cuda":
-        from ar_slam_tpu_torch.solve.graphs import localize_graphed as run
-    poses, costs, iters = run(
+    poses, costs, iters = solve_graphs.localize_graphed(
         dev(store.camera.params, dtype), dev(tag_poses, dtype),
         dev(q_tag_idx), dev(q_corners, dtype), dev(q_mask), dev(q_seed),
         aruco_size=config.aruco_size,
         config=_lm_config(config.solver, config.camera),
-        seed_mode=config.solver.seed_mode)
+        seed_mode=config.solver.seed_mode,
+        graphed=programs.graphed(device, graphs))
     poses, costs, iters = (TRACE.wait("localize.out", x.cpu).numpy()[:q]
                            for x in (poses, costs, iters))
     with TRACE.span("localize.writeback"):

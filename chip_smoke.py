@@ -732,12 +732,12 @@ class CaptureSyncs:
 
         import torch
 
-        from ar_slam_tpu_torch.solve import graphs
+        from ar_slam_tpu_torch import programs
 
         self.counts = dict.fromkeys(self.NAMES, 0)
         self.captures = 0
         self._saved = {n: getattr(torch.cuda, n) for n in self.NAMES}
-        self._capture = graphs.Program._capture
+        self._capture = programs.Program._capture
         capturing = set()
 
         def counted(name):
@@ -759,16 +759,16 @@ class CaptureSyncs:
 
         for n in self.NAMES:
             setattr(torch.cuda, n, counted(n))
-        graphs.Program._capture = watched
+        programs.Program._capture = watched
 
     def close(self) -> None:
         import torch
 
-        from ar_slam_tpu_torch.solve import graphs
+        from ar_slam_tpu_torch import programs
 
         for n, f in self._saved.items():
             setattr(torch.cuda, n, f)
-        graphs.Program._capture = self._capture
+        programs.Program._capture = self._capture
 
 
 def check_tags(cell: str, found: dict, truth_frames, uids, min_side: float):
@@ -803,7 +803,7 @@ def phase_main_path(frames, truth):
     from ar_slam_tpu_torch.graph import yamlio
     from ar_slam_tpu_torch.pipeline.engine import ArSlamEngine
     from ar_slam_tpu_torch.pipeline.ingest import IngestedCapture
-    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch import programs
 
     caps = [IngestedCapture(f"frame{k:02d}", f"frame{k:02d}.png", frames[k])
             for k in range(len(frames))]
@@ -818,14 +818,14 @@ def phase_main_path(frames, truth):
     for b in batches:
         engine.add_decoded(b)
     t_detect = time.perf_counter() - t0
-    detect_graphs = graphs.CACHE.stats()
+    detect_graphs = programs.CACHE.stats()
     check_detect_replays("room-16 detect", detect_replays() - replays,
                          len(batches))
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
     t0 = time.perf_counter()
     summary = engine.solve()
     t_solve = time.perf_counter() - t0
-    solve_graphs = graphs.CACHE.stats()
+    solve_graphs = programs.CACHE.stats()
     os.makedirs(OUT_DIR, exist_ok=True)
     map_path = os.path.join(OUT_DIR, "map.yaml")
     engine.save_map(map_path)
@@ -864,7 +864,7 @@ def phase_phone_12mp(frames, truth, tag_m: float):
     from ar_slam_tpu_torch.detect import ccl
     from ar_slam_tpu_torch.pipeline.engine import ArSlamEngine
     from ar_slam_tpu_torch.pipeline.ingest import IngestedCapture
-    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch import programs
     from ar_slam_tpu_torch.solve.localize import localize_many
     from ar_slam_tpu_torch.utils.ate import camera_positions, umeyama_alignment
 
@@ -881,14 +881,14 @@ def phase_phone_12mp(frames, truth, tag_m: float):
     engine.add_decoded(caps[:8])
     t_detect = time.perf_counter() - t0
     detect_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    detect_graphs = graphs.CACHE.stats()
+    detect_graphs = programs.CACHE.stats()
     check_detect_replays("phone_12mp map detect", detect_replays() - replays,
                          1)
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
     t0 = time.perf_counter()
     summary = engine.solve()
     t_solve = time.perf_counter() - t0
-    solve_graphs = graphs.CACHE.stats()
+    solve_graphs = programs.CACHE.stats()
     os.makedirs(OUT_DIR, exist_ok=True)
     map_path = os.path.join(OUT_DIR, "phone_map.yaml")
     engine.save_map(map_path)
@@ -896,11 +896,11 @@ def phase_phone_12mp(frames, truth, tag_m: float):
     loc = ArSlamEngine(config, device=DEVICE)
     loc.load_map(map_path)
     first = loc.store.next_capture_index
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
     t0 = time.perf_counter()
     result = loc.localize_decoded(caps[8:])
     t_loc_total = time.perf_counter() - t0
-    localize_graphs = graphs.CACHE.stats()
+    localize_graphs = programs.CACHE.stats()
     check_detect_replays("phone_12mp localize detect", detect_replays(), 1)
     t_loc = loc.metrics.timings["localize"][-1]
     launches = read_counts()
@@ -1015,7 +1015,7 @@ def phase_serve_12mp(frames, truth, tag_m: float) -> None:
     from ar_slam_tpu_torch.pipeline import ingest
     from ar_slam_tpu_torch.pipeline.engine import ArSlamEngine
     from ar_slam_tpu_torch.pipeline.stream import StreamPipeline
-    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch import programs
 
     serve_dir = os.path.join(OUT_DIR, "serve")
     shutil.rmtree(serve_dir, ignore_errors=True)
@@ -1051,7 +1051,7 @@ def phase_serve_12mp(frames, truth, tag_m: float) -> None:
         engine.detect_decoded = traced_detect
         waves = []
         reset_counts()
-        graphs.CACHE.clear()
+        programs.CACHE.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pipe = StreamPipeline(engine, on_solve=lambda summary, batch:
@@ -1064,7 +1064,7 @@ def phase_serve_12mp(frames, truth, tag_m: float) -> None:
         torch.cuda.synchronize()
         t_piped = time.perf_counter() - t0
         launches = read_counts()
-        solve_graphs = graphs.CACHE.stats()
+        solve_graphs = programs.CACHE.stats()
         engine.close()
 
         seq = ArSlamEngine(ArSlamConfig(aruco_size=tag_m), device=DEVICE)
@@ -1278,15 +1278,15 @@ def phase_solver_flat_500(grouped_rate: float) -> list:
     the rate and cost of the graphed LM (one capture, then replays), and
     a ``_graph_cell`` of the same LM eager and graphed, bit for bit.
     Returns the cell's profile jobs."""
-    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch import programs
     from ar_slam_tpu_torch.solve.lm import LMConfig
 
     t, arrs, gen_s = _synthetic(500, 200)
     config = LMConfig(max_iterations=32, function_tolerance=0.0,
                       parameter_tolerance=0.0)
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
     rate, _, t_hi, info = _marginal_rate(t, config, 8, 32)
-    kinds = graphs.CACHE.stats()["kinds"].get("lm", {})
+    kinds = programs.CACHE.stats()["kinds"].get("lm", {})
     cost = float(info["cost"])
     rel = abs(cost - F64_OPTIMUM_500) / F64_OPTIMUM_500
     cell, jobs = _graph_cell("synthetic-500 flat", _lm_runner(t, config, {}),
@@ -1509,14 +1509,14 @@ def _graph_cell(name, run, lo: int, hi: int, reps: int = 3,
     PROFILE_BUDGETS)."""
     import torch
 
-    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch import programs
 
     cell, results, jobs = {"cell": name, "budgets": [lo, hi]}, {}, []
     if cards:
         cell["cards"] = cards
     for graphed in (False, True):
         mode = "graphed" if graphed else "eager"
-        graphs.CACHE.clear()
+        programs.CACHE.clear()
         sync_cards()
         for c in cards or [None]:
             torch.cuda.reset_peak_memory_stats(c)
@@ -1525,7 +1525,7 @@ def _graph_cell(name, run, lo: int, hi: int, reps: int = 3,
         sync_cards()
         first_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 1e9
-        stats = graphs.CACHE.stats()
+        stats = programs.CACHE.stats()
         iters = {b: first[b][0] for b in (lo, hi)}
         wall = {b: _wall_ms(run(b, graphed), reps) for b in (lo, hi)}
         d_it = max(iters[hi] - iters[lo], 1)
@@ -1663,11 +1663,11 @@ def _call_cell(name: str, make, reps: int = 5) -> list:
     agree bit for bit: ``make(graphed)`` returns the call.  Returns the
     profile jobs (the profiler runs last, ``phase_solve_graphs_profile``:
     a profile session here hid kernels from the later ones)."""
-    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch import programs
 
     cell, results, jobs = {"cell": name}, {}, []
     for graphed in (False, True):
-        graphs.CACHE.clear()
+        programs.CACHE.clear()
         fn = make(graphed)
         results[graphed] = fn()
         cell["graphed" if graphed else "eager"] = dict(
@@ -1678,7 +1678,7 @@ def _call_cell(name: str, make, reps: int = 5) -> list:
     emit("solve_graphs", **cell)
     if not cell["bit_for_bit"]:
         fail(f"solve_graphs {name}: graphed results differ from the eager")
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
     return jobs
 
 
@@ -1695,7 +1695,7 @@ def phase_solve_graphs(store16, phone, arrs10k):
 
     from ar_slam_tpu_torch.config import ArSlamConfig
     from ar_slam_tpu_torch.graph.arrays import export_arrays
-    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch import programs
     from ar_slam_tpu_torch.solve.batch import solve
     from ar_slam_tpu_torch.solve.lm import LMConfig
     from ar_slam_tpu_torch.solve.localize import localize_many
@@ -1718,14 +1718,14 @@ def phase_solve_graphs(store16, phone, arrs10k):
     # the whole room-16 map: solve's waves, warmups and polish
     out = {}
     for graphed in (False, True):
-        graphs.CACHE.clear()
+        programs.CACHE.clear()
         store = _store_from(store16, store16.captures)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         summary = solve(store, ArSlamConfig(), device=DEVICE, graphs=graphed)
         out[graphed] = dict(
             seconds=time.perf_counter() - t0, summary=summary,
-            graphs=graphs.CACHE.stats(),
+            graphs=programs.CACHE.stats(),
             poses=[c.inv_pose.copy() for c in store.captures]
             + [a.pose.copy() for a in store.arucos]
             + [store.camera.params.copy()])
@@ -1782,7 +1782,7 @@ def phase_solve_graphs(store16, phone, arrs10k):
          iterations=out[True][1][0], rmse_px=out[True][1][1][0]["rmse"])
     if not same:
         fail("solve_graphs phone_12mp localize: graphed differs from eager")
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
     return jobs
 
 
@@ -1955,7 +1955,7 @@ def phase_mesh_graphs(arrs10k, store16) -> list:
     import torch
 
     from ar_slam_tpu_torch.parallel import dist_lm
-    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch import programs
     from ar_slam_tpu_torch.solve.lm import LMConfig
 
     jobs = []
@@ -1996,7 +1996,7 @@ def phase_mesh_graphs(arrs10k, store16) -> list:
             _mesh_map_cell(store16, label, devices, iters, lm_sec)
     finally:
         dist_lm.DistWaveSolver.lm = lm
-        graphs.CACHE.clear()
+        programs.CACHE.clear()
     return jobs
 
 
@@ -2009,13 +2009,13 @@ def _mesh_map_cell(store16, label, devices, iters, lm_sec) -> None:
 
     from ar_slam_tpu_torch.config import ArSlamConfig
     from ar_slam_tpu_torch.parallel import block_mesh
-    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch import programs
     from ar_slam_tpu_torch.solve.batch import solve
 
     cards = sorted(set(devices))
     out = {}
     for mode in ("eager", "graphed", "single-device graphed"):
-        graphs.CACHE.clear()
+        programs.CACHE.clear()
         calls = []
         for _ in range(1 if mode == "eager" else 2):
             store = _store_from(store16, store16.captures)
@@ -2039,7 +2039,7 @@ def _mesh_map_cell(store16, label, devices, iters, lm_sec) -> None:
                     mesh_lm_iterations=sum(iters),
                     lm_ms_per_mesh_lm_iteration=(
                         sum(lm_sec) * 1e3 / sum(iters)))
-        stats = graphs.CACHE.stats()
+        stats = programs.CACHE.stats()
         out[mode] = dict(
             calls=calls, rmse_px=summary["rmse"], waves=summary["waves"],
             graphs={k: stats[k] for k in (
@@ -2184,10 +2184,10 @@ def phase_progress(store16) -> None:
 
     import torch
 
+    from ar_slam_tpu_torch import programs
     from ar_slam_tpu_torch.config import ArSlamConfig
+    from ar_slam_tpu_torch.solve import batch
     from ar_slam_tpu_torch.solve.batch import solve
-
-    from ar_slam_tpu_torch.solve import batch, graphs
 
     config = ArSlamConfig()
     caps = store16.captures[:4]
@@ -2204,7 +2204,7 @@ def phase_progress(store16) -> None:
             costs.append((float(out[3]["cost"]), out[3]["iterations"]))
             return out
 
-        graphs.CACHE.clear()
+        programs.CACHE.clear()
         printed = io.StringIO()
         batch.lm_solve = recorded
         t0 = time.perf_counter()
@@ -2218,11 +2218,11 @@ def phase_progress(store16) -> None:
         lines = printed.getvalue().splitlines()
         runs[graphed] = dict(
             summary=summary, seconds=time.perf_counter() - t0, costs=costs,
-            graphs=graphs.CACHE.stats()["kinds"].get("lm", {}),
+            graphs=programs.CACHE.stats()["kinds"].get("lm", {}),
             iters=[ln for ln in lines
                    if ln.split() and ln.split()[0].isdigit()],
             terms=[ln for ln in lines if ln.startswith("terminating: ")])
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
     stepped, iters, terms = (runs[True]["summary"], runs[True]["iters"],
                              runs[True]["terms"])
     # the lines but their times; each call's cost bit for bit
@@ -2347,23 +2347,22 @@ def _dist_rate(shards, arrs, config, lo, hi):
     info at hi, reductions at hi, the mesh, {graphed, captures made, capture
     ms, replays at hi, the programs held and their pools' GB after})."""
     from ar_slam_tpu_torch.parallel import block_mesh
-    from ar_slam_tpu_torch.parallel.dist_lm import graphed_mesh
-    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch import programs
 
     mesh = block_mesh(devices=_shard_devices(shards))
-    captures, capture_ms = graphs.CACHE.captures, len(graphs.CACHE.capture_ms)
+    captures, capture_ms = programs.CACHE.captures, len(programs.CACHE.capture_ms)
     _dist_run(mesh, arrs, config._replace(max_iterations=2))
     t_lo, info_lo = _dist_run(mesh, arrs, config._replace(max_iterations=lo))
-    before, replays = mesh.reductions, graphs.CACHE.replays
+    before, replays = mesh.reductions, programs.CACHE.replays
     t_hi, info_hi = _dist_run(mesh, arrs, config._replace(max_iterations=hi))
     rate = (info_hi["iterations"] - info_lo["iterations"]) / max(
         t_hi - t_lo, 1e-9)
-    stats = graphs.CACHE.stats()
-    g = dict(graphed=graphed_mesh(mesh),
+    stats = programs.CACHE.stats()
+    g = dict(graphed=programs.graphed(mesh.home),
              captures=stats["captures"] - captures,
              capture_ms=sum(sum(sum(r.values()) for r in c["warmup"])
                             + c["record"]
-                            for c in graphs.CACHE.capture_ms[capture_ms:]),
+                            for c in programs.CACHE.capture_ms[capture_ms:]),
              replays=stats["replays"] - replays, programs=stats["programs"],
              pool_gb=stats["pool_bytes"] / 1e9)
     return rate, t_hi, info_hi, mesh.reductions - before, mesh, g
@@ -2383,14 +2382,14 @@ def phase_mesh_solver_500(grouped_rate: float) -> None:
     from ar_slam_tpu_torch.solve.lm import LMConfig
 
     _, arrs, gen_s = _synthetic(500, 200)
-    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch import programs
 
     config = LMConfig(max_iterations=32, function_tolerance=0.0,
                       parameter_tolerance=0.0)
     runs = {}
     # one program a kind: each shard count's capture replaces the last one
     # in the kind's pool, which its graphs reuse
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
     for shards in (1, 2, 4):
         rate, t_hi, info, reductions, _, g = _dist_rate(shards, arrs, config,
                                                         8, 32)
@@ -2404,7 +2403,7 @@ def phase_mesh_solver_500(grouped_rate: float) -> None:
             devices=_shard_devices(shards), graphs=g)
         _check_replays(f"mesh_solver_500 at {shards} shards", g,
                        info["iterations"])
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
     emit("mesh_solver_500", tags=arrs.n_tags, captures=arrs.n_caps,
          blocks=arrs.n_blocks, dtype="float32", f64_optimum=F64_OPTIMUM_500,
          single_device_lm_iterations_per_s=grouped_rate, shards=runs,
@@ -2436,15 +2435,15 @@ def _mesh_cg_10k(arrs, single_rmse: float, shards: int) -> None:
 
     config = LMConfig(max_iterations=12, function_tolerance=0.0,
                       parameter_tolerance=0.0, linear_solver="cg")
-    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch import programs
 
     cards = sorted(set(_shard_devices(shards)))
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
     for d in cards:
         torch.cuda.reset_peak_memory_stats(d)
     rate, t_hi, info, reductions, mesh, g = _dist_rate(shards, arrs, config,
                                                        3, 12)
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
     peak_gb = {d: torch.cuda.max_memory_allocated(d) / 1e9 for d in cards}
     _check_replays(f"mesh_cg_10k at {shards} shards", g, info["iterations"])
     cost0, cost = float(info["initial_cost"]), float(info["cost"])
@@ -2511,18 +2510,17 @@ def phase_mesh_map_room16(store16, dense_rmse: float, truth) -> None:
     from ar_slam_tpu_torch.parallel import block_mesh
     from ar_slam_tpu_torch.solve.batch import solve
 
-    from ar_slam_tpu_torch.parallel.dist_lm import graphed_mesh
-    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch import programs
 
     store = _store_from(store16, store16.captures)
     mesh = block_mesh(devices=_shard_devices(2))
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
     t0 = time.perf_counter()
     summary = solve(store, ArSlamConfig(), mesh=mesh)
     seconds = time.perf_counter() - t0
-    stats = graphs.CACHE.stats()
-    graphs.CACHE.clear()
-    if graphed_mesh(mesh) and not (stats["captures"] == 2
+    stats = programs.CACHE.stats()
+    programs.CACHE.clear()
+    if programs.graphed(mesh.home) and not (stats["captures"] == 2
                                    and stats["replays"] > 0):
         fail(f"mesh_map_room16: the mesh's seeds and LM replayed no graphs: "
              f"{stats}")
@@ -2536,7 +2534,7 @@ def phase_mesh_map_room16(store16, dense_rmse: float, truth) -> None:
          rmse_diff_px=abs(rmse - dense_rmse), tolerance_px=MESH_RMSE_TOL_PX,
          tags_in_map=len(tags), tags_required=n_req,
          reductions=mesh.reductions, focal=float(store.camera.params[0]),
-         solve_seconds=seconds, graphed=graphed_mesh(mesh),
+         solve_seconds=seconds, graphed=programs.graphed(mesh.home),
          graphs={k: stats[k] for k in ("captures", "replays", "capture_ms",
                                        "pool_bytes")})
     if not (abs(rmse - dense_rmse) <= MESH_RMSE_TOL_PX
@@ -2565,8 +2563,8 @@ def mesh_map(mode: str, spec: str, src: str, out: str) -> int:
     cache's counts."""
     import torch
 
-    from ar_slam_tpu_torch import cli
-    from ar_slam_tpu_torch.solve import batch, graphs
+    from ar_slam_tpu_torch import cli, programs
+    from ar_slam_tpu_torch.solve import batch
 
     solve, seen = batch.solve, {}
 
@@ -2575,7 +2573,7 @@ def mesh_map(mode: str, spec: str, src: str, out: str) -> int:
         res = solve(*a, graphs=mode == "graphs", **kw)
         torch.cuda.synchronize()
         seen.update(solve_s=time.perf_counter() - t0,
-                    graphs=graphs.CACHE.stats())
+                    graphs=programs.CACHE.stats())
         return res
 
     batch.solve = timed_solve
@@ -2676,8 +2674,8 @@ def one_shot_map(mode: str, src: str, out: str) -> int:
     t0 = time.perf_counter()
     import torch
 
-    from ar_slam_tpu_torch import cli
-    from ar_slam_tpu_torch.solve import batch, graphs
+    from ar_slam_tpu_torch import cli, programs
+    from ar_slam_tpu_torch.solve import batch
 
     import_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2697,7 +2695,7 @@ def one_shot_map(mode: str, src: str, out: str) -> int:
     with contextlib.redirect_stdout(printed):
         rc = cli.main(["map", src, "-o", out])
     torch.cuda.synchronize()
-    stats = graphs.CACHE.stats()
+    stats = programs.CACHE.stats()
     first = {}  # each program's first capture: its first warm-up round
     for c in stats["capture_split_ms"]:
         first.setdefault(c["program"], c["warmup"][0])
@@ -2752,14 +2750,14 @@ def phase_serve_growth() -> None:
 
     from ar_slam_tpu_torch.config import ArSlamConfig
     from ar_slam_tpu_torch.graph.store import MapStore
-    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch import programs
     from ar_slam_tpu_torch.solve.batch import solve_incremental
     from ar_slam_tpu_torch.utils.synthetic import make_synthetic_map
 
     src, _ = make_synthetic_map(n_tags=200, n_caps=64, seed=0, noise_px=0.3,
                                 focal=3000.0)
     store = MapStore(initial_focal=3000.0)
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     reserved0 = torch.cuda.memory_reserved()
@@ -2772,7 +2770,7 @@ def phase_serve_growth() -> None:
         t0 = time.perf_counter()
         out = solve_incremental(store, ArSlamConfig(), device=DEVICE)
         torch.cuda.synchronize()
-        stats = graphs.CACHE.stats()
+        stats = programs.CACHE.stats()
         calls.append(dict(
             captures_in_map=len(store.captures), tags=len(store.arucos),
             blocks=len(store.blocks), seconds=time.perf_counter() - t0,
@@ -2781,12 +2779,12 @@ def phase_serve_growth() -> None:
             pool_gb=stats["pool_bytes"] / 1e9,
             reserved_gb=(torch.cuda.memory_reserved() - reserved0) / 1e9))
     emit("serve_growth", calls=calls,
-         capture_split_ms=graphs.CACHE.stats()["capture_split_ms"])
+         capture_split_ms=programs.CACHE.stats()["capture_split_ms"])
     rmse = out.get("rmse", float("nan"))
     if not (all(c["programs"] == 2 for c in calls) and np.isfinite(rmse)
             and rmse < 1.0 and out.get("unsolved") == 0):
         fail(f"serve_growth: {calls}")
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
 
 
 def _device_ms(fn, names) -> dict:

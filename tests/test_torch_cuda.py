@@ -379,10 +379,10 @@ def test_graphed_lm_equals_eager(dev, solver, n_tags, n_caps):
     """lm_solve's CUDA graphs give the eager loop's results bit for bit
     (synthetic-500 dense, a small CG map), with budgets 3 then the full
     12 through one capture, and the warmup's frozen camera."""
-    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch import programs
     from ar_slam_tpu_torch.solve.lm import lm_solve
 
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
     args, kw = _lm_case(dev, n_tags, n_caps, solver)
     for budget, cam in ((3, True), (None, True), (None, False)):
         a = args[:7] + (cam,) + args[8:]
@@ -390,7 +390,7 @@ def test_graphed_lm_equals_eager(dev, solver, n_tags, n_caps):
         got = lm_solve(*a, iter_budget=budget, **kw)
         torch.cuda.synchronize()
         _equal_solves(got, ref)
-    assert graphs.CACHE.captures == 1 and graphs.CACHE.replays > 0
+    assert programs.CACHE.captures == 1 and programs.CACHE.replays > 0
 
 
 def test_graph_cache_reuses_its_pool(dev):
@@ -398,40 +398,41 @@ def test_graph_cache_reuses_its_pool(dev):
     same memory pool: one program held, and a smaller problem after a
     larger one adds less than half of what its own pool holds; each
     replays the eager results."""
-    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch import programs
     from ar_slam_tpu_torch.solve.lm import lm_solve
 
     cases = [_lm_case(dev, n_tags, n_caps, "dense")
              for n_tags, n_caps in ((300, 120), (500, 200))]
     pools = []
     for order in ([0], [1, 0]):
-        graphs.CACHE.clear()
+        programs.CACHE.clear()
         for args, kw in (cases[i] for i in order):
             ref = lm_solve(*args, iter_budget=3, graphs=False, **kw)
             got = lm_solve(*args, iter_budget=3, **kw)
             torch.cuda.synchronize()
             _equal_solves(got, ref)
-            stats = graphs.CACHE.stats()
+            stats = programs.CACHE.stats()
             assert stats["programs"] == 1
             pools.append(stats["pool_bytes"])
-        assert graphs.CACHE.captures == len(order)
+        assert programs.CACHE.captures == len(order)
     small, large, both = pools
     assert 0 < small < large and both < large + small / 2
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
 
 
 def test_graph_replays_do_not_sync(dev):
     """The stages read nothing back to the host: run eagerly on the card
     and replayed, both under set_sync_debug_mode("error")."""
+    from ar_slam_tpu_torch import programs
     from ar_slam_tpu_torch.solve import graphs
     from ar_slam_tpu_torch.solve.lm import grouped_bounds, lm_solve
 
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
     args, kw = _lm_case(dev, 200, 80, "cg")
     lm_solve(*args, iter_budget=2, **kw)  # captures
-    (prog,) = graphs.CACHE._programs.values()
+    (prog,) = programs.CACHE._programs.values()
     n_tags = args[2].shape[0]
-    eager = graphs.Program(graphs._lm_stages(
+    eager = programs.Program(graphs._lm_stages(
         kw["aruco_size"], kw["config"], args[1].shape[0], n_tags,
         grouped_bounds(n_tags, kw["config"], kw["obs_per_tag"],
                        kw["obs_per_cap"], kw["row_slots"], kw["tag_rows"],
@@ -458,8 +459,8 @@ def test_capture_beside_detect_thread(dev):
     program), and replays the eager results."""
     import threading
 
+    from ar_slam_tpu_torch import programs
     from ar_slam_tpu_torch.detect.detect import detect_batch
-    from ar_slam_tpu_torch.solve import graphs
     from ar_slam_tpu_torch.solve.lm import lm_solve
 
     frames = torch.from_numpy(_frames(4))
@@ -474,7 +475,7 @@ def test_capture_beside_detect_thread(dev):
         except Exception as e:  # reported by the main thread
             errors.append(e)
 
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
     args, kw = _lm_case(dev, 500, 200, "dense")
     ref = lm_solve(*args, graphs=False, **kw)
     th = threading.Thread(target=detect_loop)
@@ -488,7 +489,7 @@ def test_capture_beside_detect_thread(dev):
         stop.set()
         th.join(timeout=120)
     assert not th.is_alive() and not errors, errors
-    assert graphs.CACHE.stats()["kinds"]["lm"]["captures"] == 1
+    assert programs.CACHE.stats()["kinds"]["lm"]["captures"] == 1
     assert runs[0] > 0
     _equal_solves(got, ref)
 
@@ -496,9 +497,9 @@ def test_capture_beside_detect_thread(dev):
 def test_solve_and_localize_replay_graphs(dev):
     """solve and localize_many on the card replay graphs, bit for bit the
     eager loops (a synthetic map of 7 captures, 3 queries)."""
+    from ar_slam_tpu_torch import programs
     from ar_slam_tpu_torch.config import ArSlamConfig
     from ar_slam_tpu_torch.graph.store import MapStore
-    from ar_slam_tpu_torch.solve import graphs
     from ar_slam_tpu_torch.solve.batch import solve
     from ar_slam_tpu_torch.solve.localize import localize_many
     from ar_slam_tpu_torch.utils.synthetic import make_synthetic_map
@@ -513,7 +514,7 @@ def test_solve_and_localize_replay_graphs(dev):
 
     results = {}
     for g in (False, True):
-        graphs.CACHE.clear()
+        programs.CACHE.clear()
         store = MapStore(initial_focal=3000.0)
         add(store, src.captures[:7])
         summary = solve(store, ArSlamConfig(), device=dev, graphs=g)
@@ -521,7 +522,7 @@ def test_solve_and_localize_replay_graphs(dev):
         loc = localize_many(store, 7, ArSlamConfig(), device=dev, graphs=g)
         results[g] = (summary, loc, [c.inv_pose.copy()
                                      for c in store.captures])
-        assert (graphs.CACHE.replays > 0) == g
+        assert (programs.CACHE.replays > 0) == g
     (s0, l0, p0), (s1, l1, p1) = results[False], results[True]
     assert s0 == s1 and l0 == l1
     for a, b in zip(p0, p1):
@@ -548,10 +549,11 @@ def _seed_case(dev):
 def test_graphed_seeds_equal_eager(dev):
     """The seed program's replays equal the eager stage bit for bit, for
     two flushes' tables through one capture."""
+    from ar_slam_tpu_torch import programs
     from ar_slam_tpu_torch.solve import graphs
     from ar_slam_tpu_torch.solve.batch import seed_waves
 
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
     args, tables = _seed_case(dev)
     kw = dict(aruco_size=0.0635, seed_mode="hybrid")
     for tab in tables:
@@ -560,30 +562,30 @@ def test_graphed_seeds_equal_eager(dev):
         torch.cuda.synchronize()
         assert all(torch.equal(g, r) for g, r in zip(got, ref))
         assert not torch.equal(got[1], args[2])
-    assert graphs.CACHE.captures == 1 and graphs.CACHE.replays == 2
-    graphs.CACHE.clear()
+    assert programs.CACHE.captures == 1 and programs.CACHE.replays == 2
+    programs.CACHE.clear()
 
 
 def test_localize_call_replays_init(dev, monkeypatch):
     """A graphed localize call replays ``init`` and then ``iterate``,
-    bit for bit localize_batch."""
+    bit for bit the same stages run eagerly."""
+    from ar_slam_tpu_torch import programs
     from ar_slam_tpu_torch.solve import graphs
     from ar_slam_tpu_torch.solve.lm import LMConfig
-    from ar_slam_tpu_torch.solve.localize import localize_batch
     from torch_cases import localize_queries
 
     q = [torch.as_tensor(x, device=dev) for x in localize_queries()]
     q[0], q[1], q[3] = q[0].float(), q[1].float(), q[3].float()
     kw = dict(aruco_size=0.0635, config=LMConfig())
-    ref = localize_batch(*q, **kw)
-    replayed, replay = [], graphs.Program.run
+    ref = graphs.localize_graphed(*q, **kw, graphed=False)
+    replayed, replay = [], programs.Program.run
 
     def run(self, name):
         replayed.append((name, self.graphed))
         replay(self, name)
 
-    monkeypatch.setattr(graphs.Program, "run", run)
-    graphs.CACHE.clear()
+    monkeypatch.setattr(programs.Program, "run", run)
+    programs.CACHE.clear()
     for _ in range(2):
         replayed.clear()
         got = graphs.localize_graphed(*q, **kw)
@@ -591,15 +593,15 @@ def test_localize_call_replays_init(dev, monkeypatch):
         assert all(torch.equal(g, r) for g, r in zip(got, ref))
         assert replayed[0] == ("init", True)
         assert {n for n, _ in replayed[1:]} == {"iterate"}
-    assert graphs.CACHE.captures == 1
-    graphs.CACHE.clear()
+    assert programs.CACHE.captures == 1
+    programs.CACHE.clear()
 
 
 def test_localize_keeps_a_program_per_bucket(dev):
     """Query widths 15 / 18 / 15 / 18, padded to ``localize_many``'s
     buckets (16 / 32 blocks, 9 -> 16 queries, 24 -> 32 tag rows), make
-    exactly two captures; each call equals the eager ``localize_batch`` on
-    the same padded inputs bit for bit, and its real queries the eager
+    exactly two captures; each call equals its stages run eagerly on the
+    same padded inputs bit for bit, and its real queries the eager
     run at the exact shapes within float32 rounding.  Not bit for bit
     there: the card's row sum of the cost (``torch.sum(r * r, 1)``) adds
     in an order that depends on the row length and the row count, so the
@@ -607,10 +609,10 @@ def test_localize_keeps_a_program_per_bucket(dev):
     move), and a stopping test on it may flip one step; the tolerances are
     a tenth of the benchmark's ``pose_gap`` limit (1e-4) and 1e-4 of a
     cost."""
+    from ar_slam_tpu_torch import programs
     from ar_slam_tpu_torch.graph.arrays import bucket_size
     from ar_slam_tpu_torch.solve import graphs
     from ar_slam_tpu_torch.solve.lm import LMConfig
-    from ar_slam_tpu_torch.solve.localize import localize_batch
     from torch_cases import localize_queries, pad_queries
 
     def card(arrays):
@@ -619,7 +621,7 @@ def test_localize_keeps_a_program_per_bucket(dev):
         return q
 
     kw = dict(aruco_size=0.0635, config=LMConfig())
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
     for width in (15, 18, 15, 18):
         case = localize_queries(n_tags=24, n_caps=8, width=width)
         q, k = case[2].shape
@@ -627,28 +629,28 @@ def test_localize_keeps_a_program_per_bucket(dev):
                                   q=bucket_size(q, floor=4),
                                   t=bucket_size(len(case[1]))))
         got = graphs.localize_graphed(*padded, **kw)
-        eager = localize_batch(*padded, **kw)
-        ref = localize_batch(*card(case), **kw)
+        eager = graphs.localize_graphed(*padded, **kw, graphed=False)
+        ref = graphs.localize_graphed(*card(case), **kw, graphed=False)
         torch.cuda.synchronize()
         assert all(torch.equal(g, e) for g, e in zip(got, eager))
         assert (got[0][:q] - ref[0]).abs().max().item() <= 1e-5
         assert torch.allclose(got[1][:q], ref[1], rtol=1e-4, atol=0)
-    assert graphs.CACHE.kinds["localize"]["captures"] == 2
-    assert graphs.CACHE.kinds["localize"]["replays"] > 4
-    graphs.CACHE.clear()
+    assert programs.CACHE.kinds["localize"]["captures"] == 2
+    assert programs.CACHE.kinds["localize"]["replays"] > 4
+    programs.CACHE.clear()
 
 
 class CaptureSyncs:
     """Counts the calls of ``torch.cuda.synchronize`` and
     ``torch.cuda.empty_cache`` that the capturing thread makes while a
-    program captures (``graphs.Program._capture``)."""
+    program captures (``programs.Program._capture``)."""
 
     NAMES = ("synchronize", "empty_cache")
 
     def __init__(self, monkeypatch):
         import threading
 
-        from ar_slam_tpu_torch.solve import graphs
+        from ar_slam_tpu_torch import programs
 
         self.counts = dict.fromkeys(self.NAMES, 0)
         self.captures = 0
@@ -662,7 +664,7 @@ class CaptureSyncs:
                 return _real(*a, **k)
 
             monkeypatch.setattr(torch.cuda, name, counted)
-        capture = graphs.Program._capture
+        capture = programs.Program._capture
 
         def watched(prog):
             capturing.add(threading.get_ident())
@@ -672,7 +674,7 @@ class CaptureSyncs:
                 capturing.discard(threading.get_ident())
             self.captures += 1
 
-        monkeypatch.setattr(graphs.Program, "_capture", watched)
+        monkeypatch.setattr(programs.Program, "_capture", watched)
 
 
 @pytest.mark.parametrize("detecting", [False, True])
@@ -682,9 +684,9 @@ def test_captures_make_no_device_sync(dev, monkeypatch, detecting):
     thread runs detect_batch on the card."""
     import threading
 
+    from ar_slam_tpu_torch import programs
     from ar_slam_tpu_torch.config import ArSlamConfig
     from ar_slam_tpu_torch.detect.detect import detect_batch
-    from ar_slam_tpu_torch.solve import graphs
     from ar_slam_tpu_torch.solve.batch import solve
     from ar_slam_tpu_torch.solve.localize import localize_many
     from ar_slam_tpu_torch.utils.synthetic import make_synthetic_map
@@ -704,7 +706,7 @@ def test_captures_make_no_device_sync(dev, monkeypatch, detecting):
             errors.append(e)
 
     th = threading.Thread(target=detect_loop)
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
     if detecting:
         th.start()
     try:
@@ -721,7 +723,7 @@ def test_captures_make_no_device_sync(dev, monkeypatch, detecting):
     assert out["rmse"] < 1.0 and loc["localized"] > 0
     assert syncs.captures >= 3, syncs.captures  # seed, lm, localize
     assert syncs.counts == {"synchronize": 0, "empty_cache": 0}
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
 
 
 def _mesh_case(n_tags, n_caps, seed=3):
@@ -744,12 +746,13 @@ def test_graphed_mesh_lm_equals_eager(dev, solver, n_tags, n_caps):
     """The tag-sharded LM over two shards of the card: its CUDA graphs
     give the eager stages' results bit for bit and count the same
     reductions, with budgets 3 then 12 and the warmup's frozen camera
-    through one capture; the eager stages are ``lm_core``'s loop."""
+    through one capture, and on state placed by hand
+    (``lm_solve_sharded``) likewise."""
+    from ar_slam_tpu_torch import programs
     from ar_slam_tpu_torch.parallel import block_mesh, dist_lm
-    from ar_slam_tpu_torch.solve import graphs
     from ar_slam_tpu_torch.solve.lm import LMConfig
 
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
     args = _mesh_case(n_tags, n_caps)
     meshes = [block_mesh(devices=[dev] * 2) for _ in range(2)]
     for budget, cam in ((3, True), (12, True), (12, False)):
@@ -761,7 +764,7 @@ def test_graphed_mesh_lm_equals_eager(dev, solver, n_tags, n_caps):
         torch.cuda.synchronize()
         _equal_solves(got, ref)
         assert meshes[0].reductions == meshes[1].reductions
-    assert graphs.CACHE.captures == 1 and graphs.CACHE.replays > 0
+    assert programs.CACHE.captures == 1 and programs.CACHE.replays > 0
     mesh = block_mesh(devices=[dev] * 2)
     prob = dist_lm.TagShardedProblem(mesh, *args[3:7], args[2].shape[0],
                                      dtype=torch.float32)
@@ -769,34 +772,36 @@ def test_graphed_mesh_lm_equals_eager(dev, solver, n_tags, n_caps):
               prob.block_mask(args[6]), *prob.put_rep(np.asarray(True),
                                                       args[8]),
               prob.put_tag_mask(args[9]))
-    got = dist_lm.lm_solve_sharded(prob, 0.0635, kw["config"], *placed,
+    got = dist_lm.lm_solve_sharded(prob, 0.0635, kw["config"], *placed)
+    replayed = mesh.reductions
+    ref = dist_lm.lm_solve_sharded(prob, 0.0635, kw["config"], *placed,
                                    graphs=False)
-    ref = dist_lm._lm_sharded(prob, 0.0635, kw["config"], *placed)
     torch.cuda.synchronize()
     _equal_solves([*got[:2], torch.cat(list(got[2])), got[3]],
                   [*ref[:2], torch.cat(list(ref[2])), ref[3]])
-    graphs.CACHE.clear()
+    assert mesh.reductions == 2 * replayed > 0
+    programs.CACHE.clear()
 
 
 def test_graphed_mesh_stages_do_not_sync(dev):
     """The mesh's CG stages read nothing back to the host: run eagerly on
     the card and replayed, both under set_sync_debug_mode("error"), with
     the same results."""
+    from ar_slam_tpu_torch import programs
     from ar_slam_tpu_torch.parallel import block_mesh, dist_lm
-    from ar_slam_tpu_torch.solve import graphs
     from ar_slam_tpu_torch.solve.lm import LMConfig
 
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
     args = _mesh_case(200, 80)
     config = LMConfig(max_iterations=2, linear_solver="cg")
     mesh = block_mesh(devices=[dev] * 2)
     dist_lm.lm_solve_dist(mesh, *args, aruco_size=0.0635, config=config)
-    (prog,) = graphs.CACHE._programs.values()
+    (prog,) = programs.CACHE._programs.values()
     prob = dist_lm.TagShardedProblem(mesh, *args[3:7], args[2].shape[0],
                                      dtype=torch.float32)
-    eager = graphs.Program(dist_lm._lm_stages(prob, 0.0635, config,
+    eager = programs.Program(dist_lm._lm_stages(prob, 0.0635, config,
                                               args[1].shape[0]), False)
-    eager.load(**{k: graphs._clone(v) for k, v in prog.t.items() if k in (
+    eager.load(**{k: programs._clone(v) for k, v in prog.t.items() if k in (
         "in_camera", "in_cap_poses", "in_tag_poses", "cap_idx", "tag_idx",
         "corners", "block_mask", "cam_active", "cap_active", "tag_active")})
     torch.cuda.synchronize()
@@ -812,36 +817,36 @@ def test_graphed_mesh_stages_do_not_sync(dev):
         assert torch.equal(prog.t[k], eager.t[k]), k
     assert all(torch.equal(g, e) for g, e in zip(prog.t["tag_poses"],
                                                  eager.t["tag_poses"]))
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
 
 
 def test_graphed_mesh_solve_equals_eager(dev):
     """A room-16-sized map (24 tags, 16 captures) solved with its tags
     over two shards of the card: the graphed seeds and LM give the eager
     stages' map bit for bit, one capture of each serving every flush."""
+    from ar_slam_tpu_torch import programs
     from ar_slam_tpu_torch.config import ArSlamConfig
     from ar_slam_tpu_torch.parallel import block_mesh
-    from ar_slam_tpu_torch.solve import graphs
     from ar_slam_tpu_torch.solve.batch import solve
     from ar_slam_tpu_torch.utils.synthetic import make_synthetic_map
 
     out = {}
     for graphed in (False, True):
-        graphs.CACHE.clear()
+        programs.CACHE.clear()
         store, _ = make_synthetic_map(n_tags=24, n_caps=16, seed=5,
                                       noise_px=0.3)
         summary = solve(store, ArSlamConfig(), graphs=graphed,
                         mesh=block_mesh(devices=[dev] * 2))
         out[graphed] = (summary, [c.inv_pose for c in store.captures],
                         [t.pose for t in store.arucos], store.camera.params)
-        stats = graphs.CACHE.stats()
+        stats = programs.CACHE.stats()
     assert out[True][0] == out[False][0] and out[True][0]["rmse"] < 1.0
     for g, e in zip(out[True][1:], out[False][1:]):
         assert np.array_equal(np.asarray(g), np.asarray(e))
     assert stats["captures"] == 2 and stats["programs"] == 2
     assert [c["program"] for c in stats["capture_split_ms"]] == [
         "mesh_seed", "mesh_lm"]
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
 
 
 def _cards(n):
@@ -860,55 +865,55 @@ def test_spread_mesh_graphs_equal_eager(solver, n_tags, n_caps):
     [cuda:0, cuda:1, cuda:0, cuda:1]): one graph a stage spanning the
     cards gives the eager stages' results bit for bit, counts the same
     reductions, and replays setup and two stages an iteration."""
+    from ar_slam_tpu_torch import programs
     from ar_slam_tpu_torch.parallel import block_mesh, dist_lm
-    from ar_slam_tpu_torch.solve import graphs
     from ar_slam_tpu_torch.solve.lm import LMConfig
 
     c0, c1 = _cards(2)
     args = _mesh_case(n_tags, n_caps)
     for devices in ([c0, c1], [c0, c1, c0, c1]):
-        graphs.CACHE.clear()
+        programs.CACHE.clear()
         meshes = [block_mesh(devices=devices) for _ in range(2)]
         for budget, cam in ((3, True), (12, True), (12, False)):
             a = args[:7] + (cam,) + args[8:]
             kw = dict(aruco_size=0.0635, config=LMConfig(
                 max_iterations=budget, linear_solver=solver))
             ref = dist_lm.lm_solve_dist(meshes[0], *a, graphs=False, **kw)
-            replays = graphs.CACHE.replays
+            replays = programs.CACHE.replays
             got = dist_lm.lm_solve_dist(meshes[1], *a, **kw)
             torch.cuda.synchronize(c0)
             torch.cuda.synchronize(c1)
             _equal_solves(got, ref)
             assert meshes[0].reductions == meshes[1].reductions
-            assert graphs.CACHE.replays - replays == (
+            assert programs.CACHE.replays - replays == (
                 1 + 2 * got[3]["iterations"])
-        assert graphs.CACHE.captures == 1
-    graphs.CACHE.clear()
+        assert programs.CACHE.captures == 1
+    programs.CACHE.clear()
 
 
 def test_spread_mesh_replays_do_not_sync():
     """The spread mesh's CG stages, replayed, read nothing back to the
     host (set_sync_debug_mode("error")) and give the eager stages'
     state; each card holds a pool of the program's own."""
+    from ar_slam_tpu_torch import programs
     from ar_slam_tpu_torch.parallel import block_mesh, dist_lm
-    from ar_slam_tpu_torch.solve import graphs
     from ar_slam_tpu_torch.solve.lm import LMConfig
 
     cards = _cards(2)
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
     args = _mesh_case(200, 80)
     config = LMConfig(max_iterations=2, linear_solver="cg")
     mesh = block_mesh(devices=cards)
     dist_lm.lm_solve_dist(mesh, *args, aruco_size=0.0635, config=config)
-    (prog,) = graphs.CACHE._programs.values()
-    (held,) = graphs.CACHE.stats()["held"]
+    (prog,) = programs.CACHE._programs.values()
+    (held,) = programs.CACHE.stats()["held"]
     assert sorted(held["pool_bytes_per_card"]) == [str(c) for c in cards]
     assert all(n > 0 for n in held["pool_bytes_per_card"].values())
     prob = dist_lm.TagShardedProblem(mesh, *args[3:7], args[2].shape[0],
                                      dtype=torch.float32)
-    eager = graphs.Program(dist_lm._lm_stages(prob, 0.0635, config,
+    eager = programs.Program(dist_lm._lm_stages(prob, 0.0635, config,
                                               args[1].shape[0]), False)
-    eager.load(**{k: graphs._clone(v) for k, v in prog.t.items() if k in (
+    eager.load(**{k: programs._clone(v) for k, v in prog.t.items() if k in (
         "in_camera", "in_cap_poses", "in_tag_poses", "cap_idx", "tag_idx",
         "corners", "block_mask", "cam_active", "cap_active", "tag_active")})
     for c in cards:
@@ -926,35 +931,35 @@ def test_spread_mesh_replays_do_not_sync():
         assert torch.equal(prog.t[k], eager.t[k]), k
     assert all(torch.equal(g, e) for g, e in zip(prog.t["tag_poses"],
                                                  eager.t["tag_poses"]))
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
 
 
 def test_spread_mesh_solve_equals_eager():
     """A room-16-sized map solved with its tags over two cards: the
     graphed seeds and LM give the eager stages' map bit for bit, one
     capture of each."""
+    from ar_slam_tpu_torch import programs
     from ar_slam_tpu_torch.config import ArSlamConfig
     from ar_slam_tpu_torch.parallel import block_mesh
-    from ar_slam_tpu_torch.solve import graphs
     from ar_slam_tpu_torch.solve.batch import solve
     from ar_slam_tpu_torch.utils.synthetic import make_synthetic_map
 
     cards = _cards(2)
     out = {}
     for graphed in (False, True):
-        graphs.CACHE.clear()
+        programs.CACHE.clear()
         store, _ = make_synthetic_map(n_tags=24, n_caps=16, seed=5,
                                       noise_px=0.3)
         summary = solve(store, ArSlamConfig(), graphs=graphed,
                         mesh=block_mesh(devices=cards))
         out[graphed] = (summary, [c.inv_pose for c in store.captures],
                         [t.pose for t in store.arucos], store.camera.params)
-        stats = graphs.CACHE.stats()
+        stats = programs.CACHE.stats()
     assert out[True][0] == out[False][0] and out[True][0]["rmse"] < 1.0
     for g, e in zip(out[True][1:], out[False][1:]):
         assert np.array_equal(np.asarray(g), np.asarray(e))
     assert stats["captures"] == 2 and stats["programs"] == 2
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
 
 
 @pytest.mark.parametrize("custom", [False, True])
@@ -963,11 +968,11 @@ def test_graphed_flat_lm_equals_eager(dev, custom):
     replays CUDA graphs with the eager loop's results bit for bit (its
     sums in a fixed order), budgets 3 then 12 through one capture, and
     host-stepped calls (lam0 / nu0) the same."""
-    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch import programs
     from ar_slam_tpu_torch.solve.lm import lm_solve
     from ar_slam_tpu_torch.solve.schur import assemble
 
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
     args, kw = _lm_case(dev, 120, 40, "dense")
     kw = dict(aruco_size=kw["aruco_size"], config=kw["config"])
     if custom:
@@ -979,15 +984,15 @@ def test_graphed_flat_lm_equals_eager(dev, custom):
         torch.cuda.synchronize()
         _equal_solves(got, ref)
         assert got[3]["iterations"] >= 1
-    stats = graphs.CACHE.stats()
+    stats = programs.CACHE.stats()
     assert stats["captures"] == 1 and stats["replays"] > 0
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
 
 
 def test_assemble_fn_reading_the_host_raises(dev):
     """An assemble_fn that reads a value to the host cannot be captured:
     the solve raises, naming it."""
-    from ar_slam_tpu_torch.solve import graphs
+    from ar_slam_tpu_torch import programs
     from ar_slam_tpu_torch.solve.lm import lm_solve
     from ar_slam_tpu_torch.solve.schur import assemble
 
@@ -995,7 +1000,7 @@ def test_assemble_fn_reading_the_host_raises(dev):
         float(a[0].sum())
         return assemble(*a)
 
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
     args, kw = _lm_case(dev, 60, 20, "dense")
     kw = dict(aruco_size=0.0635, config=kw["config"], iter_budget=2)
     with pytest.raises(RuntimeError, match="reads_host"):
@@ -1005,8 +1010,8 @@ def test_assemble_fn_reading_the_host_raises(dev):
     ref = lm_solve(*args, assemble_fn=assemble, graphs=False, **kw)
     torch.cuda.synchronize()
     _equal_solves(got, ref)
-    assert graphs.CACHE.captures == 1
-    graphs.CACHE.clear()
+    assert programs.CACHE.captures == 1
+    programs.CACHE.clear()
 
 
 def test_progress_replays_graphs(dev, capsys):
@@ -1015,8 +1020,9 @@ def test_progress_replays_graphs(dev, capsys):
     stepping's."""
     import dataclasses
 
+    from ar_slam_tpu_torch import programs
     from ar_slam_tpu_torch.config import ArSlamConfig
-    from ar_slam_tpu_torch.solve import batch, graphs
+    from ar_slam_tpu_torch.solve import batch
     from ar_slam_tpu_torch.utils.synthetic import make_synthetic_map
 
     config = ArSlamConfig()
@@ -1025,7 +1031,7 @@ def test_progress_replays_graphs(dev, capsys):
     costs = {}
     orig = batch.lm_solve
     for graphed in (False, True):
-        graphs.CACHE.clear()
+        programs.CACHE.clear()
         costs[graphed] = []
 
         def rec(*a, **k):
@@ -1041,11 +1047,11 @@ def test_progress_replays_graphs(dev, capsys):
                         graphs=graphed)
         finally:
             batch.lm_solve = orig
-        stats = graphs.CACHE.stats()
+        stats = programs.CACHE.stats()
     capsys.readouterr()
     assert costs[True] == costs[False] and len(costs[True]) >= 2
     assert stats["kinds"]["lm"]["replays"] >= len(costs[True])
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
 
 
 @pytest.fixture(scope="module")

@@ -4,10 +4,12 @@ float64.
 ``lm_solve`` without observation bounds, or with an ``assemble_fn``, runs
 the flat block hooks (``lm.flat_solver``); on the card as the stages
 ``setup`` / ``step`` / ``accept`` / ``reject`` of solve/graphs.py, which
-replay CUDA graphs.  Here the same stages run eagerly and must give
-``lm_core``'s results over the same hooks bit for bit, through every
-termination the synthetic cases reach, and agree with the JAX package's
-flat ``lm_solve`` within 1e-9 in cost; the flat assembly's sums
+replay CUDA graphs.  Here the same stages run eagerly: through every
+termination the synthetic cases reach they agree with the grouped
+stages (held to the JAX package in test_torch_lm_graph) within 1e-10 in
+cost, with the same iterations and terminations; a run resumed at its
+returned damping continues it bit for bit; they agree with the JAX
+package's flat ``lm_solve`` within 1e-9 in cost; the flat assembly's sums
 (``schur.segment_plan``, which replace ``index_add_``) agree with
 ``index_add_`` within 1e-12 and repeat bit for bit whatever order the
 blocks come in; no stage reads the host; and host-stepped progress
@@ -28,14 +30,16 @@ from ar_slam_tpu.solve.batch import solve as j_solve
 from ar_slam_tpu.utils.synthetic import make_synthetic_map
 from ar_slam_tpu_torch.config import ArSlamConfig as TConfig
 from ar_slam_tpu_torch.convert import store_from_jax
+from ar_slam_tpu_torch import programs
 from ar_slam_tpu_torch.solve import graphs
 from ar_slam_tpu_torch.solve import lm as tlm
 from ar_slam_tpu_torch.solve import residuals as tres
 from ar_slam_tpu_torch.solve import schur as tschur
-from test_torch_lm_graph import CASES, NoHostSync, _args, _assert_equal
-from test_torch_lm_graph import _torch_args
+from test_torch_lm_graph import (CASES, ROW_SLOTS, NoHostSync, _args,
+                                 _assert_agree, _assert_case, _assert_resumes,
+                                 _staged, _torch_args)
 from test_torch_progress import _progress_run
-from torch_cases import synthetic_arrays
+from torch_cases import slot_bounds, synthetic_arrays
 
 torch.set_num_threads(1)
 SIZE = 0.0635
@@ -50,52 +54,54 @@ def _custom(*a):
     return tschur.assemble(*a)
 
 
-def _flat_ref(targs, config, custom, **kw):
-    """``lm_core`` over the flat hooks (``flat_solver``), eagerly."""
-    hooks = tlm.flat_solver(
-        *targs[3:], aruco_size=SIZE, config=config,
-        n_caps=targs[1].shape[0], n_tags=targs[2].shape[0],
-        assemble_fn=_custom if custom else None)
-    lin_fn, quality_fn, solve_fn, _ = hooks
-    return tlm.lm_core(*targs[:3], *targs[7:], lin_fn, quality_fn, config,
-                       solve_fn=solve_fn, **kw)
+def _flat(targs, config, custom, **kw):
+    """The flat stages (with ``schur.assemble`` as a custom assembly, or
+    the hooks' own), eagerly."""
+    return graphs.lm_solve_graphed(
+        *targs, aruco_size=SIZE, config=config, graphed=False,
+        assemble_fn=_custom if custom else None, **kw)
+
+
+_GROUPED = {}
+
+
+def _grouped(a, case):
+    """The grouped stages (dense) of a case, once a case."""
+    if case not in _GROUPED:
+        s_tag, s_cap, n_rows, n_cap_rows = slot_bounds(a, ROW_SLOTS)
+        args, kw = _args(a, case)
+        _GROUPED[case] = _staged(
+            a, args, dict(obs_per_tag=s_tag, obs_per_cap=s_cap,
+                          row_slots=ROW_SLOTS, tag_rows=n_rows,
+                          cap_rows=n_cap_rows),
+            tlm.LMConfig(**CASES[case][0]), **kw)
+    return _GROUPED[case]
 
 
 @pytest.mark.parametrize("custom", [False, True])
 @pytest.mark.parametrize("case", list(CASES))
-def test_flat_stages_equal_lm_core(arrs, case, custom):
-    """The flat stages driven by the graphs' host loop give ``lm_core``'s
-    results over the same hooks bit for bit (state, cost, lambda, nu,
-    flags, termination, iterations, gradient), with and without an
-    assemble_fn, through every termination."""
-    overrides, term = CASES[case]
-    config = tlm.LMConfig(**overrides)
+def test_flat_stages_match_grouped_stages(arrs, case, custom):
+    """The flat stages driven by the graphs' host loop, with and without
+    an assemble_fn, against the grouped stages on the same problem,
+    through every termination: the same iterations and termination, cost
+    within 1e-10 relative."""
     args, kw = _args(arrs, case)
-    targs = _torch_args(args)
-    ref = _flat_ref(targs, config, custom, **kw)
-    got = graphs.lm_solve_graphed(
-        *targs, aruco_size=SIZE, config=config, graphed=False,
-        assemble_fn=_custom if custom else None, **kw)
-    _assert_equal(got, ref)
-    if term is not None:
-        assert int(got[3]["termination"]) == term
-    iters = got[3]["iterations"]
-    assert iters == {"budget_1": 1, "full_budget": 6, "disabled": 0,
-                     "gradient_at_start": 0}.get(case, iters)
+    got = _flat(_torch_args(args), tlm.LMConfig(**CASES[case][0]), custom,
+                **kw)
+    _assert_agree(got, _grouped(arrs, case))
+    _assert_case(got, case)
 
 
 @pytest.mark.parametrize("custom", [False, True])
 def test_flat_stages_resume_damping(arrs, custom):
     """lam0 / nu0 (host-stepped progress) resume the schedule through the
-    flat stages as through ``lm_core``."""
-    config = tlm.LMConfig()
-    targs = _torch_args(_args(arrs, "function")[0])
-    kw = dict(iter_budget=2, lam0=3e-3, nu0=8.0)
-    ref = _flat_ref(targs, config, custom, **kw)
-    got = graphs.lm_solve_graphed(
-        *targs, aruco_size=SIZE, config=config, graphed=False,
-        assemble_fn=_custom if custom else None, **kw)
-    _assert_equal(got, ref)
+    flat stages: a budget of 2 ends bit for bit where a budget of 1,
+    resumed for 1 at its returned lambda and nu, ends."""
+    def run(args, lam0, nu0, budget):
+        return _flat(_torch_args(args), tlm.LMConfig(), custom,
+                     iter_budget=budget, lam0=lam0, nu0=nu0)
+
+    _assert_resumes(run, _args(arrs, "function")[0])
 
 
 @pytest.mark.parametrize("custom", [False, True])
@@ -107,9 +113,7 @@ def test_flat_stages_match_jax(arrs, custom):
     ref = jlm.lm_solve(*map(jnp.asarray, args), aruco_size=SIZE,
                        **(dict(assemble_fn=jschur.assemble) if custom
                           else {}))
-    got = graphs.lm_solve_graphed(
-        *_torch_args(args), aruco_size=SIZE, config=tlm.LMConfig(),
-        graphed=False, assemble_fn=_custom if custom else None)
+    got = _flat(_torch_args(args), tlm.LMConfig(), custom)
     c_ref, c_got = float(ref[3]["cost"]), float(got[3]["cost"])
     assert abs(c_got - c_ref) <= 1e-9 * c_ref
     assert got[3]["iterations"] == int(ref[3]["iterations"])
@@ -196,14 +200,14 @@ def test_flat_stages_read_nothing_back(arrs, monkeypatch, custom):
     data: each runs under NoHostSync, the host loop between them does
     not."""
     ran = []
-    run = graphs.Program.run
+    run = programs.Program.run
 
     def guarded(self, name):
         ran.append(name)
         with NoHostSync():
             run(self, name)
 
-    monkeypatch.setattr(graphs.Program, "run", guarded)
+    monkeypatch.setattr(programs.Program, "run", guarded)
     for case in ("function", "stall", "warmup_masks"):
         args, kw = _args(arrs, case)
         graphs.lm_solve_graphed(
@@ -214,39 +218,24 @@ def test_flat_stages_read_nothing_back(arrs, monkeypatch, custom):
 
 
 def test_progress_through_the_stages(capsys):
-    """Host-stepped progress with each one-iteration call through the
-    stages (as the card replays them): the printed lines and each call's
-    cost bit for bit the eager stepping's, and within 1e-9 relative of
-    the JAX package's stepped costs, with the same lines."""
+    """Host-stepped progress, each one-iteration call a load and runs of
+    the LM program's stages (as the card replays them): two runs print
+    the same lines and costs bit for bit, within 1e-9 relative of the JAX
+    package's stepped costs, with the same lines."""
     js, _ = make_synthetic_map(n_tags=12, n_caps=3, seed=10, noise_px=0.3)
     stores = [store_from_jax(js) for _ in range(2)]
     ref, r_costs, r_iters, r_terms = _progress_run(
         j_solve, js, JConfig(), jlm_module, capsys, dtype=np.float64)
-    eager = _progress_run(tbatch.solve, stores[0], TConfig(), tbatch, capsys,
-                          dtype=torch.float64, device="cpu")
-    plain = tbatch.lm_solve
-
-    def staged(*a, graphs=True, **kw):
-        bounds = tlm.grouped_bounds(
-            a[2].shape[0], kw["config"], kw.pop("obs_per_tag"),
-            kw.pop("obs_per_cap"), kw.pop("row_slots"), kw.pop("tag_rows"),
-            kw.pop("cap_rows"))
-        return graph_lm(*a, graphed=False, **bounds, **kw)
-
-    graph_lm = graphs.lm_solve_graphed
-    tbatch.lm_solve = staged
-    try:
-        got = _progress_run(tbatch.solve, stores[1], TConfig(), tbatch,
-                            capsys, dtype=torch.float64, device="cpu")
-    finally:
-        tbatch.lm_solve = plain
+    first, got = (_progress_run(tbatch.solve, store, TConfig(), tbatch,
+                                capsys, dtype=torch.float64, device="cpu")
+                  for store in stores)
 
     def cols(lines):  # not the times
         return [ln.split()[:5] for ln in lines]
 
-    assert got[1] == eager[1] and len(got[1]) == len(r_costs) > 4
-    assert cols(got[2]) == cols(eager[2]) and got[3] == eager[3]
-    assert got[0]["rmse"] == eager[0]["rmse"]
+    assert got[1] == first[1] and len(got[1]) == len(r_costs) > 4
+    assert cols(got[2]) == cols(first[2]) and got[3] == first[3]
+    assert got[0]["rmse"] == first[0]["rmse"]
     for g, r in zip(got[1], r_costs):
         assert abs(g - r) <= 1e-9 * r
     assert [[ln.split()[i] for i in (0, 1, 3, 4)] for ln in got[2]] == [

@@ -2,13 +2,14 @@
 
 solve/graphs.py replays the LM iteration as the stages ``lm_step`` /
 ``lm_accept`` / ``lm_reject`` and localize's as ``localize_iteration``.
-Here the same stages run eagerly, driven by the same host loop, and must
-give the eager loops' (``lm_core``, ``localize_batch``) results bit for
-bit; they agree with the JAX package within 1e-10; and no operation that
-a CUDA graph cannot capture runs inside a stage.
+Here the same stages run eagerly, driven by the same host loop (the
+CPU's only path): through every termination they agree with the JAX
+package's jitted ``lm_solve`` and ``localize_kernel`` within 1e-10, with
+the same iterations and terminations; a run resumed at its returned
+damping continues it bit for bit; and no operation that a CUDA graph
+cannot capture runs inside a stage.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,9 +18,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from ar_slam_tpu.solve import lm as jlm
 from ar_slam_tpu.solve import localize as jloc
+from ar_slam_tpu_torch import programs
 from ar_slam_tpu_torch.solve import graphs
 from ar_slam_tpu_torch.solve import lm as tlm
-from ar_slam_tpu_torch.solve.localize import localize_batch
 from torch_cases import localize_queries as _queries
 from torch_cases import slot_bounds, synthetic_arrays
 
@@ -41,6 +42,10 @@ CASES = {
     "disabled": (dict(), 5),
     "warmup_masks": (dict(), None),
 }
+# CG solved to 1e-14 in up to 200 steps, where its inexact steps would
+# otherwise follow rounding (at 1e-12 in 60, the parameter case's one
+# step from far off the optimum lands 1.7e-9 apart in cost)
+EXACT_CG = dict(cg_tolerance=1e-14, cg_max_iterations=200)
 
 
 @pytest.fixture(scope="module")
@@ -89,23 +94,37 @@ def _assert_equal(got, ref):
                 else g == r), k
 
 
-@pytest.mark.parametrize("solver", ["dense", "cg"])
-@pytest.mark.parametrize("case", list(CASES))
-def test_split_stages_equal_lm_core(problem, solver, case):
-    """The stages driven by the graphs' host loop give lm_core's results
-    bit for bit: state, cost, lambda, nu, flags, termination, iterations,
-    gradient."""
-    a, bounds = problem
-    overrides, term = CASES[case]
-    config = tlm.LMConfig(linear_solver=solver, **overrides)
-    args, kw = _args(a, case)
-    targs = _torch_args(args)
-    ref = tlm.lm_solve(*targs, aruco_size=SIZE, config=config, graphs=False,
-                       **bounds, **kw)
-    got = graphs.lm_solve_graphed(
-        *targs, aruco_size=SIZE, config=config, graphed=False,
+def _jax_lm(args, bounds, config, kw):
+    """The JAX package's jitted ``lm_solve`` of a case's arguments;
+    ``enabled``, the budget and the masks are traced, so the cases of one
+    config share a compile."""
+    return jlm.lm_solve(
+        *map(jnp.asarray, args), aruco_size=SIZE,
+        config=jlm.LMConfig(**config._asdict()),
+        enabled=jnp.asarray(kw.get("enabled", True)),
+        iter_budget=jnp.asarray(kw.get("iter_budget", config.max_iterations),
+                                jnp.int32), **bounds)
+
+
+def _staged(a, args, bounds, config, **kw):
+    """The staged LM of a case's arguments, eagerly."""
+    return graphs.lm_solve_graphed(
+        *_torch_args(args), aruco_size=SIZE, config=config, graphed=False,
         **tlm.grouped_bounds(a.tag_poses.shape[0], config, **bounds), **kw)
-    _assert_equal(got, ref)
+
+
+def _assert_agree(got, ref):
+    """The same iterations and termination, the cost within 1e-10
+    relative."""
+    c_ref, c_got = float(ref[3]["cost"]), float(got[3]["cost"])
+    assert abs(c_got - c_ref) <= 1e-10 * c_ref
+    assert got[3]["iterations"] == int(ref[3]["iterations"])
+    assert int(got[3]["termination"]) == int(ref[3]["termination"])
+
+
+def _assert_case(got, case):
+    """The termination and iterations the case must reach."""
+    term = CASES[case][1]
     if term is not None:
         assert int(got[3]["termination"]) == term
     iters = got[3]["iterations"]
@@ -113,17 +132,47 @@ def test_split_stages_equal_lm_core(problem, solver, case):
                      "gradient_at_start": 0}.get(case, iters)
 
 
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_split_stages_match_jax_terminations(problem, solver, case):
+    """The stages driven by the graphs' host loop against the JAX
+    package's ``lm_solve`` under the same config, through every
+    termination: the same iterations and termination, cost within 1e-10
+    relative."""
+    a, bounds = problem
+    config = tlm.LMConfig(linear_solver=solver, **EXACT_CG, **CASES[case][0])
+    args, kw = _args(a, case)
+    got = _staged(a, args, bounds, config, **kw)
+    _assert_agree(got, _jax_lm(args, bounds, config, kw))
+    _assert_case(got, case)
+
+
 def test_split_stages_resume_damping(problem):
-    """lam0 / nu0 (the host-stepped progress mode) resume the schedule."""
+    """lam0 / nu0 (the host-stepped progress mode) resume the schedule:
+    a budget of 2 ends bit for bit where a budget of 1, resumed for 1 at
+    its returned lambda and nu, ends."""
     a, bounds = problem
     config = tlm.LMConfig()
-    targs = _torch_args(_args(a, "function")[0])
-    kw = dict(aruco_size=SIZE, config=config, iter_budget=2, lam0=3e-3,
-              nu0=8.0, **bounds)
-    ref = tlm.lm_solve(*targs, graphs=False, **kw)
-    got = graphs.lm_solve_graphed(*targs, graphed=False, **{
-        **kw, **tlm.grouped_bounds(a.tag_poses.shape[0], config, **bounds)})
-    _assert_equal(got, ref)
+    args = _args(a, "function")[0]
+
+    def run(args, lam0, nu0, budget):
+        return _staged(a, args, bounds, config, iter_budget=budget,
+                       lam0=lam0, nu0=nu0)
+
+    _assert_resumes(run, args)
+
+
+def _assert_resumes(run, args):
+    """``run(args, lam0, nu0, budget)`` for 2 iterations from lam0 / nu0
+    ends bit for bit where 1 iteration, resumed for 1 at the returned
+    lambda and nu, ends (what host-stepped progress relies on)."""
+    whole = run(args, 3e-3, 8.0, 2)
+    first = run(args, 3e-3, 8.0, 1)
+    rest = run((*first[:3], *args[3:]), float(first[3]["lambda"]),
+               float(first[3]["nu"]), 1)
+    assert first[3]["iterations"] == rest[3]["iterations"] == 1
+    info = {k: v for k, v in rest[3].items() if k != "initial_cost"}
+    _assert_equal(whole, (*rest[:3], {**info, "iterations": 2}))
 
 
 def test_graphed_lm_needs_cuda(problem):
@@ -137,26 +186,16 @@ def test_graphed_lm_needs_cuda(problem):
 @pytest.mark.parametrize("solver", ["dense", "cg"])
 def test_split_stages_match_jax(problem, solver):
     """The staged LM against the JAX package's lm_solve: the same
-    iterations and termination, cost within 1e-10 (CG solved to 1e-12,
-    where its inexact steps would otherwise follow rounding); the dense
-    solve's parameters within 1e-8 (CG's stop 1e-7 apart along the
-    optimum's shallow directions, at the same cost)."""
+    iterations and termination, cost within 1e-10 (CG solved to
+    ``EXACT_CG``); the dense solve's parameters within 1e-8 (CG's stop
+    1e-7 apart along the optimum's shallow directions, at the same
+    cost)."""
     a, bounds = problem
-    fields = dict(linear_solver=solver, cg_tolerance=1e-12,
-                  cg_max_iterations=60)
-    args, _ = _args(a, "function")
-    ref = jax.jit(lambda *x: jlm.lm_solve(
-        *x[:7], True, *x[7:], aruco_size=SIZE,
-        config=jlm.LMConfig(**fields), **bounds))(
-        *map(jnp.asarray, args[:7] + args[8:]))
-    config = tlm.LMConfig(**fields)
-    got = graphs.lm_solve_graphed(
-        *_torch_args(args), aruco_size=SIZE, config=config, graphed=False,
-        **tlm.grouped_bounds(a.tag_poses.shape[0], config, **bounds))
-    c_ref, c_got = float(ref[3]["cost"]), float(got[3]["cost"])
-    assert abs(c_got - c_ref) <= 1e-10 * c_ref
-    assert got[3]["iterations"] == int(ref[3]["iterations"])
-    assert int(got[3]["termination"]) == int(ref[3]["termination"])
+    config = tlm.LMConfig(linear_solver=solver, **EXACT_CG)
+    args, kw = _args(a, "function")
+    ref = _jax_lm(args, bounds, config, kw)
+    got = _staged(a, args, bounds, config)
+    _assert_agree(got, ref)
     if solver == "dense":
         for g, r in zip(got[:3], ref[:3]):
             assert np.abs(g.numpy() - np.asarray(r)).max() <= 1e-8
@@ -168,17 +207,34 @@ LOC_CASES = {"default": dict(), "stall": dict(min_relative_decrease=10.0,
                             max_iterations=4)}
 
 
-@pytest.mark.parametrize("case", list(LOC_CASES))
-def test_localize_stage_equals_localize_batch(case):
-    """The staged localize (one stage an iteration) is localize_batch bit
-    for bit."""
-    config = tlm.LMConfig(**LOC_CASES[case])
-    args = [torch.as_tensor(x) for x in _queries()]
-    ref = localize_batch(*args, aruco_size=SIZE, config=config)
-    got = graphs.localize_graphed(*args, aruco_size=SIZE, config=config,
+def _localize(config):
+    """The staged localize of the queries, eagerly, and the JAX package's
+    ``localize_kernel`` under the same config."""
+    q = _queries()
+    got = graphs.localize_graphed(*[torch.as_tensor(x) for x in q],
+                                  aruco_size=SIZE, config=config,
                                   graphed=False)
-    for g, r in zip(got, ref):
-        assert torch.equal(g, r)
+    ref = jloc.localize_kernel(*map(jnp.asarray, q), aruco_size=SIZE,
+                               config=jlm.LMConfig(**config._asdict()))
+    return got, ref
+
+
+def _assert_localize_agree(got, ref):
+    """Poses within 1e-10, costs within 1e-10 relative, the same
+    iteration counts."""
+    assert np.abs(got[0].numpy() - np.asarray(ref[0])).max() <= 1e-10
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(ref[1]),
+                               rtol=1e-10, atol=1e-20)
+    assert got[2].tolist() == np.asarray(ref[2]).tolist()
+
+
+@pytest.mark.parametrize("case", list(LOC_CASES))
+def test_localize_stage_matches_jax_terminations(case):
+    """The staged localize (one stage an iteration) against the JAX
+    package's ``localize_kernel`` under each case's config: converged,
+    stalled and cut at its budget."""
+    got, ref = _localize(tlm.LMConfig(**LOC_CASES[case]))
+    _assert_localize_agree(got, ref)
     if case == "budget":
         assert got[2][:-1].tolist() == [4] * (len(got[2]) - 1)
     assert got[2][-1] == 0  # the query without blocks
@@ -188,17 +244,7 @@ def test_localize_stage_matches_jax():
     """The staged localize against the JAX package's localize_kernel:
     poses within 1e-10, costs within 1e-10 relative, the same iteration
     counts."""
-    q = _queries()
-    config = tlm.LMConfig()
-    got = graphs.localize_graphed(*[torch.as_tensor(x) for x in q],
-                                  aruco_size=SIZE, config=config,
-                                  graphed=False)
-    ref = jloc.localize_kernel(*map(jnp.asarray, q), aruco_size=SIZE,
-                               config=jlm.LMConfig())
-    assert np.abs(got[0].numpy() - np.asarray(ref[0])).max() <= 1e-10
-    np.testing.assert_allclose(got[1].numpy(), np.asarray(ref[1]),
-                               rtol=1e-10, atol=1e-20)
-    assert got[2].tolist() == np.asarray(ref[2]).tolist()
+    _assert_localize_agree(*_localize(tlm.LMConfig()))
 
 
 class NoHostSync(TorchDispatchMode):
@@ -246,14 +292,14 @@ def test_stages_read_nothing_back(problem, monkeypatch, solver):
     a value to the host or makes a tensor from host data: each runs under
     NoHostSync, the host loop between them does not."""
     ran = []
-    run = graphs.Program.run
+    run = programs.Program.run
 
     def guarded(self, name):
         ran.append(name)
         with NoHostSync():
             run(self, name)
 
-    monkeypatch.setattr(graphs.Program, "run", guarded)
+    monkeypatch.setattr(programs.Program, "run", guarded)
     a, bounds = problem
     for case in ("function", "stall", "warmup_masks"):
         config = tlm.LMConfig(linear_solver=solver, **CASES[case][0])
@@ -277,19 +323,19 @@ def test_graph_cache_keeps_one_program_per_kind():
     made = []
 
     def make():
-        made.append(graphs.Program({}, True))
+        made.append(programs.Program({}, True))
         return made[-1]
 
-    graphs.CACHE.clear()
+    programs.CACHE.clear()
     try:
-        first = weakref.ref(graphs.CACHE.get("lm", "cuda:0", 1, make))
-        assert graphs.CACHE.get("lm", "cuda:0", 1, make) is first()
+        first = weakref.ref(programs.CACHE.get("lm", "cuda:0", 1, make))
+        assert programs.CACHE.get("lm", "cuda:0", 1, make) is first()
         made.clear()
-        lm = graphs.CACHE.get("lm", "cuda:0", 2, make)
-        loc = graphs.CACHE.get("localize", "cuda:0", 1, make)
+        lm = programs.CACHE.get("lm", "cuda:0", 2, make)
+        loc = programs.CACHE.get("localize", "cuda:0", 1, make)
         assert first() is None and len(made) == 2 and lm is not loc
-        assert graphs.CACHE.get("lm", "cuda:0", 2, make) is lm
-        assert graphs.CACHE.get("lm", "cuda:1", 2, make) is not lm
-        assert graphs.CACHE.stats()["programs"] == 3
+        assert programs.CACHE.get("lm", "cuda:0", 2, make) is lm
+        assert programs.CACHE.get("lm", "cuda:1", 2, make) is not lm
+        assert programs.CACHE.stats()["programs"] == 3
     finally:
-        graphs.CACHE.clear()
+        programs.CACHE.clear()

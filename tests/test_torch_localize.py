@@ -167,7 +167,7 @@ def test_padded_width_changes_no_result(axis, n):
     (3 -> 4, 5 -> 8) and tag rows beyond the map's leave every pose, cost
     and iteration count as the exact shapes give them."""
     from ar_slam_tpu_torch.graph.arrays import bucket_size
-    from ar_slam_tpu_torch.solve.localize import localize_batch
+    from ar_slam_tpu_torch.solve.graphs import localize_graphed
     from ar_slam_tpu_torch.solve.lm import LMConfig
     from tests.torch_cases import localize_queries, pad_queries
 
@@ -180,10 +180,11 @@ def test_padded_width_changes_no_result(axis, n):
         "queries": dict(q=bucket_size(q, floor=4)),
         "tags": dict(t=bucket_size(len(case[1])))}[axis])
     assert padded[2].shape != (q, k) or len(padded[1]) > len(case[1])
-    kw = dict(aruco_size=0.0635, config=LMConfig(max_iterations=20))
+    kw = dict(aruco_size=0.0635, config=LMConfig(max_iterations=20),
+              graphed=False)
 
     def solve(arrays):
-        return localize_batch(*(torch.as_tensor(x) for x in arrays), **kw)
+        return localize_graphed(*(torch.as_tensor(x) for x in arrays), **kw)
 
     for a, b in zip(solve(case), solve(padded)):
         np.testing.assert_allclose(b[:q].numpy(), a.numpy(), rtol=1e-12,
@@ -217,15 +218,15 @@ def test_localize_width_is_bucketed(monkeypatch, widths, k, q):
     package's: the block axis to ``bucket_size(k, floor=4)``, the query
     axis to ``bucket_size(q, floor=4)``, a map of 24 tags to 32 rows; the
     summary and the poses cover the real queries alone."""
-    from ar_slam_tpu_torch.solve import localize as loc_mod
+    from ar_slam_tpu_torch.solve import graphs
 
-    seen, real = [], loc_mod.localize_batch
+    seen, real = [], graphs.localize_graphed
 
     def spy(camera, tag_poses, q_tag_idx, *args, **kw):
         seen.append((tuple(q_tag_idx.shape), tag_poses.shape[0]))
         return real(camera, tag_poses, q_tag_idx, *args, **kw)
 
-    monkeypatch.setattr(loc_mod, "localize_batch", spy)
+    monkeypatch.setattr(graphs, "localize_graphed", spy)
     store, first = _width_store(widths)
     got = t_localize(store, first, TConfig(), dtype=torch.float64,
                      device="cpu")

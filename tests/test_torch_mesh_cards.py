@@ -8,8 +8,8 @@ of a ``Sharded`` input on its own card.  Here, without a card: the load
 keeps a shard on its device; the branch plan gives each shard its card
 and stream slot; and the mesh's stages, with the shards' work run in
 another order than shard order (as branches running side by side may
-finish it), still give the plain loop's (``_lm_sharded``) results and
-the seeds bit for bit, with the same reductions.
+finish it), still give the results of the shards run in order and the
+seeds bit for bit, with the same reductions.
 """
 
 import pytest
@@ -87,11 +87,13 @@ class Reversed:
                                   "budget_1"])
 def test_mesh_stages_in_any_shard_order(arrs, case, solver, k):
     """The mesh's stages with every shard loop run in reverse (the hooks'
-    ``Mesh.map``, as branch streams may run it) give ``_lm_sharded``'s
-    results bit for bit, with the same reductions."""
+    ``Mesh.map``, as branch streams may run it) give the results of the
+    stages with the shards run in order bit for bit, with the same
+    reductions."""
     config = LMConfig(linear_solver=solver, **CASES[case][0])
     prob, args, kw = _placed(arrs, k, case)
-    ref = dist_lm._lm_sharded(prob, SIZE, config, *args, **kw)
+    ref = dist_lm.lm_solve_sharded(prob, SIZE, config, *args, graphs=False,
+                                   **kw)
     plain = prob.mesh.reductions
     prob.mesh.branches = branches = Reversed()
     try:

@@ -22,6 +22,7 @@ import torch
 from ar_slam_tpu.config import ArSlamConfig as JConfig
 from ar_slam_tpu.solve import batch as jbatch
 from ar_slam_tpu.utils.synthetic import make_synthetic_map
+from ar_slam_tpu_torch import programs
 from ar_slam_tpu_torch.config import ArSlamConfig as TConfig
 from ar_slam_tpu_torch.convert import store_from_jax
 from ar_slam_tpu_torch.graph.arrays import obs_bucket
@@ -106,14 +107,14 @@ def test_seed_and_init_stages_read_nothing_back(monkeypatch):
     with NoHostSync():
         tbatch.seed_waves(*args, aruco_size=SIZE, seed_mode="hybrid")
     ran = []
-    run = graphs.Program.run
+    run = programs.Program.run
 
     def guarded(self, name):
         ran.append(name)
         with NoHostSync():
             run(self, name)
 
-    monkeypatch.setattr(graphs.Program, "run", guarded)
+    monkeypatch.setattr(programs.Program, "run", guarded)
     graphs.localize_graphed(*[torch.as_tensor(x) for x in _queries()],
                             aruco_size=SIZE, config=LMConfig(),
                             graphed=False)

@@ -17,8 +17,6 @@ from ar_slam_tpu_torch import programs
 from ar_slam_tpu_torch.graph.arrays import export_arrays
 from ar_slam_tpu_torch.pipeline.engine import ArSlamEngine
 from ar_slam_tpu_torch.pipeline.ingest import IngestedCapture
-from ar_slam_tpu_torch.solve import batch, lm, localize
-from ar_slam_tpu_torch.solve import graphs as solver_graphs
 from ar_slam_tpu_torch.utils import metrics
 from ar_slam_tpu_torch.utils.metrics import TRACE
 from ar_slam_tpu_torch.utils.render import room_scene
@@ -45,50 +43,31 @@ READERS = ("engine_host_ms_per_op", "detect_device_ms_per_photo",
 def phases():
     """The tracer's summary of each phase on a fresh engine: a detection
     with tracing off, then with it on a map of frames 0-2 and a localize
-    call of frames 3-4; with the number of LM calls and the engine.  The
-    solver's seeds, LM and localize run through their programs
-    (solve/graphs.py) eagerly, as the card replays them."""
+    call of frames 3-4; with the engine.  The solver's seeds, LM and
+    localize run through their programs (solve/graphs.py) eagerly, the
+    CPU's path through the stages the card replays."""
     frames, _ = room_scene(n_frames=5, width=W, height=H, focal=565.0)
     caps = [IngestedCapture(f"f{k}", f"f{k}.png", frames[k])
             for k in range(5)]
     engine = ArSlamEngine(device="cpu")
-    lm_calls = []
-
-    def lm_program(*a, graphs=True, obs_per_tag=None, obs_per_cap=None,
-                   row_slots=None, tag_rows=None, cap_rows=None, **k):
-        lm_calls.append(1)
-        return solver_graphs.lm_solve_graphed(*a, graphed=False, **k, **(
-            lm.grouped_bounds(a[2].shape[0], k["config"], obs_per_tag,
-                              obs_per_cap, row_slots, tag_rows, cap_rows)))
-
-    def seed_program(*a, **k):
-        return solver_graphs.seed_waves_graphed(*a, graphed=False, **k)
-
-    def localize_program(*a, **k):
-        return solver_graphs.localize_graphed(*a, graphed=False, **k)
-
     was = TRACE.enabled
     out = {}
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(batch, "lm_solve", lm_program)
-        mp.setattr(batch, "seed_waves", seed_program)
-        mp.setattr(localize, "localize_batch", localize_program)
-        try:
-            TRACE.enabled = False
-            TRACE.reset()
-            engine.detect_decoded(caps[:1])
-            out["off"] = TRACE.summary()
-            TRACE.enabled = True
-            engine.add_decoded(caps[:3])
-            engine.solve()
-            out["map"] = TRACE.summary()
-            TRACE.reset()
-            out["result"] = engine.localize_decoded(caps[3:])
-            out["localize"] = TRACE.summary()
-        finally:
-            TRACE.enabled = was
-            TRACE.reset()
-    return SimpleNamespace(lm_calls=len(lm_calls), engine=engine, **out)
+    try:
+        TRACE.enabled = False
+        TRACE.reset()
+        engine.detect_decoded(caps[:1])
+        out["off"] = TRACE.summary()
+        TRACE.enabled = True
+        engine.add_decoded(caps[:3])
+        engine.solve()
+        out["map"] = TRACE.summary()
+        TRACE.reset()
+        out["result"] = engine.localize_decoded(caps[3:])
+        out["localize"] = TRACE.summary()
+    finally:
+        TRACE.enabled = was
+        TRACE.reset()
+    return SimpleNamespace(engine=engine, **out)
 
 
 def test_off_records_nothing(phases):
@@ -202,10 +181,11 @@ def test_host_waits_are_the_sites_hit(phases):
     assert got["host_wait.solve.cost"] == 2
     assert got["host_wait.detect.out"] == 6
     assert got["host_wait.detect.k2_rounds"] == 1
-    # the LM's: one read after its setup, one after each step
+    # the LM's: a load a call, one read after its setup, one after each
+    # step
     spans = phases.map["spans"]
-    assert got["host_wait.lm.converged"] == phases.lm_calls == spans[
-        "program.lm.setup"]["calls"]
+    assert got["host_wait.lm.converged"] == spans["program.lm.load"][
+        "calls"] == spans["program.lm.setup"]["calls"] >= 1
     assert got["host_wait.lm.flags"] == spans["program.lm.step"]["calls"]
 
 
