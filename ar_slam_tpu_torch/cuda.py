@@ -28,7 +28,7 @@ import torch
 import ar_slam_tpu_torch.device  # noqa: F401  (switches TF32 off)
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("box.cu", "ccl.cu", "ccl_strip.cu", "extract.cu")
+SOURCES = ("box.cu", "ccl.cu", "ccl_strip.cu", "extract.cu", "localize.cu")
 HEADERS = ("ccl_lines.cuh",)  # included by the sources; part of the hash
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                          "kernels")
@@ -36,6 +36,7 @@ ARCH = "arch=compute_90a,code=sm_90a"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 _SIGNATURES = {
     "arslam_box_sum": [_P, _P, _I, _I, _I, _I, _P],
     "arslam_box_max_radius": [],
@@ -45,6 +46,7 @@ _SIGNATURES = {
     "arslam_ccl_resident_planes": [_I, _I, _I],
     "arslam_ccl_strip": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "arslam_extract": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "arslam_localize_lm": [_P] * 10 + [_I] * 4 + [_D, _I] + [_D] * 6 + [_P],
 }
 
 _LIB = None

@@ -34,12 +34,14 @@ this module holds the solver's stages and their host loops.
   loop.  A step run after a convergence that only the gradient test
   shows is dropped, which leaves the state as the reference's
   ``while_loop`` leaves it.
-- localize (``localize_graphed``): stages ``init`` (each query's seed
-  pose, cost and damping) and ``iterate``; a call replays ``init`` and
-  then ``iterate`` once an iteration, each replay followed by one flag
-  read (any query active).  ``localize_many`` buckets its shapes (query
-  width, query count, tag rows), and the card keeps up to
-  ``programs.KEEP["localize"]`` of these programs, one per signature.
+- localize (``localize_graphed``): on the card one stage ``solve``
+  (each query's seed pose, cost and damping, then K5, the whole LM in one
+  kernel): one replay and no flag read a call.  Off the card (its plain
+  twin) stages ``init`` and ``iterate``: ``init``, then ``iterate`` once
+  an iteration, each followed by one flag read (any query active).
+  ``localize_many`` buckets its shapes (query width, query count, tag
+  rows), and the card keeps up to ``programs.KEEP["localize"]`` of these
+  programs, one per signature.
 
 - the mesh (parallel/dist_lm.py, its shards on one card or several):
   the kinds ``"mesh_lm"`` (the tag-sharded LM's stages, with the fused
@@ -64,6 +66,7 @@ from ar_slam_tpu_torch.solve.lm import (LMConfig, LMState, _grad_inf_norm,
                                         flat_solver, grouped_solver,
                                         lm_accept, lm_init, lm_reject,
                                         lm_step)
+from ar_slam_tpu_torch.solve import localize
 from ar_slam_tpu_torch.solve.batch import seed_waves
 from ar_slam_tpu_torch.solve.localize import localize_init, localize_iteration
 from ar_slam_tpu_torch.utils.metrics import TRACE
@@ -262,13 +265,21 @@ def seed_waves_graphed(camera, cap_poses, tag_poses, tag_idx, corners,
 _LOC_STATE = ("pose", "lam", "nu", "cost", "it", "conv")
 
 
+def fused_localize(device) -> bool:
+    """Whether localize runs its LM as K5, inside one stage: on a CUDA
+    device (as detection takes K1-K4 there), else the host steps the
+    plain twin's iterations."""
+    return torch.device(device).type == "cuda"
+
+
 def localize_graphed(camera, tag_poses, q_tag_idx, q_corners, q_block_mask,
                      q_seed_slot, *, aruco_size: float, config: LMConfig,
                      seed_mode: str = "hybrid", graphed: bool = True):
-    """Batched pose-only LM (the reference's vmapped ``localize_kernel``)
-    as the stages ``init`` (the seeds) and ``iterate`` (one iteration):
-    replayed CUDA graphs (``graphed``, a CUDA device) or the same stages
-    run eagerly.
+    """Batched pose-only LM (the reference's vmapped ``localize_kernel``):
+    on the card the stage ``solve`` (the seeds, then K5), elsewhere the
+    stages ``init`` (the seeds) and ``iterate`` (one iteration) stepped by
+    the host; replayed CUDA graphs (``graphed``, a CUDA device) or the same
+    stages run eagerly.
 
     Args:
       camera: (3,) frozen intrinsics.
@@ -298,9 +309,21 @@ def localize_graphed(camera, tag_poses, q_tag_idx, q_corners, q_block_mask,
             config=config)
         return {**new, "any_active": (~new["conv"]).any()}
 
+    def solve(t):
+        s = localize_init(t["camera"], t["tag_poses"], t["q_tag_idx"],
+                          t["q_corners"], t["q_block_mask"], t["q_seed_slot"],
+                          aruco_size=aruco_size, config=config,
+                          seed_mode=seed_mode)
+        return localize.localize_lm(t["camera"], t["q_corners"], s,
+                                    aruco_size=aruco_size, config=config)
+
     kind = "localize"
+    fused = fused_localize(dev)
 
     def make():
+        if fused:  # a replay adds the K5 launch its capture recorded
+            return Program({"solve": solve}, graphed, kind=kind,
+                           counted=((localize, "launches"),))
         return Program({"init": init, "iterate": iterate}, graphed,
                        kind=kind)
 
@@ -314,6 +337,9 @@ def localize_graphed(camera, tag_poses, q_tag_idx, q_corners, q_block_mask,
               q_corners=q_corners, q_block_mask=q_block_mask,
               q_seed_slot=q_seed_slot)
     t = prog.t
+    if fused:
+        prog.run("solve")
+        return prog.out(t["pose"]), prog.out(t["cost"]), prog.out(t["it"])
     prog.run("init")
     active = TRACE.wait("localize.active", bool, t["any_active"])
     for _ in range(config.max_iterations):

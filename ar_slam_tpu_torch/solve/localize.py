@@ -5,14 +5,16 @@ ar_slam_tpu/solve/localize.py).
 (ar_slam_util.cpp:888-979): each query capture is seeded from a block whose
 tag is shared with a map capture, then optimized alone with tag poses and
 camera intrinsics constant.  Every query is an independent 6-unknown
-problem, so all of them run at once: one Python loop of at most
-``max_iterations`` LM iterations over the (Q, ...) batch, each query with
-its own lambda, acceptance and convergence, and one host read per
-iteration to stop when every query has converged.  ``localize_init`` (the
-seeds) and ``localize_iteration`` (one iteration) read nothing back: they
-are the stages of solve/graphs.py's ``localize_graphed``, replayed as
-CUDA graphs on the card and run eagerly elsewhere.  The Jacobians are
-jets (core/jet.py).
+problem, so all of them run at once, each query with its own lambda,
+acceptance and convergence, for at most ``max_iterations`` LM iterations.
+``localize_init`` (the seeds) reads nothing back.  On the card the whole
+loop is one launch of K5 (``localize_lm``, csrc/localize.cu) after it, as
+the JAX package's ``localize_kernel`` is one program with a device
+``while_loop``; its plain twin, run off the card, is the host's loop over
+``localize_iteration`` (one iteration) with one read per iteration to
+stop when every query has converged.  Both are stages of
+solve/graphs.py's ``localize_graphed``.  The Jacobians are jets
+(core/jet.py).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import logging
 import numpy as np
 import torch
 
-from ar_slam_tpu_torch import programs
+from ar_slam_tpu_torch import cuda, programs
 from ar_slam_tpu_torch.core import jet as J
 from ar_slam_tpu_torch.core.projection import block_residual
 from ar_slam_tpu_torch.core.seeding import seed_capture_pose
@@ -33,6 +35,8 @@ from ar_slam_tpu_torch.solve.lm import LMConfig
 from ar_slam_tpu_torch.utils.metrics import TRACE
 
 logger = logging.getLogger(__name__)
+
+launches = 0  # K5 wrapper calls since the last reset
 
 
 def _query_residuals(camera, pose, tps, corners, maskf, aruco_size: float,
@@ -121,13 +125,59 @@ def localize_iteration(camera, q_corners, tps, maskf, pose, lam, nu, cost,
         conv=torch.where(active, new_conv, conv))
 
 
+def localize_lm(camera, q_corners, s: dict, *, aruco_size: float,
+                config: LMConfig) -> dict:
+    """K5 (csrc/localize.cu): the whole LM of every query in one launch on
+    the card, from ``localize_init``'s state ``s``, whose pose, lam, nu,
+    cost, it and conv it updates in place and returns.  The same
+    iterations and stopping tests as ``localize_iteration`` stepped until
+    every query has converged or reached ``max_iterations``, its plain
+    twin (``graphs.localize_graphed`` off the card)."""
+    global launches
+    dtype = camera.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"camera must be float32 or float64, got {dtype}")
+    q, k = s["maskf"].shape
+    args = ((camera, "camera", dtype, (3,)),
+            (q_corners, "q_corners", dtype, (q, k, 4, 2)),
+            (s["tps"], "tps", dtype, (q, k, 6)),
+            (s["maskf"], "maskf", dtype, (q, k)),
+            (s["pose"], "pose", dtype, (q, 6)),
+            *((s[n], n, dtype, (q,)) for n in ("lam", "nu", "cost")),
+            (s["it"], "it", torch.int64, (q,)),
+            (s["conv"], "conv", torch.bool, (q,)))
+    for t, name, dt, shape in args:
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for t, name, _, _ in args:
+        if not t.is_cuda or t.device != camera.device:
+            raise ValueError(f"{name} must be a CUDA tensor on the camera's "
+                             f"device, not {t.device}")
+    cuda.check(cuda.library().arslam_localize_lm(
+        camera.data_ptr(), q_corners.data_ptr(), s["tps"].data_ptr(),
+        s["maskf"].data_ptr(), *(s[n].data_ptr() for n in (
+            "pose", "lam", "nu", "cost", "it", "conv")),
+        q, k, int(dtype == torch.float64), int(config.enable_distortion),
+        float(aruco_size), config.max_iterations,
+        config.min_relative_decrease, config.function_tolerance,
+        config.parameter_tolerance, config.min_lambda, config.max_lambda,
+        config.stall_lambda, cuda.stream()), "arslam_localize_lm")
+    launches += 1
+    return s
+
+
 def localize_many(store: MapStore, first_loc_cap_idx: int, config=None,
                   dtype=None, device=None, graphs: bool = True) -> dict:
     """Localize every capture with index >= first_loc_cap_idx against the
     frozen map built from earlier captures, on ``device`` (default: the
     card) in ``dtype`` (default: config.solver.dtype), through the stages
-    of ``graphs.localize_graphed``: each LM iteration a replayed CUDA graph
-    where ``programs.graphed`` allows, else the same stage run eagerly.
+    of ``graphs.localize_graphed``: on the card one stage (the seeds and
+    K5), a replayed CUDA graph where ``programs.graphed`` allows, else run
+    eagerly; elsewhere the seeds and the host's loop over the iteration.
 
     Mutates the query captures' poses in the store.  Returns a summary with
     per-capture status ("localized" / "disconnected").
@@ -212,6 +262,9 @@ def localize_many(store: MapStore, first_loc_cap_idx: int, config=None,
         graphed=programs.graphed(device, graphs))
     poses, costs, iters = (TRACE.wait("localize.out", x.cpu).numpy()[:q]
                            for x in (poses, costs, iters))
+    # the iterations of the call's longest query: the replays a host-stepped
+    # loop would have run
+    TRACE.count("localize.iterations", int(iters.max()))
     with TRACE.span("localize.writeback"):
         for qi, (cap, _, _) in enumerate(queries):
             cap.inv_pose[:] = poses[qi]

@@ -26,7 +26,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    F.avg_pool2d;
 4. room-16 — 16 rendered 1020x768 frames of a 24-tag room through the
    engine (add_decoded in batches of 8 -> solve -> save_map); K1 (both
-   uses), K2 and K4 must launch (K3 not, and no K2 rounds read), every
+   uses), K2 and K4 must launch (K3 and K5 not, and no K2 rounds read), every
    rendered tag of side >= 40 px must be found with its true id, no
    foreign id may appear, the map's rmse must be < 1 px, and map.yaml must
    reload through the fast parser with the same tags;
@@ -34,7 +34,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    tags, 114-182 px): frames
    0-7 mapped (one batch of 8), the map saved, then a fresh engine loads it
    and localizes frames 8-11, taken between the map's viewpoints
-   (engine.localize_decoded); K1 (both uses), K3 and K4 must
+   (engine.localize_decoded); K1 (both uses), K3, K4 and K5 must
    launch and K2 not, every rendered tag of side >= 80 px must be found
    with its true id and no foreign id, map and localize rmse < 1 px, every
    query localized, each query camera within 2 cm of the rendered truth
@@ -56,6 +56,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
    must rebuild the same blocks from the event log at rmse < 1 px.
    Printed: both runs' wall seconds, each stage's seconds, the
    detect/solve and ingest/detect overlaps, each solve_incremental call;
+6b. k5 — K5 (the localize LM in one kernel) on the inputs of a localize
+   call: room-16's captures 12-15 against its captures 0-11, and
+   phone_12mp's queries; from the seeds' state, against its plain twin
+   (the host's loop over localize_iteration) within 1e-4 (pose), both
+   iteration counts printed; CUDA-event ms of each and the bound (the
+   inputs read once, the state written once); rows of the kernel table;
 7. solver  — the 500-tag / 200-capture synthetic in float32: final cost
    within 1e-3 relative of the float64 optimum 3771.57, and LM
    iterations/s from two iteration budgets;
@@ -121,7 +127,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    launches, graph launches and device ms: room-16's last flush (its
    seeds, warmup LM and joint LM, from the state ``solve`` reaches
    before it), that flush's seeds alone, and a phone_12mp localize call
-   (the seeding ``init`` and the iterations).  Phases 4-6 also require
+   (the seeds and K5, one replay).  Phases 4-6 also require
    the solve and localize to replay graphs, every capture of them to
    make no ``torch.cuda.synchronize`` and no ``empty_cache`` call (the
    ``capture_syncs`` line), and each rmse to stay within 1e-4 px of the
@@ -219,6 +225,12 @@ QUERY_POSITION_M = 0.02  # query camera position bound after alignment
 # pixels, so their corners are held within 2 px
 K4_INEXACT_TOL_PX = 2.0
 F32_POSE_TOL, F32_RMSE_TOL_PX = 1e-3, 0.01  # card float32 vs CPU float64
+# K5 against its plain twin in float32: two float32 LMs that round their
+# sums and solves otherwise stop at other points of the optimum's valley
+# (~1e-6 apart on these queries, up to 6.7e-4 on the 4-tag queries of
+# tests/test_torch_cuda.py); the bound is the benchmark's pose_gap limit
+# against a float64 solve
+K5_POSE_TOL = 1e-4
 # serve_12mp, pipelined vs sequential: the same detections and solves in
 # another thread interleaving; only reduction order on the card may differ
 SERVE_RMSE_TOL_PX, SERVE_FOCAL_TOL = 1e-3, 1e-4
@@ -246,7 +258,8 @@ ONE_SHOT_TIMEOUT_S = 180
 COUNTERS = {"threshold (K1)": "box_threshold", "box_sum (K1)": "box",
             "connected_components (K2)": "ccl",
             "connected_components_strip (K3)": "ccl_strip",
-            "extreme_quads (K4)": "extract"}
+            "extreme_quads (K4)": "extract",
+            "localize_lm (K5)": "localize_lm"}
 
 
 def emit(phase: str, **kw) -> None:
@@ -657,6 +670,91 @@ def phase_kernels(frames16, frames12):
     return rows, jobs
 
 
+def _k5_row(cell: str, store, first: int, config) -> dict:
+    """K5 on the inputs of one localize call (``localize_many(store,
+    first, config)``): from the seeds' state, the kernel against its plain
+    twin (the host's loop over ``localize_iteration``), poses within
+    K5_POSE_TOL; CUDA-event ms of each; the bound: the inputs read once
+    and the state written once."""
+    import torch
+
+    from ar_slam_tpu_torch.solve import graphs, localize
+
+    seen, real = [], graphs.localize_graphed
+
+    def spy(*a, **kw):
+        seen.append((a, kw))
+        return real(*a, **kw)
+
+    poses = [c.inv_pose.copy() for c in store.captures[first:]]
+    graphs.localize_graphed = spy
+    try:
+        localize.localize_many(store, first, config, device=DEVICE)
+    finally:
+        graphs.localize_graphed = real
+        for c, p in zip(store.captures[first:], poses):
+            c.inv_pose[:] = p
+    a, kw = seen[0]
+    lm_kw = dict(aruco_size=kw["aruco_size"], config=kw["config"])
+    s0 = localize.localize_init(*a, seed_mode=kw["seed_mode"], **lm_kw)
+    camera, corners = a[0], a[3]
+
+    def fresh():
+        return {k: v.clone() for k, v in s0.items()}
+
+    def plain(s):
+        for _ in range(lm_kw["config"].max_iterations):
+            if not bool((~s["conv"]).any()):
+                break
+            s.update(localize.localize_iteration(
+                camera, corners, s["tps"], s["maskf"], *(s[k] for k in (
+                    "pose", "lam", "nu", "cost", "it", "conv")), **lm_kw))
+        return s
+
+    got = localize.localize_lm(camera, corners, fresh(), **lm_kw)
+    ref = plain(fresh())
+    torch.cuda.synchronize()
+    d_pose = (got["pose"] - ref["pose"]).abs().max().item()
+    its, its_ref = got["it"].tolist(), ref["it"].tolist()
+    emit("kernel_check", kernel="localize_lm", cell=cell,
+         shape=list(s0["maskf"].shape), dtype=str(camera.dtype),
+         pose_max_abs_diff=d_pose, iterations=its, plain_iterations=its_ref)
+    if not d_pose <= K5_POSE_TOL:
+        fail(f"K5 on {cell}: poses {d_pose} from the plain twin's (bound "
+             f"{K5_POSE_TOL})")
+    states = [fresh() for _ in range(12)]
+    k5_ms = cuda_ms(lambda: localize.localize_lm(
+        camera, corners, states.pop(), **lm_kw))
+    twins = [fresh() for _ in range(4)]
+    plain_ms = cuda_ms(lambda: plain(twins.pop()), reps=3, warm=1)
+    n_bytes = sum(t.nbytes for t in (camera, corners)) + sum(
+        v.nbytes for k, v in s0.items() if k not in ("pose", "lam", "nu",
+                                                     "cost", "it", "conv"))
+    n_bytes += 2 * sum(s0[k].nbytes for k in ("pose", "lam", "nu", "cost",
+                                               "it", "conv"))
+    bound_ms, bound_by = bound(n_bytes)
+    return {"name": "localize_lm (K5)", "route": "cuda",
+            "source": "ar_slam_tpu_torch/csrc/localize.cu",
+            "replaces": "none (ar_slam_tpu/solve/localize.py:134, the "
+                        "while_loop of localize_kernel)",
+            "max_abs_err": d_pose, "iterations": max(its),
+            "plain_iterations": max(its_ref), "ms": k5_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "cell": cell,
+            "shape": list(s0["maskf"].shape)}
+
+
+def phase_k5(store16, phone) -> list:
+    """K5 (the localize LM in one kernel) on room-16's captures 12-15 as
+    queries against its captures 0-11, and on phone_12mp's localize call:
+    the kernel rows."""
+    from ar_slam_tpu_torch.config import ArSlamConfig
+
+    store, first, config = phone
+    return [_k5_row("room-16", store16, 12, ArSlamConfig()),
+            _k5_row("phone_12mp", store, first, config)]
+
+
 def phase_kernel_profiles(jobs) -> None:
     """The device ms of each kernel's own CUDA kernels, by torch.profiler.
     Run last: after these profiles, a later profile in the same process
@@ -668,7 +766,9 @@ def phase_kernel_profiles(jobs) -> None:
 
 def reset_counts() -> None:
     from ar_slam_tpu_torch.detect import box, ccl, extract
+    from ar_slam_tpu_torch.solve import localize
 
+    localize.launches = 0
     box.launches = box.threshold_launches = ccl.launches = 0
     ccl.strip_launches = extract.launches = 0
     ccl.strip_kernel_launches = ccl.strip_flag_reads = 0
@@ -677,8 +777,10 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     from ar_slam_tpu_torch.detect import box, ccl, extract
+    from ar_slam_tpu_torch.solve import localize
 
-    return {"box": box.launches, "box_threshold": box.threshold_launches,
+    return {"localize_lm": localize.launches,
+            "box": box.launches, "box_threshold": box.threshold_launches,
             "ccl": ccl.launches, "ccl_round_reads": ccl.fused_round_reads,
             "ccl_strip": ccl.strip_launches,
             "ccl_strip_kernels": ccl.strip_kernel_launches,
@@ -833,7 +935,7 @@ def phase_main_path(frames, truth):
 
     check_launches("room-16", launches,
                    ("box", "box_threshold", "ccl", "extract"),
-                   ("ccl_strip", "ccl_round_reads"))
+                   ("ccl_strip", "ccl_round_reads", "localize_lm"))
     n_req = check_tags("room-16", _ids_in(engine.store), truth["frames"],
                        [c.uid for c in caps], 40.0)
     rmse = summary.get("rmse", float("nan"))
@@ -957,8 +1059,8 @@ def phase_phone_12mp(frames, truth, tag_m: float):
     check_graphs("phone_12mp localize", localize_graphs)
 
     check_launches("phone_12mp", launches,
-                   ("box", "box_threshold", "ccl_strip", "extract"),
-                   ("ccl", "ccl_strip_flag_reads"))
+                   ("box", "box_threshold", "ccl_strip", "extract",
+                    "localize_lm"), ("ccl", "ccl_strip_flag_reads"))
     n_req = check_tags("phone_12mp", found, truth["frames"],
                        [c.uid for c in caps], PHONE_SIDE_PX)
     emit("phone_12mp_tags", tags_required=n_req, min_side_px=PHONE_SIDE_PX)
@@ -1768,7 +1870,7 @@ def phase_solve_graphs(store16, phone, arrs10k):
 
     _, j = _graph_cell("phone_12mp localize (4 queries)", loc_run, 4, 16)
     jobs += j
-    jobs += _call_cell("phone_12mp localize call (init + iterations)",
+    jobs += _call_cell("phone_12mp localize call (seeds + K5)",
                        lambda g: loc_run(None, g))
     # the default localize, as the engine runs it
     out = {}
@@ -2930,6 +3032,7 @@ def main() -> int:
     if syncs.captures <= 0 or any(syncs.counts.values()):
         fail(f"the main paths' captures: {syncs.captures}, calls during "
              f"them {syncs.counts}")
+    rows += timed("k5", phase_k5, store16, phone)
     grouped_rate = timed("solver", phase_solver)
     cg_10k, (arrs10k, rmse10k) = timed("solver_cg_10k", phase_solver_cg_10k)
     timed("solver_cg_vs_dense_2000", phase_solver_cg_vs_dense_2000)

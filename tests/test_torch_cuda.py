@@ -566,18 +566,113 @@ def test_graphed_seeds_equal_eager(dev):
     programs.CACHE.clear()
 
 
-def test_localize_call_replays_init(dev, monkeypatch):
-    """A graphed localize call replays ``init`` and then ``iterate``,
-    bit for bit the same stages run eagerly."""
-    from ar_slam_tpu_torch import programs
+def _card_queries(dev, arrays, dtype=torch.float32):
+    """localize_queries' arrays on the card, the floats in ``dtype``."""
+    q = [torch.as_tensor(x, device=dev) for x in arrays]
+    q[0], q[1], q[3] = q[0].to(dtype), q[1].to(dtype), q[3].to(dtype)
+    return q
+
+
+def _plain_twin(q, **kw):
+    """K5's plain twin on the same tensors: ``localize_init``, then the
+    host's loop over ``localize_iteration`` (the driver's stages off the
+    card), run eagerly."""
     from ar_slam_tpu_torch.solve import graphs
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(graphs, "fused_localize", lambda device: False)
+        return graphs.localize_graphed(*q, **kw, graphed=False)
+
+
+K5_CASES = {  # name: (localize_queries' keywords, the padding, LMConfig)
+    "width4": (dict(n_tags=12, width=4), {}, {}),
+    "width8": (dict(n_tags=12, width=8), {}, {}),
+    "width16": (dict(n_tags=24, width=16), {}, {}),
+    "width40_strided": (dict(n_tags=64, width=40), {}, {}),
+    "padded": (dict(n_tags=24, width=15), dict(k=16, q=16, t=32), {}),
+    "max_iterations_2": (dict(n_tags=24, width=16), {},
+                         dict(max_iterations=2)),
+    "stalled": (dict(n_tags=24, width=16), {}, dict(initial_lambda=1e30)),
+}
+
+
+@pytest.mark.parametrize("distortion", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", list(K5_CASES))
+def test_k5_matches_its_plain_twin(dev, case, dtype, distortion,
+                                   record_property):
+    """K5's driver against its plain twin on the card's tensors, over
+    query widths 4, 8, 16 and 40 (160 corners: the block's threads stride),
+    padded queries and blocks, a query without blocks (every case has one),
+    a budget of 2 iterations and a damping so large that every step
+    stalls.  float64: poses within 1e-9 and the same iteration counts.
+    float32: costs within 1e-4 of the twin's, poses within 1e-3 of the
+    float64 solve, the counts that differ from the twin's recorded.  Not the twin's poses to 1e-5: in float32 the cost
+    resolves no change below ~1e-5 of itself, far above the function
+    tolerance (1e-6), so both loops end after a run of rejected steps
+    (15-25 iterations where float64 takes 3-7) at points of the optimum's
+    valley that the rounding picks; on the card the twin itself ended up to
+    4.3e-4 from the float64 solve on these queries (width 4 with
+    distortion), K5 7.9e-4, the two 6.7e-4 apart."""
+    from ar_slam_tpu_torch.solve import graphs, localize
+    from ar_slam_tpu_torch.solve.lm import LMConfig
+    from torch_cases import localize_queries, pad_queries
+
+    kw_case, pad, cfg = K5_CASES[case]
+    base = localize_queries(**kw_case)
+    n_real = len(base[2]) - 1  # the last query has no blocks
+    arrays = pad_queries(base, **pad) if pad else base
+    kw = dict(aruco_size=0.0635, config=LMConfig(
+        enable_distortion=distortion, **cfg))
+
+    def solve(dt, run):
+        q = _card_queries(dev, arrays, dt)
+        if distortion:  # radial terms a lens would have
+            q[0][1:] = torch.tensor([-0.08, 0.02], dtype=dt, device=dev)
+        return q, run(q)
+
+    before = localize.launches
+    q, got = solve(dtype, lambda q: graphs.localize_graphed(
+        *q, **kw, graphed=False))
+    _, ref = solve(dtype, lambda q: _plain_twin(q, **kw))
+    _, f64 = solve(torch.float64, lambda q: graphs.localize_graphed(
+        *q, **kw, graphed=False))
+    torch.cuda.synchronize()
+    assert localize.launches == before + 2
+    its = got[2].cpu().numpy()
+    assert not q[4][n_real:].any() and q[4][:n_real].any(1).all()
+    assert (its[n_real:] == 0).all()  # start converged, never step
+    assert its.max() <= kw["config"].max_iterations
+    if case == "max_iterations_2":
+        assert (its[:n_real] == 2).any()
+    if case == "stalled":  # one rejected step each, the seed pose kept
+        seeds = localize.localize_init(*q, **kw)["pose"]
+        assert (its[:n_real] == 1).all() and torch.equal(got[0], seeds)
+    record_property("iteration_counts_differing",
+                    int((got[2] != ref[2]).sum()))
+    if dtype == torch.float64:
+        assert (got[0] - ref[0]).abs().max().item() <= 1e-9
+        assert torch.equal(got[2], ref[2])
+    else:
+        assert torch.allclose(got[1], ref[1], rtol=1e-4, atol=0)
+        assert (got[0].double() - f64[0]).abs().max().item() <= 1e-3
+
+
+def test_localize_call_replays_init(dev, monkeypatch):
+    """A graphed localize call on the card is one replay of the stage
+    ``solve`` (the seeds, then K5) and no host read: bit for bit the same
+    stage run eagerly, a replay under
+    ``torch.cuda.set_sync_debug_mode("error")``, one K5 launch counted a
+    call."""
+    from ar_slam_tpu_torch import programs
+    from ar_slam_tpu_torch.solve import graphs, localize
     from ar_slam_tpu_torch.solve.lm import LMConfig
     from torch_cases import localize_queries
 
-    q = [torch.as_tensor(x, device=dev) for x in localize_queries()]
-    q[0], q[1], q[3] = q[0].float(), q[1].float(), q[3].float()
+    q = _card_queries(dev, localize_queries())
     kw = dict(aruco_size=0.0635, config=LMConfig())
     ref = graphs.localize_graphed(*q, **kw, graphed=False)
+    launches = localize.launches
     replayed, replay = [], programs.Program.run
 
     def run(self, name):
@@ -586,28 +681,36 @@ def test_localize_call_replays_init(dev, monkeypatch):
 
     monkeypatch.setattr(programs.Program, "run", run)
     programs.CACHE.clear()
-    for _ in range(2):
+    for i in range(2):
         replayed.clear()
-        got = graphs.localize_graphed(*q, **kw)
+        torch.cuda.synchronize()
+        if i:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = graphs.localize_graphed(*q, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         assert all(torch.equal(g, r) for g, r in zip(got, ref))
-        assert replayed[0] == ("init", True)
-        assert {n for n, _ in replayed[1:]} == {"iterate"}
+        assert replayed == [("solve", True)]
     assert programs.CACHE.captures == 1
+    assert programs.CACHE.kinds["localize"]["replays"] == 2
+    # K5 launched once a replay; the capture's rounds count nothing
+    assert localize.launches == launches + 2
     programs.CACHE.clear()
 
 
 def test_localize_keeps_a_program_per_bucket(dev):
     """Query widths 15 / 18 / 15 / 18, padded to ``localize_many``'s
     buckets (16 / 32 blocks, 9 -> 16 queries, 24 -> 32 tag rows), make
-    exactly two captures; each call equals its stages run eagerly on the
-    same padded inputs bit for bit, and its real queries the eager
-    run at the exact shapes within float32 rounding.  Not bit for bit
-    there: the card's row sum of the cost (``torch.sum(r * r, 1)``) adds
-    in an order that depends on the row length and the row count, so the
-    padding moves a cost by an ulp or so (the Jacobian products do not
-    move), and a stopping test on it may flip one step; the tolerances are
-    a tenth of the benchmark's ``pose_gap`` limit (1e-4) and 1e-4 of a
+    exactly two captures and one replay a call; each call equals its
+    stage run eagerly on the same padded inputs bit for bit, and its real
+    queries the eager run at the exact shapes within float32 rounding.
+    Not bit for bit there: the seeds' row sum of the cost
+    (``torch.sum(r * r, 1)``) adds in an order that depends on the row
+    length and the row count, so the padding moves a cost by an ulp or so,
+    and a stopping test on it may flip one step; the tolerances are a
+    tenth of the benchmark's ``pose_gap`` limit (1e-4) and 1e-4 of a
     cost."""
     from ar_slam_tpu_torch import programs
     from ar_slam_tpu_torch.graph.arrays import bucket_size
@@ -615,28 +718,24 @@ def test_localize_keeps_a_program_per_bucket(dev):
     from ar_slam_tpu_torch.solve.lm import LMConfig
     from torch_cases import localize_queries, pad_queries
 
-    def card(arrays):
-        q = [torch.as_tensor(x, device=dev) for x in arrays]
-        q[0], q[1], q[3] = q[0].float(), q[1].float(), q[3].float()
-        return q
-
     kw = dict(aruco_size=0.0635, config=LMConfig())
     programs.CACHE.clear()
     for width in (15, 18, 15, 18):
         case = localize_queries(n_tags=24, n_caps=8, width=width)
         q, k = case[2].shape
-        padded = card(pad_queries(case, k=bucket_size(k, floor=4),
-                                  q=bucket_size(q, floor=4),
-                                  t=bucket_size(len(case[1]))))
+        padded = _card_queries(dev, pad_queries(
+            case, k=bucket_size(k, floor=4), q=bucket_size(q, floor=4),
+            t=bucket_size(len(case[1]))))
         got = graphs.localize_graphed(*padded, **kw)
         eager = graphs.localize_graphed(*padded, **kw, graphed=False)
-        ref = graphs.localize_graphed(*card(case), **kw, graphed=False)
+        ref = graphs.localize_graphed(*_card_queries(dev, case), **kw,
+                                      graphed=False)
         torch.cuda.synchronize()
         assert all(torch.equal(g, e) for g, e in zip(got, eager))
         assert (got[0][:q] - ref[0]).abs().max().item() <= 1e-5
         assert torch.allclose(got[1][:q], ref[1], rtol=1e-4, atol=0)
     assert programs.CACHE.kinds["localize"]["captures"] == 2
-    assert programs.CACHE.kinds["localize"]["replays"] > 4
+    assert programs.CACHE.kinds["localize"]["replays"] == 4
     programs.CACHE.clear()
 
 

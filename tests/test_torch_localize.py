@@ -270,3 +270,93 @@ def test_cache_keeps_localize_programs_per_width():
     held = [p.signature[1][1] for p in cache._programs.values()]
     assert held == [16 * 2 ** k for k in range(2, bound)] + [
         16, 16 * 2 ** bound]
+
+
+def test_localize_counts_its_longest_query():
+    """Traced, a call counts ``localize.iterations``: the largest iteration
+    count it returns over its queries (the replays a host-stepped loop
+    runs); two calls add up, and untraced nothing is counted."""
+    from ar_slam_tpu_torch.utils.metrics import TRACE
+
+    was = TRACE.enabled
+    got = []
+    try:
+        for traced in (True, True, False):
+            TRACE.enabled = traced
+            store, first = _width_store((12, 14, 15, 18))
+            rng = np.random.default_rng(5)
+            for tag in store.arucos:  # a map a little off: some iterations
+                tag.pose += rng.normal(scale=2e-3, size=6)
+            got.append(t_localize(store, first, TConfig(),
+                                  dtype=torch.float64, device="cpu"))
+            if traced:
+                counts = TRACE.summary()["counts"]
+            else:
+                assert TRACE.summary()["counts"] == counts
+    finally:
+        TRACE.enabled = was
+        TRACE.reset()
+    longest = max(got[0]["iterations"].values())
+    assert len(set(got[0]["iterations"].values())) > 1  # it is the largest
+    assert got[1]["iterations"] == got[0]["iterations"]
+    assert counts["localize.iterations"] == 2 * longest
+
+
+@pytest.mark.parametrize("fault,error,match", [
+    ("cpu", ValueError, "must be a CUDA tensor"),
+    ("strided", ValueError, "pose must be contiguous"),
+    ("dtype", TypeError, "lam must be torch.float64"),
+    ("shape", ValueError, r"q_corners must be \(7, 12, 4, 2\)")])
+def test_k5_wrapper_refuses_before_loading(monkeypatch, fault, error, match):
+    """K5's wrapper (``localize_lm``) checks the type, layout, shape and
+    device of every tensor before it loads the kernels' library: a CPU
+    state, a strided pose, a float32 damping in a float64 state and a
+    corner table of another width are refused."""
+    from ar_slam_tpu_torch import cuda
+    from ar_slam_tpu_torch.solve.localize import localize_init, localize_lm
+    from ar_slam_tpu_torch.solve.lm import LMConfig
+    from tests.torch_cases import localize_queries
+
+    def no_library():
+        raise AssertionError("the library was loaded")
+
+    monkeypatch.setattr(cuda, "library", no_library)
+    case = [torch.as_tensor(x) for x in localize_queries()]
+    kw = dict(aruco_size=0.0635, config=LMConfig())
+    s = localize_init(*case, **kw)
+    corners = case[3]
+    if fault == "strided":
+        s["pose"] = torch.zeros((len(s["pose"]), 12),
+                                dtype=torch.float64)[:, ::2]
+    elif fault == "dtype":
+        s["lam"] = s["lam"].float()
+    elif fault == "shape":
+        corners = corners[:, :-1].contiguous()
+    assert corners.shape[:2] != s["maskf"].shape or fault != "shape"
+    with pytest.raises(error, match=match):
+        localize_lm(case[0], corners, s, **kw)
+
+
+def test_iterations_reader(monkeypatch):
+    """``localize_iterations_per_call`` reads ``localize.iterations`` over
+    the stretch's operations, and None from an empty tracer or a program
+    without the counter."""
+    from types import SimpleNamespace
+
+    from benchmark import harness, program_trace
+
+    def view(ops):
+        return SimpleNamespace(trace=SimpleNamespace(
+            spans=lambda name: [(0.0, 1.0)] * ops if name == "op" else []),
+            spans={}, counters={})
+
+    read = harness.reader("localize_iterations_per_call.localize").read
+    assert program_trace.summary() is None
+    assert read(view(2)) is None
+    monkeypatch.setattr(program_trace, "summary", lambda: {
+        "spans": {}, "counts": {"host_wait.localize.active": 44}})
+    assert read(view(2)) is None
+    monkeypatch.setattr(program_trace, "summary", lambda: {
+        "spans": {}, "counts": {"localize.iterations": 42}})
+    assert read(view(2)) == 21
+    assert read(view(0)) is None

@@ -120,7 +120,7 @@ def test_cell_resolves_to_its_files():
     assert traced == {e["name"] for e in m["per_layer"]
                       if "room_12mp.localize" in e.get("workloads", ())} | {
         "ccl_rounds_per_plane.room_demo", "ccl_roofline_pct.room_demo"}
-    assert len(traced) == 13
+    assert len(traced) == 14
     for name in traced:
         assert harness.reader(name) is not None
 
