@@ -340,14 +340,23 @@ class _WaveRunner:
                 anchors = [seed_row]  # reference parity: the init_block only
             self._pending.append((cap_index, seed_row, rows, tags,
                                   anchors if seed_row >= 0 else []))
+        TRACE.count("solve.waves")
         if optimize:
             return self._flush(lm_enabled=True)
         return None
 
     def _flush(self, lm_enabled: bool, iter_budget: int | None = None):
-        """Apply the queued seeds and run (up to) the warmup and joint LM."""
+        """Apply the queued seeds and run (up to) the warmup and joint LM,
+        inside the host span ``solve.flush``; traced, an optimizing flush
+        counts under ``solve.flushes``."""
         if not self._pending:
             return self.last_info
+        if lm_enabled:
+            TRACE.count("solve.flushes")
+        with TRACE.span("solve.flush"):
+            return self._flush_pending(lm_enabled, iter_budget)
+
+    def _flush_pending(self, lm_enabled: bool, iter_budget: int | None):
         budget = int(self.wave_budget if iter_budget is None else iter_budget)
         with TRACE.span("solve.plan"):
             waves = list(self._pending)

@@ -103,23 +103,27 @@ def lm_iterate(prog: Program, config: LMConfig, iter_budget=None) -> int:
     one read of the converged flag, then per iteration a ``step``, one
     read of its flags (``lm.LMStep``) and an ``accept`` or ``reject``, to
     the budget or convergence.  Every process of a mesh reads the same
-    flags, so all replay the same stages.  Returns the iterations run."""
+    flags, so all replay the same stages.  Traced, the run counts under
+    ``lm.calls`` and its ``step`` runs under ``lm.steps``.  Returns the
+    iterations run."""
     t = prog.t
     budget = min(config.max_iterations if iter_budget is None
                  else int(iter_budget), config.max_iterations)
-    iteration = 0
-    if TRACE.wait("lm.converged", bool, t["converged"]):
-        return iteration
-    while iteration < budget:
-        prog.run("step")
-        before, accepting, after = TRACE.wait("lm.flags",
-                                              t["step"].flags.tolist)
-        if before:
-            break
-        prog.run("accept" if accepting else "reject")
-        iteration += 1
-        if after:
-            break
+    iteration = steps = 0
+    if not TRACE.wait("lm.converged", bool, t["converged"]):
+        while iteration < budget:
+            prog.run("step")
+            steps += 1
+            before, accepting, after = TRACE.wait("lm.flags",
+                                                  t["step"].flags.tolist)
+            if before:
+                break
+            prog.run("accept" if accepting else "reject")
+            iteration += 1
+            if after:
+                break
+    TRACE.count("lm.calls")
+    TRACE.count("lm.steps", steps)
     return iteration
 
 
