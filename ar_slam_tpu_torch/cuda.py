@@ -28,7 +28,8 @@ import torch
 import ar_slam_tpu_torch.device  # noqa: F401  (switches TF32 off)
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("box.cu", "ccl.cu", "ccl_strip.cu", "extract.cu", "localize.cu")
+SOURCES = ("box.cu", "ccl.cu", "ccl_strip.cu", "extract.cu", "localize.cu",
+           "rank.cu")
 HEADERS = ("ccl_lines.cuh",)  # included by the sources; part of the hash
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                          "kernels")
@@ -47,6 +48,7 @@ _SIGNATURES = {
     "arslam_ccl_strip": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "arslam_extract": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "arslam_localize_lm": [_P] * 10 + [_I] * 4 + [_D, _I] + [_D] * 6 + [_P],
+    "arslam_run_scores": [_P] * 5 + [_I] * 4 + [_D, _P],
 }
 
 _LIB = None

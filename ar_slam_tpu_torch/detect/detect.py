@@ -1,6 +1,6 @@
 """Batched Aruco detection: port of detect/tpu_detect.py:detect_batch.
 
-The stages are torch ops around four kernels (each with a plain PyTorch
+The stages are torch ops around five kernels (each with a plain PyTorch
 version that the CPU runs use):
 
 - the frames go to the card as they come (uint8: a quarter of the bytes of
@@ -11,7 +11,8 @@ version that the CPU runs use):
 - connected components with K2, or K3 on planes above
   ``FUSED_CCL_PIXEL_LIMIT`` (``detect.ccl``), both under the round cap
   ``ccl_iters``;
-- top-K component ranking on a min-pooled label grid;
+- top-K component ranking on a min-pooled label grid, each run of the
+  sorted labels scored by K6 (``detect.rank``);
 - extreme-point quads with K4 (``detect.extract``), ordered, expanded and
   filtered;
 - compaction of the window sweep to 2K slots with cross-window dedup;
@@ -25,8 +26,8 @@ reference's jitted ``detect_batch`` is (ar_slam_tpu/detect/tpu_detect.py:
 695): a call is a load (the frames copied into the program's own uint8
 buffer: host photos each copied straight into its frame, with no
 stacked host batch, the padding rows zeroed on the card) and one replay
-of the CUDA graph of the stage ``detect`` (every step above, K1-K4
-inside), captured once per (card, batch shape, dtype, ``DetectParams``,
+of the CUDA graph of the stage ``detect`` (every step above, K1-K4 and
+K6 inside), captured once per (card, batch shape, dtype, ``DetectParams``,
 dictionaries) (``programs.py``).  Nothing in the stage
 reads the card from the host or makes a tensor from host data: the
 threshold and dictionary tables are on the card before the capture, and
@@ -46,7 +47,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ar_slam_tpu_torch.detect import box, ccl, extract
+from ar_slam_tpu_torch.detect import box, ccl, extract, rank
 from ar_slam_tpu_torch.detect.dictionaries import get_dictionary
 from ar_slam_tpu_torch.device import resolve_device
 from ar_slam_tpu_torch.programs import CACHE, Program, graphed
@@ -61,7 +62,8 @@ FUSED_CCL_PIXEL_LIMIT = 1_000_000
 # captured stage did, and the per-plane rounds each replay points them at
 COUNTED = ((box, "launches"), (box, "threshold_launches"),
            (ccl, "launches"), (ccl, "strip_launches"),
-           (ccl, "strip_kernel_launches"), (extract, "launches"))
+           (ccl, "strip_kernel_launches"), (extract, "launches"),
+           (rank, "launches"))
 POINTERS = ((ccl, "_fused_rounds"), (ccl, "_strip_flags"))
 _TABLES = {}  # (dict_names, device) -> dict_tables
 
@@ -125,28 +127,11 @@ def _stable_desc(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
 def top_k_components(labels_flat: torch.Tensor, k: int, grid_w: int,
                      max_area: float | None = None):
     """Batched tpu_detect._top_k_components: (B, P) labels -> top-k roots
-    (B, k) int32 and their raw areas (B, k) float32 (0 for empty slots)."""
-    b, p = labels_flat.shape
-    dev = labels_flat.device
-    pos = torch.arange(p, dtype=torch.int64, device=dev).expand(b, p)
+    (B, k) int32 and their raw areas (B, k) float32 (0 for empty slots).
+    Each row sorted stably, its runs scored by K6 (``detect.rank``), the
+    top k taken by a stable descending sort (equal scores: lower label)."""
     s, sp = torch.sort(labels_flat, dim=1, stable=True)
-    one = torch.ones((b, 1), dtype=torch.bool, device=dev)
-    diff = s[:, 1:] != s[:, :-1]
-    is_start = torch.cat([one, diff], dim=1)
-    is_end = torch.cat([diff, one], dim=1)
-    neg1 = torch.full_like(pos, -1)
-    start_pos = torch.cummax(torch.where(is_start, pos, neg1), dim=1).values
-    cand_len = torch.where(is_end & (s != BIG), pos - start_pos + 1,
-                           torch.zeros_like(pos))
-    first_gp = torch.cummax(torch.where(is_start, sp, neg1), dim=1).values
-    span = torch.div(sp, grid_w, rounding_mode="floor") - torch.div(
-        first_gp, grid_w, rounding_mode="floor") + 1
-    area_f = cand_len.to(torch.float32)
-    fill = area_f / torch.clamp(span * span, min=1).to(torch.float32)
-    score = area_f * (2.0 - torch.clamp(fill, max=1.0))
-    if max_area is not None:
-        score = torch.where(area_f <= max_area, score,
-                            0.5 + area_f / (2.0 * float(p) + 1.0))
+    score, area_f = rank.run_scores(s, sp, grid_w, max_area)
     top_pos = _stable_desc(score, dim=1)[:, :k]
     top_score = torch.gather(score, 1, top_pos)
     has = top_score > 0
@@ -157,17 +142,13 @@ def top_k_components(labels_flat: torch.Tensor, k: int, grid_w: int,
     return roots.to(torch.int32), top_area
 
 
-def top_k_subsampled(labels: torch.Tensor, k: int, subsample: int,
-                     max_area_frac: float | None = None):
-    """Batched tpu_detect._top_k_subsampled over (B, H, W) labels: rank on
-    an s x s min-pooled grid (every component keeps a cell), areas scaled
-    back by s^2."""
+def pool_labels(labels: torch.Tensor, subsample: int):
+    """(B, H, W) labels -> the s x s min-pooled grid as (B, P) rows (the
+    plane padded with 2^30 to a multiple of s) and the grid's width."""
     s = max(int(subsample), 1)
     b, h, w = labels.shape
-    max_area = (float(max_area_frac) * h * w
-                if max_area_frac is not None else None)
     if s <= 1:
-        return top_k_components(labels.reshape(b, -1), k, w, max_area)
+        return labels.reshape(b, -1), w
     hp, wp = -(-h // s) * s, -(-w // s) * s
     lab = labels
     if (hp, wp) != (h, w):
@@ -175,9 +156,22 @@ def top_k_subsampled(labels: torch.Tensor, k: int, subsample: int,
                          device=labels.device)
         lab[:, :h, :w] = labels
     pooled = lab.reshape(b, hp // s, s, wp // s, s).amin(dim=(2, 4))
+    return pooled.reshape(b, -1), wp // s
+
+
+def top_k_subsampled(labels: torch.Tensor, k: int, subsample: int,
+                     max_area_frac: float | None = None):
+    """Batched tpu_detect._top_k_subsampled over (B, H, W) labels: rank on
+    an s x s min-pooled grid (every component keeps a cell), areas scaled
+    back by s^2."""
+    s = max(int(subsample), 1)
+    _, h, w = labels.shape
+    max_area = (float(max_area_frac) * h * w
+                if max_area_frac is not None else None)
+    pooled, grid_w = pool_labels(labels, s)
     roots, top_area = top_k_components(
-        pooled.reshape(b, -1), k, wp // s,
-        max_area / (s * s) if max_area is not None else None)
+        pooled, k, grid_w, max_area / (s * s) if max_area is not None
+        else None)
     return roots, top_area * float(s * s)
 
 

@@ -26,7 +26,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    F.avg_pool2d;
 4. room-16 — 16 rendered 1020x768 frames of a 24-tag room through the
    engine (add_decoded in batches of 8 -> solve -> save_map); K1 (both
-   uses), K2 and K4 must launch (K3 and K5 not, and no K2 rounds read), every
+   uses), K2, K4 and K6 must launch (K3 and K5 not, and no K2 rounds read), every
    rendered tag of side >= 40 px must be found with its true id, no
    foreign id may appear, the map's rmse must be < 1 px, and map.yaml must
    reload through the fast parser with the same tags;
@@ -34,7 +34,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    tags, 114-182 px): frames
    0-7 mapped (one batch of 8), the map saved, then a fresh engine loads it
    and localizes frames 8-11, taken between the map's viewpoints
-   (engine.localize_decoded); K1 (both uses), K3, K4 and K5 must
+   (engine.localize_decoded); K1 (both uses), K3, K4, K5 and K6 must
    launch and K2 not, every rendered tag of side >= 80 px must be found
    with its true id and no foreign id, map and localize rmse < 1 px, every
    query localized, each query camera within 2 cm of the rendered truth
@@ -47,7 +47,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
    detect thread runs the detector, the merge stage joins, and this
    thread runs solve_incremental twice (the second call replays the 8
    solved captures and attaches 4), recording an event log; K1 (both
-   uses), K3 and K4 must launch, only from the detect thread, and K2 not;
+   uses), K3, K4 and K6 must launch, only from the detect thread, and K2
+   not;
    12 waves, 0 unsolved, every merge published, the tags as in
    phone_12mp, rmse < 1 px, every camera within 2 cm of the truth after
    alignment; a second engine's add_images + solve_incremental over the
@@ -62,6 +63,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
    (the host's loop over localize_iteration) within 1e-4 (pose), both
    iteration counts printed; CUDA-event ms of each and the bound (the
    inputs read once, the state written once); rows of the kernel table;
+6c. k6 — K6 (the run scores of the component ranking) on the sorted
+   min-pooled label rows of room-16's batch of 8 (K2's labels, 24 rows of
+   48 960) and of phone_12mp's queries, 4 photos and 1 (K3's labels, 12
+   and 3 rows of 762 048): score and area bit for bit the plain version
+   on the CPU; CUDA-event ms of K6 and of the chain it replaced (two
+   torch.cummax), and the bound; rows of the kernel table;
 7. solver  — the 500-tag / 200-capture synthetic in float32: final cost
    within 1e-3 relative of the float64 optimum 3771.57, and LM
    iterations/s from two iteration budgets;
@@ -90,7 +97,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
 13. mesh_detect — room-16's 16 frames and phone_12mp's 8 frames through
    parallel.detect.detect_batch_sharded over three shards of the card
    (neither batch divides by 3: padding); every output bit for bit the
-   unsharded batch's; K1 (both uses), K2 or K3, and K4 must launch, each
+   unsharded batch's; K1 (both uses), K2 or K3, K4 and K6 must launch, each
    shard's launches printed;
 14. mesh_solver_500 — the 500-tag problem through the tag-sharded
    lm_solve_dist over 1, 2 and 4 shards of the card: final cost within
@@ -259,7 +266,8 @@ COUNTERS = {"threshold (K1)": "box_threshold", "box_sum (K1)": "box",
             "connected_components (K2)": "ccl",
             "connected_components_strip (K3)": "ccl_strip",
             "extreme_quads (K4)": "extract",
-            "localize_lm (K5)": "localize_lm"}
+            "localize_lm (K5)": "localize_lm",
+            "run_scores (K6)": "rank"}
 
 
 def emit(phase: str, **kw) -> None:
@@ -755,6 +763,69 @@ def phase_k5(store16, phone) -> list:
             _k5_row("phone_12mp", store, first, config)]
 
 
+def _k6_row(cell: str, labels) -> dict:
+    """K6 on the stably sorted min-pooled label rows of one detection
+    batch: score and area bit for bit the plain run scores on the CPU;
+    CUDA-event ms of K6 and, as the library call, of the chain it
+    replaced on the card (two torch.cummax and the elementwise ops); the
+    bound: the labels and positions read once, both planes written once."""
+    import torch
+
+    from ar_slam_tpu_torch.detect import rank
+    from ar_slam_tpu_torch.detect.detect import pool_labels
+
+    pooled, grid_w = pool_labels(labels, 2)
+    max_area = 0.25 * pooled.shape[1]
+    s, sp = torch.sort(pooled, dim=1, stable=True)
+    got = rank.run_scores(s, sp, grid_w, max_area)
+    ref = rank.run_scores_plain(s.cpu(), sp.cpu(), grid_w, max_area)
+    equal = all(torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+                for a, b in zip(got, ref))
+    emit("kernel_check", kernel="run_scores", cell=cell,
+         shape=list(s.shape), equal=equal,
+         runs=int((ref[1] > 0).sum()))
+    if not equal:
+        fail(f"K6 on {cell} {list(s.shape)}: scores or areas differ from "
+             "the plain version's")
+    bound_ms, bound_by = bound((4 + 8 + 4 + 4) * s.numel())
+    return {"name": "run_scores (K6)", "route": "cuda",
+            "source": "ar_slam_tpu_torch/csrc/rank.cu",
+            "replaces": "ar_slam_tpu/detect/tpu_detect.py:238,242 (the "
+                        "two lax.cummax of _top_k_components, XLA)",
+            "max_abs_err": 0.0,
+            "ms": cuda_ms(lambda: rank.run_scores(s, sp, grid_w, max_area)),
+            "plain_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": cuda_ms(lambda: rank.run_scores_plain(
+                s, sp, grid_w, max_area)),
+            "library": "run_scores_plain on the card: two torch.cummax "
+                       "and the elementwise chain",
+            "cell": cell, "shape": list(s.shape)}
+
+
+def phase_k6(frames16, frames12) -> list:
+    """K6 on the label rows of room-16's batch of 8 (24 rows of 48 960,
+    K2) and of phone_12mp's localize call (4 photos: 12 rows of 762 048,
+    K3) and of one photo (3 rows): the kernel rows."""
+    import torch
+
+    from ar_slam_tpu_torch.detect import box, ccl
+
+    dev = torch.device(DEVICE)
+    rows = []
+    frames = torch.from_numpy(frames16[:8]).to(dev).contiguous()
+    planes = box.threshold_batch(frames, WINDOWS, THRESH_C, DECIMATE)
+    rows.append(_k6_row("room-16", ccl.connected_components_batch(planes,
+                                                                  24)))
+    for n in (4, 1):
+        frames = torch.from_numpy(frames12[8:8 + n]).to(dev).contiguous()
+        planes = box.threshold_batch(frames, WINDOWS, THRESH_C, DECIMATE)
+        rows.append(_k6_row("phone_12mp", ccl.connected_components_strip_batch(
+            planes, 24)))
+    del frames, planes
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_kernel_profiles(jobs) -> None:
     """The device ms of each kernel's own CUDA kernels, by torch.profiler.
     Run last: after these profiles, a later profile in the same process
@@ -765,10 +836,10 @@ def phase_kernel_profiles(jobs) -> None:
 
 
 def reset_counts() -> None:
-    from ar_slam_tpu_torch.detect import box, ccl, extract
+    from ar_slam_tpu_torch.detect import box, ccl, extract, rank
     from ar_slam_tpu_torch.solve import localize
 
-    localize.launches = 0
+    localize.launches = rank.launches = 0
     box.launches = box.threshold_launches = ccl.launches = 0
     ccl.strip_launches = extract.launches = 0
     ccl.strip_kernel_launches = ccl.strip_flag_reads = 0
@@ -776,10 +847,10 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    from ar_slam_tpu_torch.detect import box, ccl, extract
+    from ar_slam_tpu_torch.detect import box, ccl, extract, rank
     from ar_slam_tpu_torch.solve import localize
 
-    return {"localize_lm": localize.launches,
+    return {"localize_lm": localize.launches, "rank": rank.launches,
             "box": box.launches, "box_threshold": box.threshold_launches,
             "ccl": ccl.launches, "ccl_round_reads": ccl.fused_round_reads,
             "ccl_strip": ccl.strip_launches,
@@ -934,7 +1005,7 @@ def phase_main_path(frames, truth):
     launches = read_counts()
 
     check_launches("room-16", launches,
-                   ("box", "box_threshold", "ccl", "extract"),
+                   ("box", "box_threshold", "ccl", "extract", "rank"),
                    ("ccl_strip", "ccl_round_reads", "localize_lm"))
     n_req = check_tags("room-16", _ids_in(engine.store), truth["frames"],
                        [c.uid for c in caps], 40.0)
@@ -1059,7 +1130,7 @@ def phase_phone_12mp(frames, truth, tag_m: float):
     check_graphs("phone_12mp localize", localize_graphs)
 
     check_launches("phone_12mp", launches,
-                   ("box", "box_threshold", "ccl_strip", "extract",
+                   ("box", "box_threshold", "ccl_strip", "extract", "rank",
                     "localize_lm"), ("ccl", "ccl_strip_flag_reads"))
     n_req = check_tags("phone_12mp", found, truth["frames"],
                        [c.uid for c in caps], PHONE_SIDE_PX)
@@ -1244,7 +1315,7 @@ def phase_serve_12mp(frames, truth, tag_m: float) -> None:
     if pipe.merge.inner.published != set(uids):
         fail(f"serve_12mp: merge published {sorted(pipe.merge.inner.published)}")
     check_launches("serve_12mp", launches,
-                   ("box", "box_threshold", "ccl_strip", "extract"),
+                   ("box", "box_threshold", "ccl_strip", "extract", "rank"),
                    ("ccl", "ccl_round_reads", "ccl_strip_flag_reads"))
     main_thread = threading.main_thread().name
     if (any(n == main_thread for n, _ in detect_calls)
@@ -2400,7 +2471,7 @@ def phase_mesh_detect(frames16, frames12):
         finally:
             pdet.detect_batch = plain
         check_launches(f"mesh_detect {cell}", launches,
-                       ("box", "box_threshold", k_ccl, "extract"),
+                       ("box", "box_threshold", k_ccl, "extract", "rank"),
                        (k_unused,))
         check_detect_replays(f"mesh_detect {cell}", replays, 3)
         t0 = time.perf_counter()
@@ -3033,6 +3104,7 @@ def main() -> int:
         fail(f"the main paths' captures: {syncs.captures}, calls during "
              f"them {syncs.counts}")
     rows += timed("k5", phase_k5, store16, phone)
+    rows += timed("k6", phase_k6, frames16, frames12)
     grouped_rate = timed("solver", phase_solver)
     cg_10k, (arrs10k, rmse10k) = timed("solver_cg_10k", phase_solver_cg_10k)
     timed("solver_cg_vs_dense_2000", phase_solver_cg_vs_dense_2000)

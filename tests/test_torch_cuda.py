@@ -8,15 +8,17 @@ False (the CPU runs of the suite).  Run on a machine with an NVIDIA GPU:
 
 Shapes are the main paths': a batch of 8 frames at 1020x768 (K1, K2,
 K4), or decimated 12 MP planes (K3), three threshold windows stacked on
-the batch axis, count-pooled 2x.
+the batch axis, count-pooled 2x; K6 on the min-pooled label grids of
+decimated 12 MP planes (rows of 762 048 cells).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from ar_slam_tpu_torch.detect import box, ccl, extract
-from torch_cases import cap_planes, extract_cases, mixed_batch, serpentine
+from ar_slam_tpu_torch.detect import box, ccl, extract, rank
+from torch_cases import (cap_planes, extract_cases, mixed_batch, rank_rows,
+                         serpentine)
 
 pytestmark = pytest.mark.cuda
 
@@ -224,6 +226,95 @@ def test_extract_kernel_edge_cases(dev):
     got = extract.extreme_quads(lab, r)
     assert torch.equal(got, extract.extreme_quads_plain(lab, r))
     assert torch.equal(got[0, 1, 1], got[0, 1, 0])  # B = A on the +-0 tie
+
+
+def _k3_labels(dev, n, seed=4):
+    """K3's labels of n decimated 12 MP planes (1512x2016): blobs of 24x24
+    pixels plus 5 % noise."""
+    rng = np.random.default_rng(seed + n)
+    base = rng.uniform(60, 220, size=(n, 1512 // 24, 2016 // 24)) < 120
+    b = torch.from_numpy(base.repeat(24, 1).repeat(24, 2)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + n)
+    b |= torch.rand(b.shape, generator=gen, device=dev) < 0.05
+    return ccl.connected_components_strip_batch(b.contiguous(), 24)
+
+
+def _k6_rows(dev, case):
+    """(B, P) int32 label rows on the card and their grid width: the edge
+    rows of tests/torch_cases.py (713 cells, under one tile), the same
+    kinds over several tiles and a length that is no multiple of a tile,
+    and K3's labels of 1, 3 and 24 decimated 12 MP planes min-pooled as
+    the detector ranks them (762 048 cells a row)."""
+    from ar_slam_tpu_torch.detect.detect import pool_labels
+
+    if case.startswith("k3_"):
+        return pool_labels(_k3_labels(dev, int(case[3:])), 2)
+    rng = np.random.default_rng(12)
+    p = rank.TILE * 7 + 77
+    if case == "one_run_long":
+        rows, w = np.full((1, 762048), 7, np.int32), 1008
+    elif case == "single_ends_long":
+        rows, w = rng.integers(10, 60, size=(1, p)).astype(np.int32), 71
+        rows[0, 5], rows[0, p - 9] = 3, 1000
+    elif case == "shuffled_long":  # many short runs, many tiles
+        rows, w = rng.integers(0, 5000, size=(3, p)).astype(np.int32), 71
+        rows[rng.random(rows.shape) < 0.3] = 2**30
+    else:
+        rows, w = rank_rows()[case], 31
+    return torch.from_numpy(rows).to(dev), w
+
+
+K6_CASES = [*rank_rows(), "one_run_long", "single_ends_long",
+            "shuffled_long", "k3_1", "k3_3", "k3_24"]
+
+
+@pytest.mark.parametrize("max_area_frac", [None, 0.25])
+@pytest.mark.parametrize("case", K6_CASES)
+def test_k6_equals_plain_twin(dev, case, max_area_frac):
+    """K6 on stably sorted label rows: score and area bit for bit those of
+    the plain run scores on the CPU (the two cummax scans and the chain),
+    with and without max_area; a nonzero area only at the end of a run
+    of a label other than 2^30."""
+    labels, w = _k6_rows(dev, case)
+    p = labels.shape[1]
+    max_area = max_area_frac * p if max_area_frac is not None else None
+    s, sp = torch.sort(labels, dim=1, stable=True)
+    before = rank.launches
+    score, area = rank.run_scores(s, sp, w, max_area)
+    assert rank.launches == before + 1
+    ref_score, ref_area = rank.run_scores_plain(s.cpu(), sp.cpu(), w,
+                                                max_area)
+    got_score, got_area = score.cpu(), area.cpu()
+    assert torch.equal(got_score.view(torch.int32),
+                       ref_score.view(torch.int32))
+    assert torch.equal(got_area.view(torch.int32), ref_area.view(torch.int32))
+    s = s.cpu()
+    end = torch.cat([s[:, 1:] != s[:, :-1],
+                     torch.ones((len(s), 1), dtype=torch.bool)], dim=1)
+    assert not got_area[~(end & (s != 2**30))].any()
+
+
+@pytest.mark.parametrize("case", ["k3_3", "ties", "shuffled_long"])
+def test_k6_top_k_equals_cpu(dev, case):
+    """The ranking on the card (K6 between the two stable sorts) gives the
+    CPU plain path's roots and areas: top_k_subsampled on K3's labels of
+    three 12 MP planes, top_k_components on rows of equal scores (the cut
+    falls to the lower labels) and on many-tile rows of short runs."""
+    from ar_slam_tpu_torch.detect.detect import (top_k_components,
+                                                 top_k_subsampled)
+
+    if case == "k3_3":
+        labels = _k3_labels(dev, 3)
+        got = top_k_subsampled(labels, 64, 2, 0.25)
+        ref = top_k_subsampled(labels.cpu(), 64, 2, 0.25)
+    else:
+        rows, w = _k6_rows(dev, case)
+        max_area = 0.25 * rows.shape[1]
+        got = top_k_components(rows, 5, w, max_area)
+        ref = top_k_components(rows.cpu(), 5, w, max_area)
+    assert torch.equal(got[0].cpu(), ref[0])
+    assert torch.equal(got[1].cpu(), ref[1])
+    assert (got[1] > 0).any()
 
 
 def _cg_problem(dev):
@@ -1197,7 +1288,8 @@ def test_graphed_detect_equals_eager(dev, scenes, cell):
     torch.cuda.synchronize()
     launched = [a - b for a, b in zip(_detect_counts(), before)]
     rounds = _plane_rounds(cell)
-    assert all(launched[:2]) and launched[-1] == 1
+    # K4 and K6 (rank.launches, last) once a call
+    assert all(launched[:2]) and launched[-2:] == [1, 1]
     assert int(sum(ref[n]["valid"].sum() for n in ref)) > 0
     for call in range(3):
         before = _detect_counts()

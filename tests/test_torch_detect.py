@@ -18,7 +18,7 @@ from ar_slam_tpu.detect.pallas_extract import extreme_quads_pallas
 from ar_slam_tpu_torch.detect import box, ccl, extract
 from ar_slam_tpu_torch.detect import detect as tdet
 from tests.test_detect import place_marker
-from torch_cases import cap_planes, extract_cases
+from torch_cases import cap_planes, extract_cases, rank_rows
 
 torch.set_num_threads(1)
 
@@ -220,6 +220,34 @@ def test_top_k_matches(subsample):
             lab, 16, subsample, 0.25))(jnp.asarray(labels[i]))
         np.testing.assert_array_equal(roots[i].numpy(), np.asarray(r_ref))
         np.testing.assert_array_equal(areas[i].numpy(), np.asarray(a_ref))
+
+
+@pytest.mark.parametrize("max_area_frac", [None, 0.25])
+@pytest.mark.parametrize("case", list(rank_rows()))
+def test_top_k_edge_rows_match(case, max_area_frac):
+    """top_k_components (the plain run scores K6 is held to, then the
+    stable top-k sort) against _top_k_components on the ranking's edge
+    rows (tests/torch_cases.py): background only, one run, one-cell runs
+    at both ends, equal scores (the lower label first), a demoted
+    oversized run, lower labels that first appear later: roots and areas
+    exactly, k = 5 so that the cut falls inside the ties."""
+    rows = rank_rows()[case]
+    w = 31
+    max_area = (max_area_frac * rows.shape[1] if max_area_frac is not None
+                else None)
+    roots, areas = tdet.top_k_components(torch.from_numpy(rows), 5, w,
+                                         max_area)
+    for i, row in enumerate(rows):
+        r_ref, a_ref = jax.jit(lambda lab: jdet._top_k_components(
+            lab, 5, w, max_area))(jnp.asarray(row))
+        np.testing.assert_array_equal(roots[i].numpy(), np.asarray(r_ref))
+        np.testing.assert_array_equal(areas[i].numpy(), np.asarray(a_ref))
+    if case == "ties":  # the five lowest of the twelve tied ring labels
+        tied = np.unique(rows[rows != 2**30])
+        np.testing.assert_array_equal(roots[0].numpy(), tied[:5])
+    if case == "demoted" and max_area is not None:
+        # last, below the two small ones
+        assert roots[0, :3].tolist() == [400, 900, 2]
 
 
 def test_small_helpers_match():

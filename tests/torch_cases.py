@@ -1,5 +1,5 @@
-"""Inputs shared by the port's CPU and card tests of K2, K3, K4 and the
-solver (numpy and the port only, so the card's test run, which has no jax,
+"""Inputs shared by the port's CPU and card tests of K2, K3, K4, K6 and
+the solver (numpy and the port only, so the card's test run, which has no jax,
 imports it too)."""
 
 import numpy as np
@@ -74,6 +74,48 @@ def extract_cases(h=40, w=52):
                       [ring, blob, BIG, BIG, ring, absent, blob, BIG]],
                      np.int32)
     return labels, roots
+
+
+def rank_rows(h=23, w=31, seed=11):
+    """Rows of pooled label grids (h x w, row-major) for the ranking's edge
+    cases, {name: (B, h * w) int32}, each ranked with grid width ``w``:
+
+    - ``all_big``: background only;
+    - ``one_run``: one label filling the row;
+    - ``single_ends``: no background, the lowest and the highest label
+      once each, so the sorted row starts and ends with a one-cell run;
+    - ``ties``: twelve equal hollow 3x3 rings labelled in grid order, so
+      their scores are equal and the cut must fall to the lower labels;
+    - ``demoted``: a component over a quarter of the grid beside small
+      ones, which ``max_area`` demotes;
+    - ``shuffled``: 40 labels scattered over 70 % of the cells, so lower
+      labels often first appear later in the grid than higher ones (the
+      running maximum of the first positions is then not the run's own).
+    """
+    rng = np.random.default_rng(seed)
+    p = h * w
+    rows = {"all_big": np.full((1, p), BIG, np.int32),
+            "one_run": np.full((1, p), 7, np.int32)}
+    ends = rng.integers(10, 60, size=p).astype(np.int32)
+    lo, hi = rng.choice(p, size=2, replace=False)
+    ends[lo], ends[hi] = 3, 1000
+    rows["single_ends"] = ends[None]
+    ties = np.full((h, w), BIG, np.int32)
+    labels = np.arange(12) * 7 + 1
+    for n, lab in enumerate(labels):
+        y, x = 1 + 5 * (n // 6), 1 + 5 * (n % 6)
+        ties[y:y + 3, x:x + 3] = lab
+        ties[y + 1, x + 1] = BIG
+    rows["ties"] = ties.reshape(1, -1)
+    demoted = np.full((h, w), BIG, np.int32)
+    demoted[:h // 2 + 2, :] = 2
+    demoted[h - 4:h - 1, 2:5] = 900
+    demoted[h - 3, 10:20] = 400
+    rows["demoted"] = demoted.reshape(1, -1)
+    shuffled = rng.integers(0, 40, size=(2, p)).astype(np.int32)
+    shuffled[rng.random((2, p)) < 0.3] = BIG
+    rows["shuffled"] = shuffled
+    return rows
 
 
 def synthetic_arrays(seed=3, n_tags=20, n_caps=10, perturb=0.01):
